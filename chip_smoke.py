@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA GPU.  It
+
+1. prints the card's name and power limit and builds the port's CUDA
+   kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a);
+2. serves full-width Qwen2.5-3B (36 layers, seeded random float32 weights)
+   through ``PagedServeEngine`` in ``OFF`` numerics — 8 requests sharing a
+   256-token system prompt — and checks that every request completes, that
+   the radix cache hit, and that the paged-attention kernel carried it;
+3. serves 4 of those requests in ``FUSED`` numerics and checks that the
+   fused crossbar->ACAM kernel carried every MLP gate;
+4. holds each kernel against its plain PyTorch version on the card at the
+   shapes the serve path launches, and times kernel, plain version and a
+   PyTorch library call beside the card's bound;
+5. serves a small model on the card and on the CPU (plain versions) and
+   checks the greedy tokens agree;
+
+then prints one JSON line with the kernels' numbers and, last, the device
+line.  It exits non-zero, printing no result, if there is no GPU, if it
+is not run from a checkout, or if any check fails.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+A_TOL = 1e-4                    # paged attention: f32 sums in another order
+B_MAX_FLIP_FRACTION = 1e-4      # fused crossbar->ACAM: one-code flips
+                                # (measured 0 at M=8, 7.6e-6 at M=512)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+class Timer:
+    """Device time of one call from CUDA events on its stream, with the
+    50 MB L2 flushed before each call (the serve path finds these operands
+    cold).  A spin kernel queued first keeps the device busy while the host
+    queues the flush and the call, so the events see the call's kernels
+    back to back, without the host's dispatch; if the device reached the
+    call before the host had queued it, the spin doubles and the sample is
+    taken again.  The flush reads a 128 MB buffer (a read leaves no dirty
+    lines for the timed call to write back).  ``call_ms`` is the same event
+    time without the spin: host dispatch included."""
+
+    source = "cuda-events behind a spin kernel (host dispatch hidden)"
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush_buf = torch.ones(16 << 20, dtype=torch.int64,
+                                    device="cuda")
+        self.spin_cycles = 1 << 22          # ~2 ms at the H100's clock
+
+    def _sample_ms(self, fn, spin: bool) -> float:
+        torch = self.torch
+        while True:
+            torch.cuda.synchronize()
+            if spin:
+                torch.cuda._sleep(self.spin_cycles)
+            self.flush_buf.max()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            exposed = e0.query()            # device waited on the host
+            torch.cuda.synchronize()
+            if not (spin and exposed):
+                return e0.elapsed_time(e1)
+            check(self.spin_cycles < 1 << 32, "timer: host dispatch of the "
+                  "timed call outlasts any spin")
+            self.spin_cycles *= 2
+
+    def ms(self, fn, iters: int = 10, warmup: int = 2) -> tuple[float, float]:
+        """(device ms per call, event ms per call with host dispatch)."""
+        for _ in range(warmup):
+            fn()
+        busy = sum(self._sample_ms(fn, True) for _ in range(iters))
+        call = sum(self._sample_ms(fn, False) for _ in range(iters))
+        return busy / iters, call / iters
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / F32_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def make_trace(cfg, n: int, max_new: int, base_tick: int):
+    from repro_torch.launch.engine import Request
+    rng = np.random.default_rng(SEED)
+    system = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 256))
+    reqs = []
+    for i in range(n):
+        suffix = tuple(int(t) for t in rng.integers(
+            0, cfg.vocab_size, int(rng.integers(64, 449))))
+        reqs.append(Request(rid=i, tokens=system + suffix,
+                            max_new_tokens=max_new,
+                            arrival=base_tick + 2 * i))
+    return reqs
+
+
+def serve(torch, engine, reqs, counter, label: str) -> dict:
+    """Warm up on a throwaway request, zero the kernel counters, drive the
+    trace through ``engine.run`` and check the completions."""
+    from repro_torch.launch.engine import Request
+    engine.run([Request(rid=-1, tokens=(1, 2, 3), max_new_tokens=2,
+                        arrival=engine.tick)])
+    base = engine.tick
+    reqs = [dataclasses.replace(r, arrival=base + r.arrival) for r in reqs]
+    for fn in counters():
+        fn.launches = 0
+    engine.prefill_seconds = engine.decode_seconds = 0.0
+    engine.decode_ticks = 0
+    # the path's launches inside each prefill chunk and each decode tick
+    split = {"prefill_chunk": [0, 0], "decode_tick": [0, 0]}
+
+    def counted(fn, key):
+        def call(*args, **kwargs):
+            before = counter.launches
+            out = fn(*args, **kwargs)
+            split[key][0] += 1
+            split[key][1] += counter.launches - before
+            return out
+        return call
+    engine._chunk = counted(engine._chunk, "prefill_chunk")
+    engine.step = counted(engine.step, "decode_tick")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    comps = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del engine._chunk, engine.step
+    launches = {fn.__name__: fn.launches for fn in counters()}
+    check(split["prefill_chunk"][1] + split["decode_tick"][1]
+          == launches[counter.__name__],
+          f"{label}: {counter.__name__} launched outside prefill and decode")
+    check(sorted(c.rid for c in comps) == [r.rid for r in reqs],
+          f"{label}: not every request completed")
+    for r, c in zip(reqs, comps):
+        check(len(c.tokens) == r.max_new_tokens,
+              f"{label}: rid {c.rid} has {len(c.tokens)} tokens, expected "
+              f"{r.max_new_tokens}")
+        check(all(0 <= t < engine.cfg.vocab_size for t in c.tokens),
+              f"{label}: rid {c.rid} emitted a token outside the vocabulary")
+    st = engine.stats
+    check(st["hits"] > 0, f"{label}: no radix prefix hit")
+    check(launches[counter.__name__] > 0,
+          f"{label}: {counter.__name__} was never launched")
+    n_gen = sum(len(c.tokens) for c in comps)
+    n_prefill = sum(len(r.tokens) for r in reqs) - st["prefill_tokens_saved"]
+    out = {"requests": len(comps), "generated_tokens": n_gen,
+           "prefilled_tokens": int(n_prefill), "wall_s": wall,
+           "tokens_per_s": n_gen / wall,
+           "decode_ms_per_tick": engine.decode_seconds * 1e3
+           / max(engine.decode_ticks, 1),
+           "decode_ticks": engine.decode_ticks,
+           "prefill_s": engine.prefill_seconds,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "prefix_hits": st["hits"], "lookups": st["lookups"],
+           "prefill_tokens_saved": st["prefill_tokens_saved"],
+           "cow_forks": st["cow_forks"], "launches": launches,
+           "prefill_chunks": split["prefill_chunk"][0],
+           "launches_per_prefill_chunk": split["prefill_chunk"][1]
+           / max(split["prefill_chunk"][0], 1),
+           "launches_per_decode_tick": split["decode_tick"][1]
+           / max(split["decode_tick"][0], 1)}
+    print(f"[{label}] " + json.dumps(out))
+    return out
+
+
+def path_launches(res: dict, name: str) -> dict:
+    """A kernel's launches over its serve phase, in all and per step."""
+    return {"launches": res["launches"][name],
+            "launches_per_decode_tick": res["launches_per_decode_tick"],
+            "launches_per_prefill_chunk": res["launches_per_prefill_chunk"]}
+
+
+def profile_window(torch, engine, reqs, label: str) -> dict:
+    """Where the time goes: serve ``reqs`` again (prefix-cache hits, fresh
+    rids) under the CUDA profiler; the device's busy and idle share of the
+    wall time and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    base = engine.tick
+    reqs = [dataclasses.replace(r, rid=100 + r.rid, arrival=base)
+            for r in reqs]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ka) / 1e6
+    out = {"requests": len(reqs), "wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall,
+           "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3]
+                              for e in ka[:8]]}
+    print(f"[{label} profile] " + json.dumps(out))
+    return out
+
+
+def paged_attention_phase(torch, timer, engine, launches: dict) -> dict:
+    """Kernel A on the OFF engine's own layer-0 pools and block tables:
+    decode (Q=1) and chunk prefill (Q=64), f32 and bf16 pools, with
+    sentinel entries written into the block table."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    cache = engine.cache
+    k0, v0 = cache["k"][0], cache["v"][0]
+    num_pages, hkv, ps, d = k0.shape
+    bt = cache["bt"].clone()
+    bt[0, 3] = num_pages                    # unmapped sentinel
+    bt[1, 5] = -1                           # negative sentinel
+    b, nb = bt.shape
+    hq = engine.cfg.n_heads
+    length = cache["pos"].shape[1]
+    pos = engine._pos.clone()               # K/V valid on [0, pos)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = []
+    for q_len in (1, 64):
+        q = torch.randn((b, hq, q_len, d), generator=gen, device="cuda")
+        lengths = torch.clamp(pos - q_len + 1, 1, length).to(torch.int32)
+        for pool_dtype in (torch.float32, torch.bfloat16):
+            kp, vp = k0.to(pool_dtype), v0.to(pool_dtype)
+            args = (q, kp, vp, bt, lengths)
+            out = paged_attention(*args)
+            ref = paged_attention_ref(*args)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), "paged_attention: "
+                  "non-finite output")
+            err = (out - ref).abs().max().item()
+            check(err <= A_TOL, f"paged_attention q_len={q_len} "
+                  f"{pool_dtype}: max |kernel - plain| {err} > {A_TOL}")
+            # library yardstick: SDPA on the gathered dense view (the
+            # gather itself is not timed)
+            btc = bt.long().clamp(0, num_pages - 1)
+            kd = kp[btc].transpose(1, 2).reshape(b, hkv, nb * ps, d)
+            vd = vp[btc].transpose(1, 2).reshape(b, hkv, nb * ps, d)
+            allowed = lengths.long()[:, None] + torch.arange(
+                q_len, device="cuda")
+            ok_blk = ((bt >= 0) & (bt < num_pages)).repeat_interleave(ps, 1)
+            mask = (torch.arange(nb * ps, device="cuda")[None, None]
+                    < allowed[..., None]) & ok_blk[:, None]
+            qd = q.to(pool_dtype)
+
+            def lib():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=mask[:, None], enable_gqa=True)
+
+            ms, call_ms = timer.ms(lambda: paged_attention(*args), iters=20)
+            plain_ms, _ = timer.ms(lambda: paged_attention_ref(*args),
+                                   iters=5)
+            lib_ms, _ = timer.ms(lib, iters=20)
+            # what this run's data needs: pages below each row's length
+            # that are mapped, each read once; 4*D FLOPs per attended
+            # (row, position) pair
+            bt_np, len_np = bt.cpu().numpy(), lengths.cpu().numpy()
+            mapped = (bt_np >= 0) & (bt_np < num_pages)
+            n_pages, pairs = 0, 0
+            for bi in range(b):
+                need = -(-(int(len_np[bi]) + q_len - 1) // ps)
+                n_pages += int(mapped[bi, :need].sum())
+                valid = np.repeat(mapped[bi], ps)
+                for j in range(q_len):
+                    pairs += int(valid[:int(len_np[bi]) + j].sum())
+            esz = kp.element_size()
+            nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + b * 4
+                      + 2 * n_pages * hkv * ps * d * esz)
+            flops = 4 * d * pairs * hq
+            bms, by = bound(nbytes, flops)
+            case = {"q_len": q_len, "pool": str(pool_dtype).split(".")[-1],
+                    "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bms, "bound_by": by}
+            print("[kernel A] " + json.dumps(case))
+            cases.append(case)
+    top = cases[0]                          # decode, f32 pool: the hot case
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:114",
+            **launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": A_TOL, "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library": "scaled_dot_product_attention on the gathered view",
+            "timing": timer.source, "cases": cases}
+
+
+def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
+    """Kernel B at the MLP gate's shapes: M in {8, 512}, K=2048, N=11008,
+    the layer-0 gate weight, the 8-bit silu table."""
+    from repro_torch.core.acam import get_table, table_thresholds
+    from repro_torch.kernels.dual_compute.ops import (fused_crossbar_acam,
+                                                      program)
+    from repro_torch.kernels.dual_compute.ref import (
+        effective_weight, fused_crossbar_acam_ref)
+    w = params["groups"]["b0"]["ffn"]["gate"][0]
+    k, n = w.shape
+    table = get_table("silu", 8)
+    lo, hi = table_thresholds(table, "cuda")
+    step = float(table.out_spec.step)
+    kw = dict(out_lo=float(table.out_spec.lo), out_step=step)
+    cells, inv = program(w)
+    w_eff = effective_weight(*cells, inv)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = []
+    for m in (8, 512):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        args = (x, *cells, inv, lo, hi)
+        out = fused_crossbar_acam(*args, **kw)
+        ref = fused_crossbar_acam_ref(*args, **kw)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err = diff.max().item()
+        flips = (diff > 0).float().mean().item()
+        check(err <= step * 1.0001, f"fused_crossbar_acam M={m}: max |kernel "
+              f"- plain| {err} > one ACAM code ({step})")
+        check(flips <= B_MAX_FLIP_FRACTION, f"fused_crossbar_acam M={m}: "
+              f"{flips:.2e} of outputs differ (> {B_MAX_FLIP_FRACTION})")
+        ms, call_ms = timer.ms(lambda: fused_crossbar_acam(*args, **kw),
+                               iters=10)
+        plain_ms, _ = timer.ms(lambda: fused_crossbar_acam_ref(*args, **kw),
+                               iters=3)
+        lib_ms, _ = timer.ms(lambda: torch.matmul(x, w_eff), iters=10)
+        nbytes = 4 * (m * k + 4 * k * n + m * n + 2 * lo.numel() + 1)
+        flops = 2 * m * k * n + 5 * k * n
+        bms, by = bound(nbytes, flops)
+        case = {"m": m, "k": k, "n": n, "max_abs_err": err,
+                "flipped_fraction": flips, "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+        print("[kernel B] " + json.dumps(case))
+        cases.append(case)
+    top = cases[0]                          # decode rows: most launches
+    return {"name": "fused_crossbar_acam", "route": "cuda",
+            "source": "src/repro_torch/csrc/dual_compute.cu",
+            "replaces": "src/repro/kernels/dual_compute/kernel.py:80",
+            **launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": f"one ACAM code ({step:.6g}) on at most "
+                         f"{B_MAX_FLIP_FRACTION:g} of outputs",
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library": "torch.matmul(x, W_eff), the GEMM alone",
+            "timing": timer.source, "cases": cases}
+
+
+def small_model_agrees(torch) -> None:
+    """The reduced model (float32 activations) served on the card through
+    the kernels and on the CPU through the plain versions gives the same
+    greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    rng = np.random.default_rng(SEED)
+    shared = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 12))
+    reqs = [Request(rid=i, tokens=shared + tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, 1 + 2 * i)), max_new_tokens=8, arrival=i)
+        for i in range(6)]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        params = {k: _to(v, dev) for k, v in cpu.items()}
+        eng = PagedServeEngine(cfg, params, max_slots=3, max_len=48,
+                               page_size=4, prefill_chunk=8, decode_block=2,
+                               device=dev)
+        tokens[dev] = {c.rid: c.tokens for c in eng.run(reqs)}
+    check(tokens["cpu"] == tokens["cuda"], "small model: card and CPU "
+          f"tokens differ: {tokens}")
+    print("[reference] small model: card tokens == CPU plain-path tokens")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def counters() -> list:
+    """The kernel wrappers, each counting its launches."""
+    from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    return [paged_attention, fused_crossbar_acam]
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's smoke test runs on the GPU")
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        fail(f"{ROOT} is not a checkout of the repository "
+             f"(src/repro_torch missing)")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.engine import PagedServeEngine
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip())
+    t0 = time.perf_counter()
+    logs = build.build_all(verbose=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    print(f"[build] {len(logs)} kernel sources compiled in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2_5_3b")
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[setup] {cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters "
+          f"(float32) in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    off = PagedServeEngine(cfg, params, max_slots=8, max_len=1024,
+                           nldpe=OFF, page_size=16, prefill_chunk=64,
+                           decode_block=4)
+    off_res = serve(torch, off, make_trace(cfg, 8, 32, 0), paged_attention,
+                    "serve OFF")
+    profile_window(torch, off, make_trace(cfg, 4, 32, 0), "serve OFF")
+    print(f"[serve OFF] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    fused = PagedServeEngine(cfg, params, max_slots=8, max_len=1024,
+                             nldpe=FUSED, page_size=16, prefill_chunk=64,
+                             decode_block=4)
+    fused_res = serve(torch, fused, make_trace(cfg, 4, 16, 0),
+                      fused_crossbar_acam, "serve FUSED")
+    profile_window(torch, fused, make_trace(cfg, 2, 16, 0), "serve FUSED")
+    del fused
+    print(f"[serve FUSED] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    kernels = [
+        paged_attention_phase(torch, timer, off,
+                              path_launches(off_res, "paged_attention")),
+        fused_acam_phase(torch, timer, params,
+                         path_launches(fused_res, "fused_crossbar_acam"))]
+    print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    small_model_agrees(torch)
+    print(f"[reference] phase {time.perf_counter() - t0:.1f} s")
+
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""ACAM array evaluation (port of ``repro.core.acam``).
+
+* ``match_bits`` / ``gray_decode_bits`` / ``eval_table`` — the
+  hardware-faithful interval matcher: per-bit row match
+  (lo <= x <= hi), OR across rows, XOR Gray decode.  These are the plain
+  versions the fused crossbar->ACAM kernel's epilogue is held against.
+* ``compile_piecewise`` / ``eval_piecewise`` — the noise-free fast path
+  the ``ON`` numerics use: the whole unit is a piecewise-constant map of
+  the scalar input, evaluated with a sorted-breakpoint search.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .dt import ACAMTable, build_table
+
+
+def match_bits(lo: torch.Tensor, hi: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """(bits, rows) thresholds, (...,) inputs -> (..., bits) {0,1} int32,
+    bit 0 = LSB: a row matches iff lo <= x <= hi, a bit is the OR of its
+    rows."""
+    xe = x[..., None, None]
+    m = (xe >= lo) & (xe <= hi)
+    return torch.any(m, dim=-1).to(torch.int32)
+
+
+def gray_decode_bits(g: torch.Tensor) -> torch.Tensor:
+    """(..., bits) Gray bit-planes -> (..., bits) binary planes:
+    b_i = XOR(g_{n-1}, ..., g_i), the reverse cumulative XOR."""
+    rev = torch.flip(g, dims=(-1,))
+    csum = torch.cumsum(rev, dim=-1) % 2
+    return torch.flip(csum, dims=(-1,)).to(torch.int32)
+
+
+def eval_table(lo: torch.Tensor, hi: torch.Tensor, x: torch.Tensor,
+               out_lo: float, out_step: float) -> torch.Tensor:
+    """Full Gray-coded ACAM unit: thresholds -> dequantized value (f32)."""
+    b = gray_decode_bits(match_bits(lo, hi, x))
+    weights = 2 ** torch.arange(b.shape[-1], device=b.device)
+    code = torch.sum(b.to(torch.int64) * weights, dim=-1).to(torch.float32)
+    return code * out_step + out_lo
+
+
+def eval_table_np(table: ACAMTable, x: np.ndarray) -> np.ndarray:
+    """numpy oracle (host side, copied)."""
+    x = np.asarray(x, np.float64)
+    xe = x[..., None, None]
+    m = (xe >= table.lo) & (xe <= table.hi)
+    g = np.any(m, axis=-1).astype(np.int64)
+    if table.encoding == "gray":
+        rev = g[..., ::-1]
+        b = (np.cumsum(rev, axis=-1) % 2)[..., ::-1]
+    else:
+        b = g
+    code = (b * (1 << np.arange(table.bits))).sum(-1)
+    return code * table.out_spec.step + table.out_spec.lo
+
+
+def table_thresholds(table: ACAMTable,
+                     device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) as f32 tensors on ``device``, uploaded once per table and
+    device (the decode loop reads them every layer of every step)."""
+    device = torch.device(device)
+    dev = table.__dict__.setdefault("_torch_thresholds", {})
+    if device not in dev:
+        dev[device] = (torch.from_numpy(table.lo).to(device),
+                       torch.from_numpy(table.hi).to(device))
+    return dev[device]
+
+
+@dataclasses.dataclass
+class PiecewiseFn:
+    """Sorted breakpoints b_0<...<b_{K-1} and K+1 region values."""
+
+    name: str
+    breakpoints: np.ndarray    # (K,)   float32
+    values: np.ndarray         # (K+1,) float32
+
+    def on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        device = torch.device(device)
+        dev = self.__dict__.setdefault("_torch", {})
+        if device not in dev:
+            dev[device] = (torch.from_numpy(self.breakpoints).to(device),
+                           torch.from_numpy(self.values).to(device))
+        return dev[device]
+
+
+def compile_piecewise(table: ACAMTable) -> PiecewiseFn:
+    """Collapse the per-bit intervals into one piecewise-constant map."""
+    bps = np.unique(np.concatenate([
+        table.lo[table.lo < 1e29].ravel(), table.hi[table.hi > -1e29].ravel()]))
+    edges = np.concatenate([[bps[0] - 1.0], bps, [bps[-1] + 1.0]])
+    mids = 0.5 * (edges[:-1] + edges[1:])
+    vals = eval_table_np(table, mids).astype(np.float32)
+    return PiecewiseFn(table.name, bps.astype(np.float32), vals)
+
+
+def eval_piecewise(breakpoints: torch.Tensor, values: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """values[searchsorted(breakpoints, x, side="left")]."""
+    idx = torch.searchsorted(breakpoints, x.to(torch.float32).contiguous(),
+                             side="left")
+    return values[idx]
+
+
+_TABLE_CACHE: dict[tuple, ACAMTable] = {}
+_PW_CACHE: dict[tuple, PiecewiseFn] = {}
+
+
+def get_table(name: str, bits: int = 8) -> ACAMTable:
+    """The Gray-coded table of ``name`` over its reference domain."""
+    key = (name, bits)
+    if key not in _TABLE_CACHE:
+        _TABLE_CACHE[key] = build_table(name, bits=bits, encoding="gray")
+    return _TABLE_CACHE[key]
+
+
+def get_piecewise(name: str, bits: int = 8) -> PiecewiseFn:
+    key = (name, bits)
+    if key not in _PW_CACHE:
+        _PW_CACHE[key] = compile_piecewise(get_table(name, bits))
+    return _PW_CACHE[key]
+
+
+def acam_activation(x: torch.Tensor, name: str,
+                    bits: int = 8) -> torch.Tensor:
+    """Model-level op: the ACAM-computed activation (piecewise fast path)."""
+    bp, vals = get_piecewise(name, bits).on(x.device)
+    return eval_piecewise(bp, vals, x).to(x.dtype)

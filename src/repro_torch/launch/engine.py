@@ -1,0 +1,540 @@
+"""Continuous-batching serve engine over a paged KV cache with radix prefix
+sharing (port of ``repro.launch.engine.PagedServeEngine``).
+
+* **Slots** — ``max_slots`` independent sequences share one batch; each
+  maps logical blocks onto physical pages of a per-layer pool through its
+  block-table row (``launch/kvpool.py`` owns the page metadata).
+* **Admission** — a wave of requests is planned onto pages (radix hits are
+  mapped read-only, a fully covered prompt forks its boundary page
+  copy-on-write, the rest is allocated, evicting LRU cache if needed),
+  published, and its prompt *suffix* is prefilled in fixed
+  ``(max_slots, prefill_chunk)`` chunks at per-slot base positions.
+* **Decode** — each tick runs ``decode_block`` steps over all slots; a
+  per-slot write mask freezes finished and empty slots.  ``_dispatch_tick``
+  issues the device work and ``_harvest`` folds the emitted tokens into the
+  requests on the host.
+* **Sampling** — per-slot greedy / temperature / top-k keyed on (request
+  seed, position), independent of slot placement (``launch/sampling.py``).
+
+Not ported yet (``ROADMAP.md`` queue A): the slotted engine, speculative
+decoding, drift/fidelity, telemetry, the host spill tier and preemption,
+meshes, AOT prefill buckets, the async engine and quantized KV pools.
+
+Where ``repro`` donates device buffers to its jitted steps, this engine
+updates the cache and the decode state in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.engine import NLDPEConfig, OFF
+from ..models import lm
+from .kvpool import PagePool, nldpe_fingerprint
+from .sampling import TOP_K_CAP, request_key, sample_tokens, step_keys
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One generation request entering the scheduler."""
+
+    rid: int
+    tokens: tuple[int, ...]            # prompt token ids, length >= 1
+    max_new_tokens: int = 16           # total generated tokens (incl. first)
+    temperature: float = 0.0           # 0 -> greedy; finite, >= 0
+    top_k: int = 0                     # 0 -> disabled
+    seed: int | None = None            # defaults to rid
+    arrival: int = 0                   # arrival time in decode ticks
+
+
+@dataclasses.dataclass
+class Completion:
+    """Scheduler output for one finished request."""
+
+    rid: int
+    prompt: tuple[int, ...]
+    tokens: list[int]                  # generated tokens, length <= max_new
+    finish_reason: str                 # "length" | "eos"
+    admitted_tick: int
+    finished_tick: int
+
+
+class PagedServeEngine:
+    """Continuous batching over a paged KV cache with radix prefix sharing.
+
+    Drive it with :meth:`run` (serve a whole trace, returns completions
+    sorted by rid).  ``params`` is the float32 parameter tree of
+    ``models.lm.init_params`` (or ``convert.from_jax``) on ``device`` — the
+    card unless ``device="cpu"``.
+    """
+
+    def __init__(self, cfg, params, *, max_slots: int, max_len: int,
+                 nldpe: NLDPEConfig = OFF, prefill_chunk: int = 16,
+                 decode_block: int = 4, eos_id: int = -1,
+                 dtype=torch.float32, page_size: int = 16,
+                 num_pages: int | None = None, device=None):
+        if any(t != "attn" for t in cfg.layer_pattern):
+            raise NotImplementedError(
+                f"the paged engine serves attention blocks only; "
+                f"{cfg.name} pattern is {cfg.layer_pattern}")
+        if prefill_chunk < 1 or decode_block < 1 or max_slots < 1:
+            raise ValueError("max_slots, prefill_chunk, decode_block >= 1")
+        if page_size < 1:
+            raise ValueError("page_size >= 1")
+        self.device = resolve_device(device)
+        if params["embed"]["table"].device.type != self.device.type:
+            raise ValueError(f"params live on "
+                             f"{params['embed']['table'].device}, the engine "
+                             f"on {self.device}")
+        self.cfg = cfg
+        self.nldpe = nldpe
+        self.params = lm.serving_params(params, cfg, nldpe)
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.prefill_chunk = min(prefill_chunk, max_len)
+        self.decode_block = decode_block
+        self.eos_id = eos_id
+        self.page_size = page_size
+        self.n_blocks = -(-max_len // page_size)
+        self.num_pages = (max_slots * self.n_blocks if num_pages is None
+                          else num_pages)
+        self.pool = PagePool(self.num_pages, page_size)
+        self._fp = nldpe_fingerprint(nldpe)
+        self.cache = lm.init_model_cache(
+            cfg, max_slots, max_len, paged=(self.num_pages, page_size),
+            dtype=dtype, device=self.device)
+
+        s, dev = max_slots, self.device
+        self._tok = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._pos = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._active = torch.zeros((s,), dtype=torch.bool, device=dev)
+        self._gen_left = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._temp = torch.zeros((s,), dtype=torch.float32, device=dev)
+        self._topk = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._keys = torch.zeros((s, 2), dtype=torch.int64, device=dev)
+
+        self._slot_owner: list[Request | None] = [None] * s
+        self._slot_pages: list[list[int] | None] = [None] * s
+        self._free = deque(range(s))
+        self._out: dict[int, list[int]] = {}
+        self._admitted_tick: dict[int, int] = {}
+        self.tick = 0
+        # host-clock totals (each region ends in a device->host copy, so
+        # the device work inside it has finished)
+        self.prefill_seconds = 0.0
+        self.decode_seconds = 0.0
+        self.decode_ticks = 0
+
+    # ------------------------------------------------------------------
+    # device helpers
+    # ------------------------------------------------------------------
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _clip_pos(self, mask: torch.Tensor, bound: torch.Tensor) -> None:
+        """On masked slots, make every position >= bound never-valid."""
+        pos = self.cache["pos"]
+        pos.masked_fill_(mask[:, None] & (pos >= bound[:, None]), -1)
+
+    def _chunk(self, tokens, base_pos, mask, limit) -> torch.Tensor:
+        """One (max_slots, prefill_chunk) suffix-prefill chunk at per-slot
+        base positions.  Pre-clear: stale entries >= base on writing slots
+        become never-valid before the chunk attends; post-clip: entries
+        >= limit (= min(prompt length, chunk end)) trim the padded tail."""
+        c = self.prefill_chunk
+        self._clip_pos(mask, base_pos)
+        positions = base_pos[:, None] + torch.arange(
+            c, dtype=torch.int32, device=self.device)
+        logits = lm.forward(self.params, tokens, self.cfg,
+                            cache=self.cache, positions=positions,
+                            nldpe=self.nldpe, write_mask=mask)
+        self._clip_pos(mask, limit)
+        return logits
+
+    def _setup(self, admit: np.ndarray, reuse: np.ndarray,
+               new_bt: np.ndarray) -> None:
+        """Admission reset of the admitted slots: new block-table rows and
+        a position track valid on ``[0, reuse)`` (the radix-hit prefix),
+        never-valid beyond."""
+        m = self._t(admit)
+        iota = torch.arange(self.max_len, dtype=torch.int32,
+                            device=self.device)
+        fresh = torch.where(iota[None] < self._t(reuse)[:, None], iota, -1)
+        self.cache["pos"].copy_(torch.where(m[:, None], fresh,
+                                            self.cache["pos"]))
+        self.cache["bt"].copy_(torch.where(m[:, None], self._t(new_bt),
+                                           self.cache["bt"]))
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write fork: page ``src`` -> ``dst`` in every layer."""
+        for name in ("k", "v"):
+            self.cache[name][:, dst] = self.cache[name][:, src]
+
+    def _merge_state(self, sel: np.ndarray, tok, pos, gen, temp, topk,
+                     keys) -> None:
+        """Write admitted slots' decode state (one masked merge)."""
+        m = self._t(sel)
+        self._tok = torch.where(m, self._t(tok), self._tok)
+        self._pos = torch.where(m, self._t(pos), self._pos)
+        self._active = self._active | m
+        self._gen_left = torch.where(m, self._t(gen), self._gen_left)
+        self._temp = torch.where(m, self._t(temp), self._temp)
+        self._topk = torch.where(m, self._t(topk), self._topk)
+        self._keys = torch.where(m[:, None], self._t(keys), self._keys)
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+
+    def _validate(self, req: Request) -> None:
+        """Reject degenerate requests at admission with a clear error."""
+        p = len(req.tokens)
+        if p < 1:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.rid}: max_new_tokens="
+                f"{req.max_new_tokens} <= 0 (nothing to generate)")
+        if p > self.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt length {p} > max_len="
+                f"{self.max_len} (prompt alone overflows the KV cache)")
+        bad = [t for t in req.tokens
+               if not (0 <= int(t) < self.cfg.vocab_size)]
+        if bad:
+            raise ValueError(
+                f"request {req.rid}: token ids {bad[:4]} outside "
+                f"[0, vocab_size={self.cfg.vocab_size})")
+        if req.top_k < 0:
+            raise ValueError(f"request {req.rid}: top_k={req.top_k} < 0")
+        if TOP_K_CAP < req.top_k < self.cfg.vocab_size:
+            raise ValueError(
+                f"request {req.rid}: top_k={req.top_k} exceeds "
+                f"TOP_K_CAP={TOP_K_CAP} but is below vocab_size="
+                f"{self.cfg.vocab_size}; use top_k <= {TOP_K_CAP}, or >= "
+                f"vocab_size to disable top-k")
+        if not (req.temperature >= 0 and math.isfinite(req.temperature)):
+            raise ValueError(
+                f"request {req.rid}: temperature={req.temperature} must "
+                f"be finite and >= 0 (0 -> greedy)")
+        if req.rid in self._out:
+            raise ValueError(f"request {req.rid}: rid already in flight")
+        need = p + req.max_new_tokens - 1
+        if need > self.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt {p} + {req.max_new_tokens} new "
+                f"tokens needs {need} positions > max_len={self.max_len}")
+
+    def _plan(self, req: Request, *, peek: bool) -> dict:
+        """Map a request onto pages: radix-hit pages to share, an optional
+        COW fork of the boundary page, and the fresh pages its
+        prompt + gen footprint needs.  ``peek=True`` never touches pool
+        state and also reports ``cost`` (fresh pages plus refcount-0 hits,
+        which retaining takes out of the evictable set)."""
+        ps = self.page_size
+        plen = len(req.tokens)
+        hit = self.pool.match(self._fp, req.tokens, peek=peek)
+        fork_src = None
+        if hit and len(hit) * ps > plen - 1:
+            # the cache covers the whole prompt: the boundary page becomes
+            # private (final-token recompute + decode appends land in it)
+            fork_src = hit[-1]
+            hit = hit[:-1]
+            reuse = plen - 1
+        else:
+            reuse = len(hit) * ps
+        footprint = min(plen + req.max_new_tokens - 1, self.max_len)
+        nb_need = -(-footprint // ps)
+        plan = {"hit": hit, "fork_src": fork_src, "reuse": reuse,
+                "nb_need": nb_need, "n_fresh": nb_need - len(hit)}
+        if peek:
+            plan["ref0_pages"] = [p for p in hit
+                                  if self.pool.refcount(p) == 0]
+        return plan
+
+    def _select_wave(self, waiting: deque) -> list[Request]:
+        """Admit requests while both a slot and their page budget fit;
+        raise if the head request cannot fit even an idle pool."""
+        wave: list[Request] = []
+        spent = 0
+        charged: set[int] = set()     # ref-0 hit pages already budgeted
+        while waiting and len(wave) < len(self._free):
+            plan = self._plan(waiting[0], peek=True)
+            ref0_new = [p for p in plan["ref0_pages"] if p not in charged]
+            cost = plan["n_fresh"] + len(ref0_new)
+            if cost > self.pool.available() - spent:
+                break
+            charged.update(ref0_new)
+            spent += cost
+            wave.append(waiting.popleft())
+        if not wave and waiting and not self.any_active:
+            plan = self._plan(waiting[0], peek=True)
+            need = plan["n_fresh"] + len(plan["ref0_pages"])
+            raise RuntimeError(
+                f"request {waiting[0].rid} needs {need} pages but the pool "
+                f"holds {self.pool.num_pages} (page_size="
+                f"{self.page_size}); grow num_pages or shrink the request")
+        return wave
+
+    def _release_slot(self, sl: int, seq: tuple | None = None) -> None:
+        """A slot's request finished: publish its committed sequence (the
+        prompt plus every generated token whose K/V was written) as prefix
+        cache, then drop the slot's page references."""
+        pages = self._slot_pages[sl]
+        if pages is not None:
+            if seq is not None:
+                self.pool.publish_committed(self._fp, seq, pages)
+            self.pool.release(pages)
+            self._slot_pages[sl] = None
+
+    def _prefill(self, admit, plen, reuse, tokens, ci, col) -> torch.Tensor:
+        """Chunked suffix prefill of one wave; returns the (S, V) logits of
+        each admitted slot's last prompt token (merged chunk by chunk, so
+        wave memory never scales with the chunk count)."""
+        s, c = self.max_slots, self.prefill_chunk
+        suffix = plen - reuse
+        n_chunks = -(-int(suffix[admit].max()) // c)
+        rows = torch.arange(s, device=self.device)
+        col_t = self._t(col.astype(np.int64))
+        last = torch.zeros((s, self.cfg.vocab_size), dtype=torch.float32,
+                           device=self.device)
+        for i in range(n_chunks):
+            mask = self._t(admit & (i * c < suffix))
+            limit = np.minimum(plen, reuse + (i + 1) * c).astype(np.int32)
+            base = (reuse + i * c).astype(np.int32)
+            lg = self._chunk(self._t(tokens[:, i * c:(i + 1) * c]),
+                             self._t(base), mask, self._t(limit))
+            take = self._t(admit & (ci == i))
+            last = torch.where(take[:, None], lg[rows, col_t], last)
+        return last
+
+    def _admit_wave(self, reqs: list[Request]) -> list[Completion]:
+        """Plan -> retain/alloc -> COW -> publish -> reset -> suffix
+        prefill -> sample first tokens -> merge decode state."""
+        t0 = time.perf_counter()
+        rids = [r.rid for r in reqs]
+        if len(set(rids)) != len(rids):
+            raise ValueError(f"duplicate rids in one admission wave: {rids}")
+        for r in reqs:
+            self._validate(r)
+        s, c = self.max_slots, self.prefill_chunk
+
+        # Phase 1: plan + commit pool state for every request before any
+        # publish: wave-mates never share each other's pages (their prefill
+        # runs in the same chunk calls).
+        slots = [self._free.popleft() for _ in reqs]
+        plans = []
+        for r, sl in zip(reqs, slots):
+            plan = self._plan(r, peek=False)
+            self.pool.retain(plan["hit"])
+            fresh = self.pool.alloc(plan["n_fresh"])
+            if fresh is None:
+                self.pool.release(plan["hit"])
+                for pl in plans:
+                    self.pool.release(pl["hit"])
+                    self.pool.release(pl["fresh"])
+                for sl2 in reversed(slots):
+                    self._free.appendleft(sl2)
+                raise RuntimeError(
+                    f"request {r.rid}: page pool exhausted "
+                    f"({self.pool.available()} available, "
+                    f"{plan['n_fresh']} needed)")
+            plan["fresh"] = fresh
+            plans.append(plan)
+
+        # every allocation succeeded: COW copies and stats only now
+        for sl, plan in zip(slots, plans):
+            fresh = plan["fresh"]
+            if plan["fork_src"] is not None:
+                self._copy_page(plan["fork_src"], fresh[0])
+                self.pool.note_cow()
+            bt_row = plan["hit"] + fresh
+            assert len(bt_row) == plan["nb_need"]
+            plan["bt_row"] = bt_row
+            self._slot_pages[sl] = list(bt_row)
+            self.pool.stats["prefill_tokens_saved"] += plan["reuse"]
+
+        # Phase 2: publish full prompt pages for future waves
+        for r, plan in zip(reqs, plans):
+            n_full = len(r.tokens) // self.page_size
+            self.pool.publish(self._fp, r.tokens, plan["bt_row"][:n_full])
+
+        # Phase 3: block tables + position tracks of the admitted slots
+        admit = np.zeros((s,), bool)
+        reuse = np.zeros((s,), np.int32)
+        new_bt = np.full((s, self.n_blocks), self.num_pages, np.int32)
+        plen = np.ones((s,), np.int32)
+        for r, sl, plan in zip(reqs, slots, plans):
+            admit[sl] = True
+            reuse[sl] = plan["reuse"]
+            new_bt[sl, :plan["nb_need"]] = plan["bt_row"]
+            plen[sl] = len(r.tokens)
+        self._setup(admit, reuse, new_bt)
+
+        # Phase 4: chunked suffix prefill at per-slot base positions
+        suffix = plen - reuse                     # >= 1: last token always
+        n_chunks = -(-int(suffix[admit].max()) // c)
+        tokens = np.zeros((s, n_chunks * c), np.int32)
+        ci = np.zeros((s,), np.int32)
+        col = np.zeros((s,), np.int32)
+        keys = np.zeros((s, 2), np.int64)
+        temp = np.zeros((s,), np.float32)
+        topk = np.zeros((s,), np.int32)
+        for r, sl, plan in zip(reqs, slots, plans):
+            tokens[sl, :suffix[sl]] = r.tokens[plan["reuse"]:]
+            ci[sl] = (suffix[sl] - 1) // c
+            col[sl] = (suffix[sl] - 1) % c
+            keys[sl] = request_key(r.seed if r.seed is not None
+                                   else r.rid).numpy()
+            temp[sl] = r.temperature
+            topk[sl] = r.top_k
+        last = self._prefill(admit, plen, reuse, tokens, ci, col)
+        firsts = sample_tokens(last, step_keys(self._t(keys), self._t(plen)),
+                               self._t(temp), self._t(topk)).cpu().numpy()
+        self.prefill_seconds += time.perf_counter() - t0
+
+        # Phase 5: record first tokens, retire instant finishes, merge the
+        # decode state of the rest
+        done: list[Completion] = []
+        sel = np.zeros((s,), bool)
+        n_tok = np.zeros((s,), np.int32)
+        n_gen = np.zeros((s,), np.int32)
+        for r, sl in zip(reqs, slots):
+            first = int(firsts[sl])
+            self._out[r.rid] = [first]
+            self._admitted_tick[r.rid] = self.tick
+            if r.max_new_tokens == 1 or (self.eos_id >= 0
+                                         and first == self.eos_id):
+                self._release_slot(sl)
+                self._free.appendleft(sl)
+                done.append(self._complete(
+                    r, "eos" if first == self.eos_id else "length"))
+                continue
+            self._slot_owner[sl] = r
+            sel[sl] = True
+            n_tok[sl] = first
+            n_gen[sl] = r.max_new_tokens - 1
+        if sel.any():
+            self._merge_state(sel, n_tok, plen, n_gen, temp, topk, keys)
+        return done
+
+    def _complete(self, req: Request, reason: str) -> Completion:
+        return Completion(rid=req.rid, prompt=tuple(req.tokens),
+                          tokens=self._out.pop(req.rid),
+                          finish_reason=reason,
+                          admitted_tick=self._admitted_tick.pop(req.rid),
+                          finished_tick=self.tick)
+
+    # ------------------------------------------------------------------
+    # decode tick + trace scheduler
+    # ------------------------------------------------------------------
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def any_active(self) -> bool:
+        return any(o is not None for o in self._slot_owner)
+
+    @property
+    def stats(self) -> dict:
+        """Pool + prefix-sharing counters (see kvpool.PagePool.stats)."""
+        return dict(self.pool.stats)
+
+    def _dispatch_tick(self):
+        """Device work of one decode tick: ``decode_block`` steps over all
+        slots.  Returns the (T, S) emitted tokens (-1 = none) and the
+        post-tick active mask, both still on the device."""
+        emits = []
+        tok, pos, active, gen_left = (self._tok, self._pos, self._active,
+                                      self._gen_left)
+        for _ in range(self.decode_block):
+            logits = lm.decode_step(self.params, self.cfg, tok, pos,
+                                    self.cache, nldpe=self.nldpe,
+                                    write_mask=active)
+            nxt = sample_tokens(logits, step_keys(self._keys, pos + 1),
+                                self._temp, self._topk)
+            emits.append(torch.where(active, nxt, -1))
+            gen_left = gen_left - active.to(torch.int32)
+            done = gen_left <= 0
+            if self.eos_id >= 0:
+                done = done | (nxt == self.eos_id)
+            tok = torch.where(active, nxt, tok)
+            pos = pos + active.to(torch.int32)
+            active = active & ~done
+        self._tok, self._pos, self._active, self._gen_left = (
+            tok, pos, active, gen_left)
+        self.tick += self.decode_block
+        return torch.stack(emits), active
+
+    def step(self) -> list[Completion]:
+        """One decode tick; returns the requests that finished in it."""
+        t0 = time.perf_counter()
+        emits, active = self._dispatch_tick()
+        emits = emits.cpu().numpy()        # the tick's one host sync
+        active = active.cpu().numpy()
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_ticks += 1
+        return self._harvest(emits, active)
+
+    def _harvest(self, emits: np.ndarray,
+                 active: np.ndarray) -> list[Completion]:
+        """Fold one tick's emitted tokens (T, S) into the per-request
+        outputs and retire slots that went inactive."""
+        done: list[Completion] = []
+        for s, req in enumerate(self._slot_owner):
+            if req is None:
+                continue
+            self._out[req.rid].extend(int(t) for t in emits[:, s] if t >= 0)
+            if not active[s]:
+                last = self._out[req.rid][-1]
+                reason = ("eos" if self.eos_id >= 0 and last == self.eos_id
+                          else "length")
+                comp = self._complete(req, reason)
+                done.append(comp)
+                self._slot_owner[s] = None
+                self._release_slot(s, seq=comp.prompt
+                                   + tuple(comp.tokens[:-1]))
+                self._free.append(s)
+        return done
+
+    def run(self, requests: list[Request]) -> list[Completion]:
+        """Serve a whole trace: admit each request at its ``arrival`` tick
+        (or as soon after as a slot and its pages free up), decode
+        continuously, return completions sorted by rid."""
+        queue = deque(sorted(requests, key=lambda r: r.arrival))
+        waiting: deque[Request] = deque()
+        completions: list[Completion] = []
+        while queue or waiting or self.any_active:
+            progressed = False
+            while queue and queue[0].arrival <= self.tick:
+                waiting.append(queue.popleft())
+                progressed = True
+            if waiting and self._free:
+                wave = self._select_wave(waiting)
+                if wave:
+                    completions.extend(self._admit_wave(wave))
+                    progressed = True
+            if not self.any_active:
+                if progressed:
+                    continue        # instant finishes freed slots; re-admit
+                if queue:
+                    # idle until the next arrival: strictly advances the tick
+                    self.tick = max(self.tick, queue[0].arrival)
+                    continue
+                if waiting:
+                    raise RuntimeError(
+                        f"scheduler deadlock: {len(waiting)} waiting, no "
+                        f"active slots, no future arrivals, and admission "
+                        f"made no progress")
+                break
+            completions.extend(self.step())
+        return sorted(completions, key=lambda c: c.rid)

@@ -1,0 +1,165 @@
+"""Decoder-only LM of the ``("attn",)`` layer pattern (port of the serving
+parts of ``repro.models.lm``).
+
+Parameters keep ``repro``'s tree, names and stacked ``"groups"`` layout
+(leading axis = layer), so ``convert.from_jax`` maps one onto the other
+leaf by leaf.  Where ``repro`` scans over the stacked groups, the port
+loops over layers in Python.
+
+The paged cache of the whole model is ``{"k", "v", "pos", "bt"}``: per-layer
+K/V pools stacked on a leading layer axis (L, P, Hkv, page_size, D), and
+ONE position track (B, max_len) and block table (B, NB) — ``repro`` keeps a
+copy of each per layer, but every layer's copy holds the same values.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+from ..core.engine import NLDPEConfig, OFF
+from ..nn.attention import AttnSpec, attn_apply, paged_write_plan
+from ..nn.basic import embedding_apply, rmsnorm_apply, unembed_apply
+from ..nn.mlp import mlp_apply
+
+
+def attn_spec(cfg) -> AttnSpec:
+    return AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+
+
+def _check_cfg(cfg) -> None:
+    bad = [t for t in cfg.layer_pattern if t != "attn"]
+    if bad or cfg.window or cfg.qk_norm or cfg.attn_softcap \
+            or cfg.logit_softcap or cfg.embed_scale:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the plain ('attn',) pattern only "
+            f"(no windows, qk-norm, softcaps or embedding scale)")
+
+
+def init_params(cfg, *, generator: torch.Generator | None = None,
+                device=None) -> dict:
+    """Random parameters with ``repro``'s tree and init distributions
+    (``nn/module.py:58``): normal scaled by fan_in^-1/2 for projections,
+    0.02 for the embedding, (Hq*Dh)^-1/2 for the output projection, zero
+    biases and unit norm scales.  Drawn from ``generator`` on ``device``
+    (the card unless ``device="cpu"``)."""
+    _check_cfg(cfg)
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    d, n = cfg.d_model, cfg.n_layers
+    s = attn_spec(cfg)
+
+    def normal(shape, scale):
+        x = torch.randn((n, *shape), generator=generator, device=device,
+                        dtype=torch.float32)
+        return x.mul_(scale)
+
+    def const(shape, value, layers=True):
+        return torch.full(((n,) if layers else ()) + tuple(shape), value,
+                          dtype=torch.float32, device=device)
+
+    attn = {"wq": normal((d, s.n_heads, s.head_dim), d ** -0.5),
+            "wk": normal((d, s.n_kv_heads, s.head_dim), d ** -0.5),
+            "wv": normal((d, s.n_kv_heads, s.head_dim), d ** -0.5),
+            "wo": normal((s.n_heads, s.head_dim, d),
+                         (s.n_heads * s.head_dim) ** -0.5)}
+    if cfg.qkv_bias:
+        attn.update(bq=const((s.n_heads, s.head_dim), 0.0),
+                    bk=const((s.n_kv_heads, s.head_dim), 0.0),
+                    bv=const((s.n_kv_heads, s.head_dim), 0.0))
+    ffn = {"up": normal((d, cfg.d_ff), d ** -0.5),
+           "down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
+    if cfg.gated_mlp:
+        ffn["gate"] = normal((d, cfg.d_ff), d ** -0.5)
+    table = torch.randn((cfg.vocab_size, d), generator=generator,
+                        device=device, dtype=torch.float32).mul_(0.02)
+    params = {"embed": {"table": table},
+              "groups": {"b0": {"norm1": {"scale": const((d,), 1.0)},
+                                "norm2": {"scale": const((d,), 1.0)},
+                                "attn": attn, "ffn": ffn}},
+              "final_norm": {"scale": const((d,), 1.0, layers=False)}}
+    if not cfg.tie_embeddings:
+        w = torch.randn((d, cfg.vocab_size), generator=generator,
+                        device=device, dtype=torch.float32) * d ** -0.5
+        params["lm_head"] = {"w": w}
+    return params
+
+
+def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
+    """The parameter tree a server runs from: every matmul weight and bias
+    cast once to the activation dtype — the values ``x @ w.astype(x.dtype)``
+    gives per call in ``repro`` — except the MLP gate under ``FUSED``,
+    which the crossbar->ACAM kernel programs from the float32 master."""
+    act = cfg.activation_dtype
+    blk = params["groups"]["b0"]
+    fused = nldpe.enabled and nldpe.fused_dual_compute
+    ffn = {k: (v if k == "gate" and fused else v.to(act))
+           for k, v in blk["ffn"].items()}
+    out = dict(params)
+    out["groups"] = {"b0": dict(blk, ffn=ffn, attn={
+        k: v.to(act) for k, v in blk["attn"].items()})}
+    return out
+
+
+def init_model_cache(cfg, batch: int, max_len: int, *,
+                     paged: tuple[int, int], dtype=torch.float32,
+                     device=None) -> dict:
+    """Paged cache for every layer: ``paged=(num_pages, page_size)``.
+    Unmapped block-table entries hold the sentinel ``num_pages``."""
+    _check_cfg(cfg)
+    device = resolve_device(device)
+    num_pages, page_size = paged
+    s = attn_spec(cfg)
+    kv = (cfg.n_layers, num_pages, s.n_kv_heads, page_size, s.head_dim)
+    n_blocks = -(-max_len // page_size)
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
+            "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device),
+            "bt": torch.full((batch, n_blocks), num_pages, dtype=torch.int32,
+                             device=device)}
+
+
+def layer_cache(cache: dict, i: int) -> dict:
+    """Layer ``i``'s view of the model cache (pools are views: writes land
+    in the model cache)."""
+    return {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"],
+            "bt": cache["bt"]}
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg, *, cache: dict,
+            positions: torch.Tensor, nldpe: NLDPEConfig = OFF,
+            write_mask=None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) float32; ``cache`` updates in place.
+
+    ``repro``'s "chunk" and "decode" modes: ``positions`` (B, S) per-slot
+    offsets; ``write_mask`` (B,) bool freezes masked slots' caches."""
+    spec = attn_spec(cfg)
+    x = embedding_apply(params["embed"], tokens, dtype=cfg.activation_dtype)
+    plan = paged_write_plan(layer_cache(cache, 0), positions, write_mask)
+    blocks = params["groups"]["b0"]
+    for i in range(cfg.n_layers):
+        p = {k: {n: t[i] for n, t in v.items()} for k, v in blocks.items()}
+        h = rmsnorm_apply(p["norm1"], x)
+        a = attn_apply(p["attn"], spec, h, positions=positions,
+                       cache=layer_cache(cache, i), plan=plan, nldpe=nldpe)
+        x = x + a.to(x.dtype)
+        h2 = rmsnorm_apply(p["norm2"], x)
+        x = x + mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe).to(x.dtype)
+    x = rmsnorm_apply(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return unembed_apply(params["embed"], x)
+    return x.to(torch.float32) @ params["lm_head"]["w"].to(torch.float32)
+
+
+def decode_step(params: dict, cfg, token: torch.Tensor, pos: torch.Tensor,
+                cache: dict, nldpe: NLDPEConfig = OFF,
+                write_mask=None) -> torch.Tensor:
+    """token (B,), pos (B,) per-slot -> logits (B, V)."""
+    logits = forward(params, token[:, None], cfg, cache=cache,
+                     positions=pos[:, None].to(torch.int32), nldpe=nldpe,
+                     write_mask=write_mask)
+    return logits[:, 0]
+

@@ -1,0 +1,149 @@
+"""Kernel-vs-plain checks of the port's CUDA kernels, run on the card.
+
+Marked ``gpu``: they skip where CUDA is absent (decided inside the
+fixture, never at import).  On a machine with an H100:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.convert import from_jax
+from repro_torch.core.acam import get_table, table_thresholds
+from repro_torch.kernels.dual_compute.ops import (fused_crossbar_acam,
+                                                  fused_linear_acam, program)
+from repro_torch.kernels.dual_compute.ref import fused_crossbar_acam_ref
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on "
+                    "the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _paged_case(rng, b, hq, hkv, p, nb, ps, d, q_len, dtype, dev):
+    q = torch.tensor(rng.normal(size=(b, hq, q_len, d)), dtype=torch.float32)
+    kp = torch.tensor(rng.normal(size=(p, hkv, ps, d)), dtype=torch.float32)
+    vp = torch.tensor(rng.normal(size=(p, hkv, ps, d)), dtype=torch.float32)
+    bt = torch.tensor(rng.permutation(p)[:b * nb].reshape(b, nb),
+                      dtype=torch.int32)
+    bt[0, nb // 2] = p          # sentinel mid-table
+    bt[-1, -1] = -1             # negative sentinel
+    lengths = torch.tensor(rng.integers(1, nb * ps - q_len + 2, b),
+                           dtype=torch.int32)
+    return [t.to(dev) for t in (q, kp.to(dtype), vp.to(dtype), bt, lengths)]
+
+
+@pytest.mark.parametrize("q_len", [1, 5, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 2, 48, 20, 5, 16),
+                                   (8, 16, 2, 512, 64, 16, 128)],
+                         ids=["small", "qwen3b"])
+def test_paged_attention_kernel_matches_plain(dev, shape, dtype, q_len):
+    """Tolerance 1e-4 absolute: the same f32 math summed in another order
+    (FMA dot products, online softmax across pages)."""
+    rng = np.random.default_rng(0)
+    args = _paged_case(rng, *shape, q_len, dtype, dev)
+    before = paged_attention.launches
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    ref = paged_attention_ref(*args)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_paged_attention_sentinel_page_is_never_read(dev):
+    """Poisoning a page that only a sentinel entry would alias changes
+    nothing (mirror of tests/test_kernel_conformance.py's poison test)."""
+    rng = np.random.default_rng(7)
+    b, hq, hkv, p, nb, ps, d = 2, 4, 2, 6, 3, 5, 16
+    q = torch.tensor(rng.normal(size=(b, hq, 1, d)), dtype=torch.float32)
+    kp = torch.tensor(rng.normal(size=(p, hkv, ps, d)), dtype=torch.float32)
+    vp = torch.tensor(rng.normal(size=(p, hkv, ps, d)), dtype=torch.float32)
+    bt = torch.tensor([[3, 4, 5], [0, 1, p]], dtype=torch.int32)
+    over = torch.tensor([nb * ps, nb * ps], dtype=torch.int32)
+    q, kp, vp, bt, over = (t.to(dev) for t in (q, kp, vp, bt, over))
+    o = paged_attention(q, kp, vp, bt, over)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[p - 1] += 100.0
+    vp2[p - 1] += 100.0
+    o2 = paged_attention(q, kp2, vp2, bt, over)
+    assert torch.equal(o[1], o2[1])
+    assert not torch.allclose(o[0], o2[0])
+
+
+def test_paged_attention_fully_masked_row_is_zero(dev):
+    q = torch.ones((1, 2, 1, 16), device=dev)
+    kp = torch.ones((2, 1, 4, 16), device=dev)
+    bt = torch.tensor([[2, 2]], dtype=torch.int32, device=dev)  # unmapped
+    out = paged_attention(q, kp, kp, bt,
+                          torch.tensor([3], dtype=torch.int32, device=dev))
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 11008), (512, 2048, 11008),
+                                   (37, 100, 130)])
+def test_fused_crossbar_acam_kernel_matches_plain(dev, m, k, n):
+    """ACAM codes may differ by one where the f32 sum order moves the
+    pre-activation across an interval edge: at most one code step, on at
+    most 1e-4 of the outputs (chip_smoke.py measured 0 at M=8 and 7.6e-6
+    at M=512 on an H100)."""
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.normal(size=(m, k)), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.normal(size=(k, n)) * k ** -0.5,
+                     dtype=torch.float32, device=dev)
+    table = get_table("silu", 8)
+    cells, inv = program(w)
+    lo, hi = table_thresholds(table, dev)
+    kw = dict(out_lo=float(table.out_spec.lo),
+              out_step=float(table.out_spec.step))
+    out = fused_crossbar_acam(x, *cells, inv, lo, hi, **kw)
+    ref = fused_crossbar_acam_ref(x, *cells, inv, lo, hi, **kw)
+    diff = (out - ref).abs()
+    step = float(table.out_spec.step)
+    assert diff.max().item() <= step * 1.0001
+    assert (diff > 0).float().mean().item() <= 1e-4
+    lin = fused_linear_acam(x, w, "silu")
+    assert torch.equal(lin, out)
+
+
+def test_engine_on_card_matches_cpu_plain_path(dev):
+    """The reduced model served on the card (kernel A) and on the CPU
+    (plain versions) gives the same greedy tokens, f32 activations."""
+    import dataclasses
+
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    params = lm.init_params(cfg, generator=gen, device="cpu")
+    rng = np.random.default_rng(3)
+    shared = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 8))
+    reqs = [Request(rid=i, tokens=shared + tuple(
+        int(t) for t in rng.integers(0, cfg.vocab_size, 1 + i)),
+        max_new_tokens=6, arrival=i) for i in range(5)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        eng = PagedServeEngine(cfg, from_jax(_np(params), device=where),
+                               max_slots=3, max_len=32, page_size=4,
+                               prefill_chunk=4, decode_block=2, device=where)
+        out[where] = {c.rid: c.tokens for c in eng.run(reqs)}
+    assert out["cpu"] == out["cuda"]
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    return tree.numpy()

@@ -1,0 +1,197 @@
+"""The port's kernel modules on the CPU: each wrapper's plain version held
+against ``repro``'s kernel oracle and its Pallas kernel in interpret mode.
+
+The CUDA kernels themselves run only on the card (tests/test_torch_gpu.py
+and chip_smoke.py); here the wrappers take their plain versions because
+the tensors lie on the CPU.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.noise import DEFAULT as J_DEFAULT
+from repro.core.slicing import RESIDUAL_GAIN as J_RESIDUAL_GAIN
+from repro.core.slicing import plan_asl as j_plan_asl
+from repro.kernels.dual_compute.ops import fused_linear_acam as j_fused_linear
+from repro.kernels.dual_compute.ref import fused_crossbar_acam_ref as j_fused_ref
+from repro.kernels.paged_attention.ops import paged_attention as j_paged
+
+from repro_torch.core.acam import get_table, table_thresholds
+from repro_torch.core.slicing import RESIDUAL_GAIN
+from repro_torch.kernels import build
+from repro_torch.kernels.dual_compute.ops import (fused_crossbar_acam,
+                                                  fused_linear_acam, program)
+from repro_torch.kernels.paged_attention.ops import num_splits, paged_attention
+
+torch.set_num_threads(1)
+
+PAGED_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 einsums in another order
+
+
+def _paged_case(seed, b=3, hq=4, hkv=2, p=12, nb=4, ps=5, d=16, q_len=1,
+                sentinels=True):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hq, q_len, d)).astype(np.float32)
+    kp = rng.normal(size=(p, hkv, ps, d)).astype(np.float32)
+    vp = rng.normal(size=(p, hkv, ps, d)).astype(np.float32)
+    bt = rng.permutation(p)[:b * nb].reshape(b, nb).astype(np.int32)
+    if sentinels:
+        bt[0, -1] = p               # unmapped sentinel
+        bt[1, 2] = -1               # negative sentinel mid-table
+    # staircase bases: row j attends [0, len + j), len + q_len - 1 <= nb*ps
+    lengths = rng.integers(ps + 1, nb * ps - q_len + 2, b).astype(np.int32)
+    return q, kp, vp, bt, lengths
+
+
+def _both(q, kp, vp, bt, lengths, interpret=False):
+    mine = paged_attention(*(torch.from_numpy(a) for a in
+                             (q, kp, vp, bt, lengths)))
+    kw = {"interpret": True} if interpret else {"use_ref": True}
+    ref = j_paged(*(jnp.asarray(a) for a in (q, kp, vp, bt, lengths)), **kw)
+    return mine.numpy(), np.asarray(ref)
+
+
+@pytest.mark.parametrize("q_len", [1, 3, 7])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_paged_attention_matches_repro_ref(q_len, seed):
+    """Decode (Q=1) and the chunk staircase (Q>1), sentinel entries in the
+    table: the plain version equals ``paged_attention(use_ref=True)``."""
+    mine, ref = _both(*_paged_case(seed, q_len=q_len))
+    np.testing.assert_allclose(mine, ref, **PAGED_TOL)
+
+
+def test_plain_paged_attention_matches_pallas_interpret():
+    """...and ``repro``'s Pallas kernel run in interpret mode."""
+    mine, ref = _both(*_paged_case(2, q_len=4), interpret=True)
+    np.testing.assert_allclose(mine, ref, **PAGED_TOL)
+
+
+def test_plain_paged_attention_bf16_pool():
+    """A bf16 pool is read as bf16 and widened per element — the values
+    ``repro``'s wrapper gets by upcasting the pool."""
+    q, kp, vp, bt, lengths = _paged_case(3, q_len=2)
+    kb = torch.from_numpy(kp).to(torch.bfloat16)
+    vb = torch.from_numpy(vp).to(torch.bfloat16)
+    mine = paged_attention(torch.from_numpy(q), kb, vb, torch.from_numpy(bt),
+                           torch.from_numpy(lengths))
+    ref = j_paged(jnp.asarray(q), jnp.asarray(kb.float().numpy()),
+                  jnp.asarray(vb.float().numpy()), jnp.asarray(bt),
+                  jnp.asarray(lengths), use_ref=True)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **PAGED_TOL)
+
+
+def test_plain_paged_attention_sentinel_page_is_never_read():
+    """Poisoning the page a sentinel would alias changes nothing for the
+    slot holding the sentinel (tests/test_kernel_conformance.py:245)."""
+    q, kp, vp, bt, lengths = _paged_case(4, sentinels=False)
+    p = kp.shape[0]
+    bt[1, -1] = p
+    lengths[1] = bt.shape[1] * kp.shape[2]       # overrun into the sentinel
+    victim = bt[0, 0]
+    base, _ = _both(q, kp, vp, bt, lengths)
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[victim] += 100.0
+    vp2[victim] += 100.0
+    assert victim not in bt[1]                   # slot 1 never maps it
+    poisoned, _ = _both(q, kp2, vp2, bt, lengths)
+    np.testing.assert_array_equal(poisoned[1], base[1])
+    assert not np.allclose(poisoned[0], base[0])
+
+
+def test_plain_paged_attention_fully_masked_row_is_zero():
+    q = torch.ones((1, 2, 1, 8))
+    kp = torch.ones((2, 1, 4, 8))
+    out = paged_attention(q, kp, kp, torch.tensor([[2, 2]], dtype=torch.int32),
+                          torch.tensor([3], dtype=torch.int32))
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_cpu_tensors_never_launch():
+    before = paged_attention.launches, fused_crossbar_acam.launches
+    paged_attention(*(torch.from_numpy(a) for a in _paged_case(5)))
+    fused_linear_acam(torch.ones((2, 8)), torch.ones((8, 4)), "silu")
+    assert (paged_attention.launches, fused_crossbar_acam.launches) == before
+
+
+@pytest.mark.parametrize("b,n_rows,nb,sms,want", [
+    (8, 8, 64, 132, 33),    # full-width decode on 132 SMs: 16 blocks -> split
+    (8, 8, 64, 114, 29),    # the same on a 114-SM card
+    (8, 512, 64, 132, 3),   # chunk prefill: 256 blocks -> 768
+    (8, 2048, 64, 132, 1),  # 1024 blocks already fill the card
+    (1, 8, 2, 132, 2),      # never more splits than pages
+])
+def test_split_heuristic(b, n_rows, nb, sms, want):
+    assert num_splits(b, 2, n_rows, nb, 32, sms) == want
+
+
+def _fused_inputs(seed, m, k, n):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * k ** -0.5).astype(np.float32)
+    return x, w
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 64, 96), (13, 100, 37)])
+def test_plain_fused_crossbar_acam_matches_repro_ref(m, k, n):
+    """Same cells, inv and table as ``fused_crossbar_acam_ref``: equal ACAM
+    codes.  The f32 matmul's sum order could move a pre-activation across
+    an interval edge, so one output may be one code apart; measured: 0 of
+    768 and 0 of 481 outputs differ."""
+    x, w = _fused_inputs(m, m, k, n)
+    table = get_table("silu", 8)
+    cells, inv = program(torch.from_numpy(w))
+    lo, hi = table_thresholds(table, "cpu")
+    step = float(table.out_spec.step)
+    mine = fused_crossbar_acam(torch.from_numpy(x), *cells, inv, lo, hi,
+                               out_lo=float(table.out_spec.lo),
+                               out_step=step).numpy()
+    ref = np.asarray(j_fused_ref(
+        jnp.asarray(x), *(jnp.asarray(c.numpy()) for c in cells),
+        jnp.asarray(inv.numpy()), jnp.asarray(table.lo),
+        jnp.asarray(table.hi), 8, float(table.out_spec.lo), step,
+        J_RESIDUAL_GAIN))
+    diff = np.abs(mine - ref)
+    assert diff.max() <= step * 1.0001
+    assert (diff > 1e-6).sum() <= 1
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 40, 24), (16, 128, 130)])
+def test_plain_fused_linear_acam_matches_repro_interpret(m, k, n):
+    """Model level, ragged shapes: ``fused_linear_acam`` against
+    ``repro``'s (programming + Pallas kernel in interpret mode, which pads
+    to 128 with g_min cells where the port masks).  At most one output one
+    code apart, as above; measured: 0 of 120 and 0 of 2080 outputs differ
+    (the largest difference, 3.7e-6 of a code, is the decode's rounding)."""
+    x, w = _fused_inputs(100 + m, m, k, n)
+    table = get_table("silu", 8)
+    step = float(table.out_spec.step)
+    mine = fused_linear_acam(torch.from_numpy(x), torch.from_numpy(w),
+                             "silu").numpy()
+    ref = np.asarray(j_fused_linear(jnp.asarray(x), jnp.asarray(w), "silu",
+                                    interpret=True))
+    diff = np.abs(mine - ref)
+    assert diff.max() <= step * 1.0001
+    assert (diff > 1e-6).sum() <= 1
+
+
+def test_programming_matches_repro_cells():
+    x, w = _fused_inputs(7, 4, 32, 48)
+    cells, _ = program(torch.from_numpy(w))
+    jw = jnp.asarray(w)
+    plan, _ = j_plan_asl(jw, jnp.maximum(jnp.max(jnp.abs(jw)), 1e-9),
+                         J_DEFAULT, prog_rng=None)
+    for got, want in zip(cells, [plan.g_pos_main, plan.g_neg_main,
+                                 plan.g_pos_res, plan.g_neg_res]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert RESIDUAL_GAIN == J_RESIDUAL_GAIN
+
+
+def test_build_targets_hopper_from_repo_sources():
+    """Every kernel source exists and compiles for sm_90a into the
+    ignored build directory (the compile itself runs on the card)."""
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+        assert build._target(name).parent == build.BUILD_DIR
+    assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
+    assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
