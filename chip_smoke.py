@@ -6,18 +6,27 @@
 Run from the root of a checkout on a machine with a CUDA GPU.  It
 
 1. prints the card's name and power limit and builds the port's CUDA
-   kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a);
+   kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a, one process per
+   source, all at once);
 2. serves full-width Qwen2.5-3B (36 layers, seeded random float32 weights)
    through ``PagedServeEngine`` in ``OFF`` numerics — 8 requests sharing a
    256-token system prompt — and checks that every request completes, that
-   the radix cache hit, and that the paged-attention kernel carried it;
+   the radix cache hit, and that the paged-attention kernel (A) carried it;
 3. serves 4 of those requests in ``FUSED`` numerics and checks that the
-   fused crossbar->ACAM kernel carried every MLP gate;
-4. holds each kernel against its plain PyTorch version on the card at the
-   shapes the serve path launches, and times kernel, plain version and a
+   fused crossbar->ACAM kernel (B) carried every MLP gate;
+4. serves a lockstep batch (``launch/serve.py``: whole-prompt prefill,
+   then greedy generation) in ``OFF`` numerics — 8 prompts of 512 tokens,
+   32 new tokens, the prefill through the flash-attention kernel (F); the
+   generate fn and the per-token loop must give the same tokens — and in
+   ``FUSED`` numerics — 4 prompts of 256, 8 new tokens, the prefill
+   through the log-domain flash kernel (C) and kernel B;
+5. serves the paged phase's 8 requests through the slotted ``ServeEngine``;
+6. holds each kernel against its plain PyTorch version on the card at the
+   shapes the serve paths launch, and times kernel, plain version and a
    PyTorch library call beside the card's bound;
-5. serves a small model on the card and on the CPU (plain versions) and
-   checks the greedy tokens agree;
+7. serves a small model on the card and on the CPU (plain versions): the
+   paged engine's greedy tokens must agree, and the lockstep prefill's
+   last logits within a stated tolerance;
 
 then prints one JSON line with the kernels' numbers and, last, the device
 line.  It exits non-zero, printing no result, if there is no GPU, if it
@@ -41,6 +50,10 @@ F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 A_TOL = 1e-4                    # paged attention: f32 sums in another order
 B_MAX_FLIP_FRACTION = 1e-4      # fused crossbar->ACAM: one-code flips
                                 # (measured 0 at M=8, 7.6e-6 at M=512)
+F_TOL = 1e-4                    # flash attention: f32 sums in another order
+                                # (bf16 outputs: plus one bf16 rounding step)
+C_TOL = 1.0 / 255               # log-domain flash: one exp-grid LSB, as in
+                                # tests/test_fused_dual_compute.py
 
 
 def fail(msg: str) -> None:
@@ -123,7 +136,10 @@ def make_trace(cfg, n: int, max_new: int, base_tick: int):
 
 def serve(torch, engine, reqs, counter, label: str) -> dict:
     """Warm up on a throwaway request, zero the kernel counters, drive the
-    trace through ``engine.run`` and check the completions."""
+    trace through ``engine.run`` and check the completions.  ``counter`` is
+    the kernel wrapper the path must launch (None for the slotted OFF
+    path, which launches none of the port's kernels); a paged engine must
+    also hit its radix cache."""
     from repro_torch.launch.engine import Request
     engine.run([Request(rid=-1, tokens=(1, 2, 3), max_new_tokens=2,
                         arrival=engine.tick)])
@@ -138,10 +154,11 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
 
     def counted(fn, key):
         def call(*args, **kwargs):
-            before = counter.launches
+            before = 0 if counter is None else counter.launches
             out = fn(*args, **kwargs)
             split[key][0] += 1
-            split[key][1] += counter.launches - before
+            split[key][1] += (0 if counter is None
+                              else counter.launches - before)
             return out
         return call
     engine._chunk = counted(engine._chunk, "prefill_chunk")
@@ -154,9 +171,10 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
     wall = time.perf_counter() - t0
     del engine._chunk, engine.step
     launches = {fn.__name__: fn.launches for fn in counters()}
-    check(split["prefill_chunk"][1] + split["decode_tick"][1]
-          == launches[counter.__name__],
-          f"{label}: {counter.__name__} launched outside prefill and decode")
+    if counter is not None:
+        check(split["prefill_chunk"][1] + split["decode_tick"][1]
+              == launches[counter.__name__], f"{label}: "
+              f"{counter.__name__} launched outside prefill and decode")
     check(sorted(c.rid for c in comps) == [r.rid for r in reqs],
           f"{label}: not every request completed")
     for r, c in zip(reqs, comps):
@@ -165,10 +183,15 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
               f"{r.max_new_tokens}")
         check(all(0 <= t < engine.cfg.vocab_size for t in c.tokens),
               f"{label}: rid {c.rid} emitted a token outside the vocabulary")
-    st = engine.stats
-    check(st["hits"] > 0, f"{label}: no radix prefix hit")
-    check(launches[counter.__name__] > 0,
-          f"{label}: {counter.__name__} was never launched")
+    paged = hasattr(engine, "pool")
+    st = engine.stats if paged else {"hits": 0, "lookups": 0,
+                                     "prefill_tokens_saved": 0,
+                                     "cow_forks": 0}
+    if paged:
+        check(st["hits"] > 0, f"{label}: no radix prefix hit")
+    if counter is not None:
+        check(launches[counter.__name__] > 0,
+              f"{label}: {counter.__name__} was never launched")
     n_gen = sum(len(c.tokens) for c in comps)
     n_prefill = sum(len(r.tokens) for r in reqs) - st["prefill_tokens_saved"]
     out = {"requests": len(comps), "generated_tokens": n_gen,
@@ -198,27 +221,127 @@ def path_launches(res: dict, name: str) -> dict:
             "launches_per_prefill_chunk": res["launches_per_prefill_chunk"]}
 
 
-def profile_window(torch, engine, reqs, label: str) -> dict:
-    """Where the time goes: serve ``reqs`` again (prefix-cache hits, fresh
-    rids) under the CUDA profiler; the device's busy and idle share of the
-    wall time and the kernels that take the most device time."""
+def profiled(torch, fn, label: str) -> dict:
+    """Where the time goes: run ``fn`` under the CUDA profiler; the
+    device's busy and idle share of the wall time and the kernels that take
+    the most device time."""
     from torch.profiler import ProfilerActivity, profile
-    base = engine.tick
-    reqs = [dataclasses.replace(r, rid=100 + r.rid, arrival=base)
-            for r in reqs]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run(reqs)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ka) / 1e6
-    out = {"requests": len(reqs), "wall_s": wall, "device_busy_s": busy,
+    out = {"wall_s": wall, "device_busy_s": busy,
            "device_idle_share": 1 - busy / wall,
            "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3]
                               for e in ka[:8]]}
     print(f"[{label} profile] " + json.dumps(out))
+    return out
+
+
+def profile_window(torch, engine, reqs, label: str) -> dict:
+    """Serve ``reqs`` again under fresh rids (a paged engine now hits its
+    prefix cache) under the profiler."""
+    base = engine.tick
+    reqs = [dataclasses.replace(r, rid=100 + r.rid, arrival=base)
+            for r in reqs]
+    return profiled(torch, lambda: engine.run(reqs), label)
+
+
+def lockstep(torch, cfg, params, nldpe, *, batch: int, prompt_len: int,
+             gen_len: int, counters_on_path: list, label: str,
+             compare_loop: bool) -> dict:
+    """The lockstep path of ``launch/serve.py`` on the full-width model:
+    whole-prompt prefill of ``batch`` random prompts, then greedy
+    generation of ``gen_len`` tokens with the generate fn (and, with
+    ``compare_loop``, with ``python_loop_decode`` from a copy of the
+    prefilled cache: the tokens must be identical).  Each wrapper in
+    ``counters_on_path`` must launch once per layer in the prefill; its
+    launches per decode step are reported and checked against the
+    phase's total."""
+    from repro_torch.launch.serve import (build_decode_step,
+                                          build_generate_fn,
+                                          build_prefill_step,
+                                          python_loop_decode)
+    from repro_torch.models import lm
+    sp = lm.serving_params(params, cfg, nldpe)
+    prefill = build_prefill_step(cfg, nldpe=nldpe)
+    generate = build_generate_fn(cfg, gen_len, nldpe=nldpe)
+    max_len = prompt_len + gen_len
+    rng = np.random.default_rng(SEED + 2)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (batch, prompt_len)),
+                              dtype=torch.int32, device="cuda")
+    # warm-up: a short prompt through the same steps (cuBLAS, kernel loads)
+    warm = lm.init_model_cache(cfg, batch, 24, device="cuda")
+    last, warm = prefill(sp, warm, prompts[:, :16])
+    build_generate_fn(cfg, 3, nldpe=nldpe)(
+        sp, warm, torch.argmax(last, -1).to(torch.int32), 16)
+    del warm
+    cache = lm.init_model_cache(cfg, batch, max_len, device="cuda")
+    for fn in counters():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last, cache = prefill(sp, cache, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = {fn.__name__: fn.launches for fn in counters()}
+    check(bool(torch.isfinite(last).all()), f"{label}: non-finite logits")
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    spare = {k: v.clone() for k, v in cache.items()} if compare_loop else None
+    t0 = time.perf_counter()
+    gen, cache = generate(sp, cache, tok, prompt_len)
+    gen = gen.cpu()
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {fn.__name__: fn.launches for fn in counters()}
+    steps = gen_len - 1
+    check(tuple(gen.shape) == (batch, gen_len), f"{label}: tokens shape "
+          f"{tuple(gen.shape)}")
+    check(bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"{label}: a token outside the vocabulary")
+    per = {}
+    for fn in counters_on_path:
+        name = fn.__name__
+        in_prefill = after_prefill[name]
+        in_decode = launches[name] - in_prefill
+        check(in_prefill == cfg.n_layers, f"{label}: {name} launched "
+              f"{in_prefill} times in the prefill, expected one per layer "
+              f"({cfg.n_layers})")
+        check(in_prefill + in_decode == launches[name], f"{label}: {name} "
+              f"launched outside prefill and decode")
+        per[name] = {"launches": launches[name],
+                     "launches_per_prefill": in_prefill,
+                     "launches_per_decode_step": in_decode / steps}
+    out = {"batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": batch * prompt_len / prefill_s,
+           "decode_ms_per_step": decode_s * 1e3 / steps,
+           "generated_tokens_per_s": batch * steps / decode_s,
+           "max_memory_allocated_gb": peak, "launches": launches,
+           "per_kernel": per, "sample_row": gen[0, :12].tolist()}
+    if compare_loop:
+        t0 = time.perf_counter()
+        loop, _ = python_loop_decode(build_decode_step(cfg, nldpe=nldpe),
+                                     sp, spare, tok, prompt_len, gen_len)
+        out["python_loop_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                          / steps)
+        check(torch.equal(loop, gen), f"{label}: generate fn and python "
+              f"loop tokens differ")
+        out["loop_tokens_equal"] = True
+    print(f"[{label}] " + json.dumps(out))
+
+    def again():
+        c = lm.init_model_cache(cfg, batch, max_len, device="cuda")
+        lg, c = prefill(sp, c, prompts)
+        generate(sp, c, torch.argmax(lg, -1).to(torch.int32),
+                 prompt_len)[0].cpu()
+    out["profile"] = profiled(torch, again, label)
     return out
 
 
@@ -311,8 +434,11 @@ def paged_attention_phase(torch, timer, engine, launches: dict) -> dict:
 
 
 def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
-    """Kernel B at the MLP gate's shapes: M in {8, 512}, K=2048, N=11008,
-    the layer-0 gate weight, the 8-bit silu table."""
+    """Kernel B at every M the serve paths give the MLP gate: 8 (a paged
+    decode tick over 8 slots), 4 (a lockstep FUSED decode step), 512 (a
+    paged prefill chunk of 8 x 64) and 1024 (the lockstep FUSED prefill,
+    4 x 256); K=2048, N=11008, the layer-0 gate weight, the 8-bit silu
+    table."""
     from repro_torch.core.acam import get_table, table_thresholds
     from repro_torch.kernels.dual_compute.ops import (fused_crossbar_acam,
                                                       program)
@@ -328,7 +454,7 @@ def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
     w_eff = effective_weight(*cells, inv)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cases = []
-    for m in (8, 512):
+    for m in (8, 4, 512, 1024):
         x = torch.randn((m, k), generator=gen, device="cuda")
         args = (x, *cells, inv, lo, hi)
         out = fused_crossbar_acam(*args, **kw)
@@ -355,7 +481,7 @@ def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
                 "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
         print("[kernel B] " + json.dumps(case))
         cases.append(case)
-    top = cases[0]                          # decode rows: most launches
+    top = cases[0]                          # paged decode: most launches
     return {"name": "fused_crossbar_acam", "route": "cuda",
             "source": "src/repro_torch/csrc/dual_compute.cu",
             "replaces": "src/repro/kernels/dual_compute/kernel.py:80",
@@ -367,6 +493,126 @@ def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
             "library": "torch.matmul(x, W_eff), the GEMM alone",
+            "timing": timer.source, "cases": cases}
+
+
+def causal_pairs(lq: int, lk: int) -> int:
+    """(query, key) pairs a causal row set attends to, queries at the end
+    of the KV axis."""
+    return sum(max(0, min(lk, i + lk - lq + 1)) for i in range(lq))
+
+
+def attention_inputs(torch, shape, dtype, seed):
+    b, hq, hkv, lq, lk, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d))]
+
+
+def flash_phase(torch, timer, launches: dict) -> dict:
+    """Kernel F at the lockstep OFF prefill's shapes, (8, 16, 512, 128)
+    queries over (8, 2, 512, 128) keys and values, f32 and bf16 inputs
+    (the wrapper computes in f32 either way)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    shape = (8, 16, 2, 512, 512, 128)
+    b, hq, hkv, lq, lk, d = shape
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(torch, shape, dtype, SEED + 3)
+        out = flash_attention(q, k, v)
+        ref = flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "flash_attention: non-finite")
+        err = (out.float() - ref).abs()
+        # bf16 outputs round the same f32 result: one bf16 step allowed
+        slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
+        check(bool((err <= F_TOL + slack * ref.abs()).all()),
+              f"flash_attention {dtype}: max |kernel - plain| "
+              f"{err.max().item()} over {F_TOL} (+ bf16 rounding)")
+
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+
+        lib_err = (lib().float() - ref).abs().max().item()
+        ms, call_ms = timer.ms(lambda: flash_attention(q, k, v), iters=10)
+        plain_ms, _ = timer.ms(lambda: flash_attention_ref(q, k, v), iters=3)
+        lib_ms, _ = timer.ms(lib, iters=10)
+        esz = q.element_size()
+        nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
+        flops = 4 * d * b * hq * causal_pairs(lq, lk)
+        bms, by = bound(nbytes, flops)
+        case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": err.max().item(), "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_max_abs_err": lib_err, "bound_ms": bms,
+                "bound_by": by}
+        print("[kernel F] " + json.dumps(case))
+        cases.append(case)
+    top = cases[0]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+            **launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": f"{F_TOL} (bf16 outputs: plus one bf16 step)",
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library": "scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True), same dtype",
+            "timing": timer.source, "cases": cases}
+
+
+def logdomain_phase(torch, timer, launches: dict) -> dict:
+    """Kernel C at the lockstep FUSED prefill's shape (4, 16, 256, 128),
+    with f32 inputs and with the bf16 activations that path gives it, and
+    at the OFF phase's (8, 16, 512, 128), against the materialized NL-DPE
+    attention on the same inputs."""
+    from repro_torch.kernels.dual_compute.ops import logdomain_flash_attention
+    from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
+    cases = []
+    for shape, dtype in (((4, 16, 2, 256, 256, 128), torch.float32),
+                         ((4, 16, 2, 256, 256, 128), torch.bfloat16),
+                         ((8, 16, 2, 512, 512, 128), torch.float32)):
+        b, hq, hkv, lq, lk, d = shape
+        q, k, v = attention_inputs(torch, shape, dtype, SEED + 4)
+        out = logdomain_flash_attention(q, k, v)
+        ref = logdomain_flash_ref(q, k, v)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "logdomain_flash: non-finite")
+        err = (out.float() - ref).abs()
+        # bf16 outputs round the same f32 result: one bf16 step allowed
+        slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
+        check(bool((err <= C_TOL + slack * ref.abs()).all()),
+              f"logdomain_flash {shape} {dtype}: max |kernel - plain| "
+              f"{err.max().item()} over {C_TOL} (+ bf16 rounding)")
+        err = err.max().item()
+        ms, call_ms = timer.ms(lambda: logdomain_flash_attention(q, k, v),
+                               iters=10)
+        plain_ms, _ = timer.ms(lambda: logdomain_flash_ref(q, k, v), iters=3)
+        esz = q.element_size()
+        nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
+        flops = 4 * d * b * hq * causal_pairs(lq, lk)
+        bms, by = bound(nbytes, flops)
+        case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": err, "ms": ms,
+                "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": bms, "bound_by": by}
+        print("[kernel C] " + json.dumps(case))
+        cases.append(case)
+    top = cases[0]
+    return {"name": "logdomain_flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/logdomain_flash.cu",
+            "replaces": "src/repro/kernels/dual_compute/kernel.py:176",
+            **launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": f"{C_TOL:.6g} (bf16 outputs: plus one bf16 step)",
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
             "timing": timer.source, "cases": cases}
 
 
@@ -396,6 +642,27 @@ def small_model_agrees(torch) -> None:
     check(tokens["cpu"] == tokens["cuda"], "small model: card and CPU "
           f"tokens differ: {tokens}")
     print("[reference] small model: card tokens == CPU plain-path tokens")
+    # lockstep prefill (kernel F; kernels C and B): last logits against the
+    # CPU plain path.  Three attention implementations meet near-flat
+    # random-weight logits here, so logits are compared, not tokens.
+    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.launch.serve import build_prefill_step
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 29)),
+                              dtype=torch.int32)
+    for nldpe, tol in ((OFF, 1e-4), (FUSED, 1e-2)):
+        last = {}
+        for dev in ("cpu", "cuda"):
+            params = lm.serving_params({k: _to(v, dev)
+                                        for k, v in cpu.items()}, cfg, nldpe)
+            cache = lm.init_model_cache(cfg, 3, 32, device=dev)
+            last[dev] = build_prefill_step(cfg, nldpe=nldpe)(
+                params, cache, prompts.to(dev))[0].cpu()
+        err = (last["cpu"] - last["cuda"]).abs().max().item()
+        name = "FUSED" if nldpe.enabled else "OFF"
+        check(err <= tol, f"small model lockstep {name}: card vs CPU last "
+              f"logits {err} > {tol}")
+        print(f"[reference] small model lockstep {name}: card vs CPU last "
+              f"logits max |diff| {err:.3g} (tolerance {tol})")
 
 
 def _to(tree, dev):
@@ -406,9 +673,12 @@ def _to(tree, dev):
 
 def counters() -> list:
     """The kernel wrappers, each counting its launches."""
-    from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
+    from repro_torch.kernels.dual_compute.ops import (
+        fused_crossbar_acam, logdomain_flash_attention)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
-    return [paged_attention, fused_crossbar_acam]
+    return [paged_attention, fused_crossbar_acam, flash_attention,
+            logdomain_flash_attention]
 
 
 def main() -> None:
@@ -422,9 +692,11 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.engine import FUSED, OFF
     from repro_torch.kernels import build
-    from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
+    from repro_torch.kernels.dual_compute.ops import (
+        fused_crossbar_acam, logdomain_flash_attention)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.launch.engine import PagedServeEngine
+    from repro_torch.launch.engine import PagedServeEngine, ServeEngine
     from repro_torch.models import lm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -472,12 +744,40 @@ def main() -> None:
     print(f"[serve FUSED] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    lock_off = lockstep(torch, cfg, params, OFF, batch=8, prompt_len=512,
+                        gen_len=32, counters_on_path=[flash_attention],
+                        label="serve lockstep OFF", compare_loop=True)
+    print(f"[serve lockstep OFF] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    lock_fused = lockstep(torch, cfg, params, FUSED, batch=4, prompt_len=256,
+                          gen_len=8, counters_on_path=[
+                              logdomain_flash_attention, fused_crossbar_acam],
+                          label="serve lockstep FUSED", compare_loop=False)
+    print(f"[serve lockstep FUSED] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    slotted = ServeEngine(cfg, params, max_slots=8, max_len=1024, nldpe=OFF,
+                          prefill_chunk=64, decode_block=4)
+    serve(torch, slotted, make_trace(cfg, 8, 32, 0), None,
+          "serve slotted OFF")
+    profile_window(torch, slotted, make_trace(cfg, 4, 32, 0),
+                   "serve slotted OFF")
+    del slotted
+    torch.cuda.empty_cache()
+    print(f"[serve slotted OFF] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     timer = Timer(torch)
     kernels = [
         paged_attention_phase(torch, timer, off,
                               path_launches(off_res, "paged_attention")),
         fused_acam_phase(torch, timer, params,
-                         path_launches(fused_res, "fused_crossbar_acam"))]
+                         path_launches(fused_res, "fused_crossbar_acam")),
+        logdomain_phase(torch, timer, lock_fused["per_kernel"][
+            "logdomain_flash_attention"]),
+        flash_phase(torch, timer,
+                    lock_off["per_kernel"]["flash_attention"])]
     print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

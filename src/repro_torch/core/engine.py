@@ -12,10 +12,11 @@ NL-DPE path or the float reference according to the config:
               pass: the hand-written kernel of ``kernels/dual_compute`` on
               the GPU (the paper's ADC-free dataflow).
 
-The streamed log-domain flash attention that ``FUSED`` uses for maskless
-(train/lockstep prefill) attention in ``repro`` is not ported yet; every
-attention call on the paged serve path carries a validity mask and runs
-the materialized ``nldpe_attention`` there as well.
+``attention`` sends maskless causal attention (whole-prompt lockstep
+prefill) under ``FUSED`` through the streamed log-domain flash attention of
+``kernels/dual_compute`` (kernel C); masked attention over a cache view
+runs the materialized ``nldpe_attention``; ``OFF`` runs
+``reference_attention``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import dataclasses
 import torch
 
 from .acam import acam_activation
-from .attention import nldpe_attention
+from .attention import nldpe_attention, reference_attention
 from .functions import TORCH_FUNCTIONS
 from .logdomain import DEFAULT_CFG, nldpe_mul
 
@@ -57,14 +58,22 @@ class NLDPEConfig:
             return nldpe_mul(a, b, DEFAULT_CFG)
         return a * b
 
-    def attention(self, q, k, v, mask: torch.Tensor) -> torch.Tensor:
-        """Masked, non-causal attention over a cache view; K/V carry as
-        many heads as Q (the paged path folds GQA groups into rows)."""
-        if not self.enabled:
-            raise NotImplementedError(
-                "float attention over a dense cache view is not ported; "
-                "OFF attends through kernels.paged_attention")
-        return nldpe_attention(q, k, v, DEFAULT_CFG, causal=False, mask=mask)
+    def attention(self, q, k, v, causal: bool = True,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+        """k/v may carry fewer (grouped) heads than q: the fused kernel
+        takes them as they are, the materialized paths repeat them."""
+        if self.enabled and self.fused_dual_compute and mask is None:
+            from ..kernels.dual_compute.ops import logdomain_flash_attention
+            return logdomain_flash_attention(q, k, v, DEFAULT_CFG,
+                                             causal=causal)
+        if k.shape[1] != q.shape[1]:
+            group = q.shape[1] // k.shape[1]
+            k = torch.repeat_interleave(k, group, dim=1)
+            v = torch.repeat_interleave(v, group, dim=1)
+        if self.enabled:
+            return nldpe_attention(q, k, v, DEFAULT_CFG, causal=causal,
+                                   mask=mask)
+        return reference_attention(q, k, v, causal=causal, mask=mask)
 
 
 OFF = NLDPEConfig(enabled=False)

@@ -7,8 +7,10 @@ plain C interface, loaded with ``ctypes``: pointers and the stream pass as
 launch function returns its ``cudaGetLastError()`` code, which
 ``check`` raises on.  Libraries go to ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``) and are built at first use, from
-the repository's sources only.  ``build_all`` starts one ``nvcc`` per
-source at once, so a fresh checkout pays the slowest compile, not the sum.
+the repository's sources only; a library's name hashes its source and the
+shared headers (``csrc/*.cuh``) it may include.  ``build_all`` starts one
+``nvcc`` per source at once, so a fresh checkout pays the slowest compile,
+not the sum.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "dual_compute")
+SOURCES = ("paged_attention", "dual_compute", "flash_attention",
+           "logdomain_flash")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LOCK = threading.Lock()
@@ -40,8 +43,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, every shared
+    header of ``csrc/`` (``*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -8,19 +8,28 @@
   w_max stays a device scalar) and routed through ``fused_crossbar_acam``.
   This is what ``NLDPEConfig.linear_activation`` dispatches to under
   ``FUSED``.
+* ``logdomain_flash_attention`` — NL-DPE causal attention streamed in KV
+  tiles: q scaled by 1/sqrt(d), q/k/v log-quantized (the crossbars'
+  fused log-ACAM outputs), then the CUDA kernel ``csrc/logdomain_flash.cu``
+  for CUDA tensors; the materialized plain version for CPU tensors.  This
+  is what ``NLDPEConfig.attention`` dispatches maskless attention to
+  under ``FUSED``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ...core.acam import get_table, table_thresholds
+from ...core.logdomain import (DEFAULT_CFG, LogDomainConfig, inv_sqrt,
+                               log_quantize)
 from ...core.noise import DEFAULT
+from ...core.quantization import QuantSpec, recip
 from ...core.slicing import RESIDUAL_GAIN, plan_asl
-from ...core.quantization import recip
 from .. import build
-from .ref import fused_crossbar_acam_ref
+from .ref import fused_crossbar_acam_ref, logdomain_flash_ref
 
 
 def _lib():
@@ -32,6 +41,16 @@ def _lib():
         lib.fused_crossbar_acam_launch.restype = i
         lib.fused_crossbar_acam_smem_bytes.argtypes = [i, i]
         lib.fused_crossbar_acam_smem_bytes.restype = ctypes.c_size_t
+        lib._typed = True
+    return lib
+
+
+def _ld_lib():
+    lib = build.load("logdomain_flash")
+    if not getattr(lib, "_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.logdomain_flash_launch.argtypes = [vp] * 4 + [i] * 7 + [vp, vp]
+        lib.logdomain_flash_launch.restype = i
         lib._typed = True
     return lib
 
@@ -109,3 +128,61 @@ def fused_linear_acam(x: torch.Tensor, w: torch.Tensor, act: str,
         x.reshape(-1, shape[-1]).to(torch.float32), *cells, inv, lo, hi,
         out_lo=float(table.out_spec.lo), out_step=float(table.out_spec.step))
     return out.reshape(*shape[:-1], w.shape[1])
+
+
+def logdomain_grids(cfg: LogDomainConfig, lk: int) -> list[float]:
+    """(lo, step, 1/step) of the four 8-bit grids the kernel crosses — the
+    max-shifted scores, the exp ACAM's output, log of the row sum (its top
+    is log(lk + 1)) and the log-softmax — rounded as ``QuantSpec`` rounds
+    them."""
+    r = cfg.score_range
+    specs = (QuantSpec(lo=-r, hi=0.0, bits=cfg.bits),
+             QuantSpec(lo=0.0, hi=1.0, bits=cfg.bits),
+             QuantSpec(lo=-r, hi=float(math.log(lk + 1)), bits=cfg.bits),
+             QuantSpec(lo=-2 * r, hi=0.0, bits=cfg.bits))
+    return [x for sp in specs for x in (sp.lo, sp.step, recip(sp.step))]
+
+
+def logdomain_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              cfg: LogDomainConfig = DEFAULT_CFG,
+                              causal: bool = True) -> torch.Tensor:
+    """(B, H, Lq, D) x (B, Hkv, Lk, D)^2 -> (B, H, Lq, D) in q's dtype,
+    GQA-aware (K/V are never repeated on the card).  The same grids as
+    ``nldpe_attention`` at every ACAM crossing, the scores streamed in KV
+    tiles.
+
+    CPU tensors take the plain (materialized) version; CUDA tensors launch
+    the kernel (or raise — there is no fallback)."""
+    if q.device.type == "cpu":
+        return logdomain_flash_ref(q, k, v, cfg, causal).to(q.dtype)
+    b, hq, lq, d = q.shape
+    b2, hkv, lk, d2 = k.shape
+    if b2 != b or d2 != d or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"logdomain_flash_attention: shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if d not in (16, 32, 64, 128) or cfg.bits != 8:
+        raise ValueError(f"logdomain_flash_attention: head_dim {d} not in "
+                         f"(16, 32, 64, 128) or {cfg.bits}-bit grids")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("logdomain_flash_attention: all operands on one "
+                         "device")
+    if min(b, hq, lq, lk) < 1:
+        raise ValueError("logdomain_flash_attention: empty operand")
+    q_l = log_quantize(q.to(torch.float32) * inv_sqrt(d), cfg).contiguous()
+    k_l = log_quantize(k.to(torch.float32), cfg).contiguous()
+    v_l = log_quantize(v.to(torch.float32), cfg).contiguous()
+    grids = (ctypes.c_float * 12)(*logdomain_grids(cfg, lk))
+    out = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
+    err = _ld_lib().logdomain_flash_launch(
+        q_l.data_ptr(), k_l.data_ptr(), v_l.data_ptr(), out.data_ptr(),
+        b, hq, hkv, lq, lk, d, int(causal), ctypes.cast(grids,
+                                                        ctypes.c_void_p),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "logdomain_flash_attention")
+    logdomain_flash_attention.launches += 1
+    return out.to(q.dtype)
+
+
+logdomain_flash_attention.launches = 0

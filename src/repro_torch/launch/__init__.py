@@ -1,1 +1,2 @@
-"""Serving of the port: paged engine, page pool, sampling, CLI."""
+"""Serving of the port: slotted and paged engines, page pool, lockstep
+steps and CLI, sampling and its threefry keys."""

@@ -1,14 +1,18 @@
-"""Continuous-batching serve engine over a paged KV cache with radix prefix
-sharing (port of ``repro.launch.engine.PagedServeEngine``).
+"""Continuous-batching serve engines (port of ``repro.launch.engine``'s
+``ServeEngine`` and ``PagedServeEngine``).
 
-* **Slots** — ``max_slots`` independent sequences share one batch; each
-  maps logical blocks onto physical pages of a per-layer pool through its
+* **Slots** — ``max_slots`` independent sequences share one batch.
+  ``ServeEngine`` gives each a row of a slotted dense cache
+  (``lm.init_model_cache(..., slotted=True)``); ``PagedServeEngine`` maps a
+  slot's logical blocks onto physical pages of a per-layer pool through its
   block-table row (``launch/kvpool.py`` owns the page metadata).
-* **Admission** — a wave of requests is planned onto pages (radix hits are
-  mapped read-only, a fully covered prompt forks its boundary page
-  copy-on-write, the rest is allocated, evicting LRU cache if needed),
-  published, and its prompt *suffix* is prefilled in fixed
-  ``(max_slots, prefill_chunk)`` chunks at per-slot base positions.
+* **Admission** — a wave of requests takes free slots and is prefilled in
+  fixed ``(max_slots, prefill_chunk)`` chunks at per-slot base positions
+  (chunk attention over the whole per-slot cache under validity masking).
+  The paged engine first plans the wave onto pages (radix hits mapped
+  read-only, a fully covered prompt forks its boundary page
+  copy-on-write, the rest allocated, evicting LRU cache if needed),
+  publishes it, and prefills only the prompt *suffix*.
 * **Decode** — each tick runs ``decode_block`` steps over all slots; a
   per-slot write mask freezes finished and empty slots.  ``_dispatch_tick``
   issues the device work and ``_harvest`` folds the emitted tokens into the
@@ -16,12 +20,17 @@ sharing (port of ``repro.launch.engine.PagedServeEngine``).
 * **Sampling** — per-slot greedy / temperature / top-k keyed on (request
   seed, position), independent of slot placement (``launch/sampling.py``).
 
-Not ported yet (``ROADMAP.md`` queue A): the slotted engine, speculative
-decoding, drift/fidelity, telemetry, the host spill tier and preemption,
-meshes, AOT prefill buckets, the async engine and quantized KV pools.
+``PagedServeEngine`` subclasses ``ServeEngine``, as in ``repro``: the
+scheduler exists once and the subclass swaps the cache layout, wave
+selection (page budget) and slot release (page references, prefix
+publication).
 
-Where ``repro`` donates device buffers to its jitted steps, this engine
-updates the cache and the decode state in place.
+Not ported yet (``ROADMAP.md`` queue A): speculative decoding,
+drift/fidelity, telemetry, the host spill tier and preemption, meshes, AOT
+prefill buckets, the async engine and quantized KV pools.
+
+Where ``repro`` donates device buffers to its jitted steps, these engines
+update the cache and the decode state in place.
 """
 from __future__ import annotations
 
@@ -65,8 +74,8 @@ class Completion:
     finished_tick: int
 
 
-class PagedServeEngine:
-    """Continuous batching over a paged KV cache with radix prefix sharing.
+class ServeEngine:
+    """Continuous batching over a slotted dense KV cache.
 
     Drive it with :meth:`run` (serve a whole trace, returns completions
     sorted by rid).  ``params`` is the float32 parameter tree of
@@ -77,16 +86,13 @@ class PagedServeEngine:
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  nldpe: NLDPEConfig = OFF, prefill_chunk: int = 16,
                  decode_block: int = 4, eos_id: int = -1,
-                 dtype=torch.float32, page_size: int = 16,
-                 num_pages: int | None = None, device=None):
+                 dtype=torch.float32, device=None):
         if any(t != "attn" for t in cfg.layer_pattern):
             raise NotImplementedError(
-                f"the paged engine serves attention blocks only; "
+                f"the serve engines serve attention blocks only; "
                 f"{cfg.name} pattern is {cfg.layer_pattern}")
         if prefill_chunk < 1 or decode_block < 1 or max_slots < 1:
             raise ValueError("max_slots, prefill_chunk, decode_block >= 1")
-        if page_size < 1:
-            raise ValueError("page_size >= 1")
         self.device = resolve_device(device)
         if params["embed"]["table"].device.type != self.device.type:
             raise ValueError(f"params live on "
@@ -100,15 +106,8 @@ class PagedServeEngine:
         self.prefill_chunk = min(prefill_chunk, max_len)
         self.decode_block = decode_block
         self.eos_id = eos_id
-        self.page_size = page_size
-        self.n_blocks = -(-max_len // page_size)
-        self.num_pages = (max_slots * self.n_blocks if num_pages is None
-                          else num_pages)
-        self.pool = PagePool(self.num_pages, page_size)
-        self._fp = nldpe_fingerprint(nldpe)
-        self.cache = lm.init_model_cache(
-            cfg, max_slots, max_len, paged=(self.num_pages, page_size),
-            dtype=dtype, device=self.device)
+        self.dtype = dtype
+        self.cache = self._init_cache()
 
         s, dev = max_slots, self.device
         self._tok = torch.zeros((s,), dtype=torch.int32, device=dev)
@@ -120,7 +119,6 @@ class PagedServeEngine:
         self._keys = torch.zeros((s, 2), dtype=torch.int64, device=dev)
 
         self._slot_owner: list[Request | None] = [None] * s
-        self._slot_pages: list[list[int] | None] = [None] * s
         self._free = deque(range(s))
         self._out: dict[int, list[int]] = {}
         self._admitted_tick: dict[int, int] = {}
@@ -130,6 +128,11 @@ class PagedServeEngine:
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
         self.decode_ticks = 0
+
+    def _init_cache(self) -> dict:
+        return lm.init_model_cache(self.cfg, self.max_slots, self.max_len,
+                                   slotted=True, dtype=self.dtype,
+                                   device=self.device)
 
     # ------------------------------------------------------------------
     # device helpers
@@ -157,25 +160,6 @@ class PagedServeEngine:
                             nldpe=self.nldpe, write_mask=mask)
         self._clip_pos(mask, limit)
         return logits
-
-    def _setup(self, admit: np.ndarray, reuse: np.ndarray,
-               new_bt: np.ndarray) -> None:
-        """Admission reset of the admitted slots: new block-table rows and
-        a position track valid on ``[0, reuse)`` (the radix-hit prefix),
-        never-valid beyond."""
-        m = self._t(admit)
-        iota = torch.arange(self.max_len, dtype=torch.int32,
-                            device=self.device)
-        fresh = torch.where(iota[None] < self._t(reuse)[:, None], iota, -1)
-        self.cache["pos"].copy_(torch.where(m[:, None], fresh,
-                                            self.cache["pos"]))
-        self.cache["bt"].copy_(torch.where(m[:, None], self._t(new_bt),
-                                           self.cache["bt"]))
-
-    def _copy_page(self, src: int, dst: int) -> None:
-        """Copy-on-write fork: page ``src`` -> ``dst`` in every layer."""
-        for name in ("k", "v"):
-            self.cache[name][:, dst] = self.cache[name][:, src]
 
     def _merge_state(self, sel: np.ndarray, tok, pos, gen, temp, topk,
                      keys) -> None:
@@ -232,68 +216,6 @@ class PagedServeEngine:
                 f"request {req.rid}: prompt {p} + {req.max_new_tokens} new "
                 f"tokens needs {need} positions > max_len={self.max_len}")
 
-    def _plan(self, req: Request, *, peek: bool) -> dict:
-        """Map a request onto pages: radix-hit pages to share, an optional
-        COW fork of the boundary page, and the fresh pages its
-        prompt + gen footprint needs.  ``peek=True`` never touches pool
-        state and also reports ``cost`` (fresh pages plus refcount-0 hits,
-        which retaining takes out of the evictable set)."""
-        ps = self.page_size
-        plen = len(req.tokens)
-        hit = self.pool.match(self._fp, req.tokens, peek=peek)
-        fork_src = None
-        if hit and len(hit) * ps > plen - 1:
-            # the cache covers the whole prompt: the boundary page becomes
-            # private (final-token recompute + decode appends land in it)
-            fork_src = hit[-1]
-            hit = hit[:-1]
-            reuse = plen - 1
-        else:
-            reuse = len(hit) * ps
-        footprint = min(plen + req.max_new_tokens - 1, self.max_len)
-        nb_need = -(-footprint // ps)
-        plan = {"hit": hit, "fork_src": fork_src, "reuse": reuse,
-                "nb_need": nb_need, "n_fresh": nb_need - len(hit)}
-        if peek:
-            plan["ref0_pages"] = [p for p in hit
-                                  if self.pool.refcount(p) == 0]
-        return plan
-
-    def _select_wave(self, waiting: deque) -> list[Request]:
-        """Admit requests while both a slot and their page budget fit;
-        raise if the head request cannot fit even an idle pool."""
-        wave: list[Request] = []
-        spent = 0
-        charged: set[int] = set()     # ref-0 hit pages already budgeted
-        while waiting and len(wave) < len(self._free):
-            plan = self._plan(waiting[0], peek=True)
-            ref0_new = [p for p in plan["ref0_pages"] if p not in charged]
-            cost = plan["n_fresh"] + len(ref0_new)
-            if cost > self.pool.available() - spent:
-                break
-            charged.update(ref0_new)
-            spent += cost
-            wave.append(waiting.popleft())
-        if not wave and waiting and not self.any_active:
-            plan = self._plan(waiting[0], peek=True)
-            need = plan["n_fresh"] + len(plan["ref0_pages"])
-            raise RuntimeError(
-                f"request {waiting[0].rid} needs {need} pages but the pool "
-                f"holds {self.pool.num_pages} (page_size="
-                f"{self.page_size}); grow num_pages or shrink the request")
-        return wave
-
-    def _release_slot(self, sl: int, seq: tuple | None = None) -> None:
-        """A slot's request finished: publish its committed sequence (the
-        prompt plus every generated token whose K/V was written) as prefix
-        cache, then drop the slot's page references."""
-        pages = self._slot_pages[sl]
-        if pages is not None:
-            if seq is not None:
-                self.pool.publish_committed(self._fp, seq, pages)
-            self.pool.release(pages)
-            self._slot_pages[sl] = None
-
     def _prefill(self, admit, plen, reuse, tokens, ci, col) -> torch.Tensor:
         """Chunked suffix prefill of one wave; returns the (S, V) logits of
         each admitted slot's last prompt token (merged chunk by chunk, so
@@ -315,71 +237,46 @@ class PagedServeEngine:
             last = torch.where(take[:, None], lg[rows, col_t], last)
         return last
 
+    def _select_wave(self, waiting: deque) -> list[Request]:
+        """Pop the next admission wave: as many waiting requests as there
+        are free slots (the paged engine adds its page budget)."""
+        return [waiting.popleft()
+                for _ in range(min(len(waiting), len(self._free)))]
+
+    def _release_slot(self, sl: int, seq: tuple | None = None) -> None:
+        """Hook: a slot's request finished (the paged engine releases its
+        pages).  ``seq`` is the committed sequence — the prompt plus every
+        generated token whose K/V was written — or None."""
+
     def _admit_wave(self, reqs: list[Request]) -> list[Completion]:
-        """Plan -> retain/alloc -> COW -> publish -> reset -> suffix
-        prefill -> sample first tokens -> merge decode state."""
+        """Admit up to ``free_slots`` requests in one batched prefill of
+        their whole prompts."""
         t0 = time.perf_counter()
+        self._check_wave(reqs)
+        slots = [self._free.popleft() for _ in reqs]
+        return self._start_wave(reqs, slots, [0] * len(reqs), t0)
+
+    def _check_wave(self, reqs: list[Request]) -> None:
         rids = [r.rid for r in reqs]
         if len(set(rids)) != len(rids):
             raise ValueError(f"duplicate rids in one admission wave: {rids}")
         for r in reqs:
             self._validate(r)
+
+    def _start_wave(self, reqs: list[Request], slots: list[int],
+                    reuse_of: list[int], t0: float) -> list[Completion]:
+        """Chunked prefill of each admitted prompt from ``reuse_of`` on (the
+        positions already in the cache), first tokens sampled, instant
+        finishes retired, the decode state of the rest merged."""
         s, c = self.max_slots, self.prefill_chunk
-
-        # Phase 1: plan + commit pool state for every request before any
-        # publish: wave-mates never share each other's pages (their prefill
-        # runs in the same chunk calls).
-        slots = [self._free.popleft() for _ in reqs]
-        plans = []
-        for r, sl in zip(reqs, slots):
-            plan = self._plan(r, peek=False)
-            self.pool.retain(plan["hit"])
-            fresh = self.pool.alloc(plan["n_fresh"])
-            if fresh is None:
-                self.pool.release(plan["hit"])
-                for pl in plans:
-                    self.pool.release(pl["hit"])
-                    self.pool.release(pl["fresh"])
-                for sl2 in reversed(slots):
-                    self._free.appendleft(sl2)
-                raise RuntimeError(
-                    f"request {r.rid}: page pool exhausted "
-                    f"({self.pool.available()} available, "
-                    f"{plan['n_fresh']} needed)")
-            plan["fresh"] = fresh
-            plans.append(plan)
-
-        # every allocation succeeded: COW copies and stats only now
-        for sl, plan in zip(slots, plans):
-            fresh = plan["fresh"]
-            if plan["fork_src"] is not None:
-                self._copy_page(plan["fork_src"], fresh[0])
-                self.pool.note_cow()
-            bt_row = plan["hit"] + fresh
-            assert len(bt_row) == plan["nb_need"]
-            plan["bt_row"] = bt_row
-            self._slot_pages[sl] = list(bt_row)
-            self.pool.stats["prefill_tokens_saved"] += plan["reuse"]
-
-        # Phase 2: publish full prompt pages for future waves
-        for r, plan in zip(reqs, plans):
-            n_full = len(r.tokens) // self.page_size
-            self.pool.publish(self._fp, r.tokens, plan["bt_row"][:n_full])
-
-        # Phase 3: block tables + position tracks of the admitted slots
         admit = np.zeros((s,), bool)
         reuse = np.zeros((s,), np.int32)
-        new_bt = np.full((s, self.n_blocks), self.num_pages, np.int32)
-        plen = np.ones((s,), np.int32)
-        for r, sl, plan in zip(reqs, slots, plans):
+        plen = np.ones((s,), np.int32)          # 1 avoids 0-length edges
+        for r, sl, ru in zip(reqs, slots, reuse_of):
             admit[sl] = True
-            reuse[sl] = plan["reuse"]
-            new_bt[sl, :plan["nb_need"]] = plan["bt_row"]
+            reuse[sl] = ru
             plen[sl] = len(r.tokens)
-        self._setup(admit, reuse, new_bt)
-
-        # Phase 4: chunked suffix prefill at per-slot base positions
-        suffix = plen - reuse                     # >= 1: last token always
+        suffix = plen - reuse                   # >= 1: last token always
         n_chunks = -(-int(suffix[admit].max()) // c)
         tokens = np.zeros((s, n_chunks * c), np.int32)
         ci = np.zeros((s,), np.int32)
@@ -387,8 +284,8 @@ class PagedServeEngine:
         keys = np.zeros((s, 2), np.int64)
         temp = np.zeros((s,), np.float32)
         topk = np.zeros((s,), np.int32)
-        for r, sl, plan in zip(reqs, slots, plans):
-            tokens[sl, :suffix[sl]] = r.tokens[plan["reuse"]:]
+        for r, sl in zip(reqs, slots):
+            tokens[sl, :suffix[sl]] = r.tokens[reuse[sl]:]
             ci[sl] = (suffix[sl] - 1) // c
             col[sl] = (suffix[sl] - 1) % c
             keys[sl] = request_key(r.seed if r.seed is not None
@@ -400,8 +297,6 @@ class PagedServeEngine:
                                self._t(temp), self._t(topk)).cpu().numpy()
         self.prefill_seconds += time.perf_counter() - t0
 
-        # Phase 5: record first tokens, retire instant finishes, merge the
-        # decode state of the rest
         done: list[Completion] = []
         sel = np.zeros((s,), bool)
         n_tok = np.zeros((s,), np.int32)
@@ -443,11 +338,6 @@ class PagedServeEngine:
     @property
     def any_active(self) -> bool:
         return any(o is not None for o in self._slot_owner)
-
-    @property
-    def stats(self) -> dict:
-        """Pool + prefix-sharing counters (see kvpool.PagePool.stats)."""
-        return dict(self.pool.stats)
 
     def _dispatch_tick(self):
         """Device work of one decode tick: ``decode_block`` steps over all
@@ -538,3 +428,177 @@ class PagedServeEngine:
                 break
             completions.extend(self.step())
         return sorted(completions, key=lambda c: c.rid)
+
+
+class PagedServeEngine(ServeEngine):
+    """Continuous batching over a paged KV cache with radix prefix sharing:
+    ``ServeEngine``'s scheduler over a page pool of ``num_pages`` pages of
+    ``page_size`` tokens (default ``max_slots * ceil(max_len /
+    page_size)``)."""
+
+    def __init__(self, cfg, params, *, max_slots: int, max_len: int,
+                 page_size: int = 16, num_pages: int | None = None, **kw):
+        if page_size < 1:
+            raise ValueError("page_size >= 1")
+        self.page_size = page_size
+        self.n_blocks = -(-max_len // page_size)
+        self.num_pages = (max_slots * self.n_blocks if num_pages is None
+                          else num_pages)
+        self.pool = PagePool(self.num_pages, page_size)
+        self._slot_pages: list[list[int] | None] = [None] * max_slots
+        super().__init__(cfg, params, max_slots=max_slots, max_len=max_len,
+                         **kw)
+        self._fp = nldpe_fingerprint(self.nldpe)
+
+    def _init_cache(self) -> dict:
+        return lm.init_model_cache(
+            self.cfg, self.max_slots, self.max_len,
+            paged=(self.num_pages, self.page_size), dtype=self.dtype,
+            device=self.device)
+
+    @property
+    def stats(self) -> dict:
+        """Pool + prefix-sharing counters (see kvpool.PagePool.stats)."""
+        return dict(self.pool.stats)
+
+    def _setup(self, admit: np.ndarray, reuse: np.ndarray,
+               new_bt: np.ndarray) -> None:
+        """Admission reset of the admitted slots: new block-table rows and
+        a position track valid on ``[0, reuse)`` (the radix-hit prefix),
+        never-valid beyond."""
+        m = self._t(admit)
+        iota = torch.arange(self.max_len, dtype=torch.int32,
+                            device=self.device)
+        fresh = torch.where(iota[None] < self._t(reuse)[:, None], iota, -1)
+        self.cache["pos"].copy_(torch.where(m[:, None], fresh,
+                                            self.cache["pos"]))
+        self.cache["bt"].copy_(torch.where(m[:, None], self._t(new_bt),
+                                           self.cache["bt"]))
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write fork: page ``src`` -> ``dst`` in every layer."""
+        for name in ("k", "v"):
+            self.cache[name][:, dst] = self.cache[name][:, src]
+
+    def _plan(self, req: Request, *, peek: bool) -> dict:
+        """Map a request onto pages: radix-hit pages to share, an optional
+        COW fork of the boundary page, and the fresh pages its
+        prompt + gen footprint needs.  ``peek=True`` never touches pool
+        state and also reports ``cost`` (fresh pages plus refcount-0 hits,
+        which retaining takes out of the evictable set)."""
+        ps = self.page_size
+        plen = len(req.tokens)
+        hit = self.pool.match(self._fp, req.tokens, peek=peek)
+        fork_src = None
+        if hit and len(hit) * ps > plen - 1:
+            # the cache covers the whole prompt: the boundary page becomes
+            # private (final-token recompute + decode appends land in it)
+            fork_src = hit[-1]
+            hit = hit[:-1]
+            reuse = plen - 1
+        else:
+            reuse = len(hit) * ps
+        footprint = min(plen + req.max_new_tokens - 1, self.max_len)
+        nb_need = -(-footprint // ps)
+        plan = {"hit": hit, "fork_src": fork_src, "reuse": reuse,
+                "nb_need": nb_need, "n_fresh": nb_need - len(hit)}
+        if peek:
+            plan["ref0_pages"] = [p for p in hit
+                                  if self.pool.refcount(p) == 0]
+        return plan
+
+    def _select_wave(self, waiting: deque) -> list[Request]:
+        """Admit requests while both a slot and their page budget fit;
+        raise if the head request cannot fit even an idle pool."""
+        wave: list[Request] = []
+        spent = 0
+        charged: set[int] = set()     # ref-0 hit pages already budgeted
+        while waiting and len(wave) < len(self._free):
+            plan = self._plan(waiting[0], peek=True)
+            ref0_new = [p for p in plan["ref0_pages"] if p not in charged]
+            cost = plan["n_fresh"] + len(ref0_new)
+            if cost > self.pool.available() - spent:
+                break
+            charged.update(ref0_new)
+            spent += cost
+            wave.append(waiting.popleft())
+        if not wave and waiting and not self.any_active:
+            plan = self._plan(waiting[0], peek=True)
+            need = plan["n_fresh"] + len(plan["ref0_pages"])
+            raise RuntimeError(
+                f"request {waiting[0].rid} needs {need} pages but the pool "
+                f"holds {self.pool.num_pages} (page_size="
+                f"{self.page_size}); grow num_pages or shrink the request")
+        return wave
+
+    def _release_slot(self, sl: int, seq: tuple | None = None) -> None:
+        """A slot's request finished: publish its committed sequence (the
+        prompt plus every generated token whose K/V was written) as prefix
+        cache, then drop the slot's page references."""
+        pages = self._slot_pages[sl]
+        if pages is not None:
+            if seq is not None:
+                self.pool.publish_committed(self._fp, seq, pages)
+            self.pool.release(pages)
+            self._slot_pages[sl] = None
+
+    def _admit_wave(self, reqs: list[Request]) -> list[Completion]:
+        """Plan -> retain/alloc -> COW -> publish -> reset -> suffix
+        prefill -> sample first tokens -> merge decode state."""
+        t0 = time.perf_counter()
+        self._check_wave(reqs)
+        s = self.max_slots
+
+        # Phase 1: plan + commit pool state for every request before any
+        # publish: wave-mates never share each other's pages (their prefill
+        # runs in the same chunk calls).
+        slots = [self._free.popleft() for _ in reqs]
+        plans = []
+        for r, sl in zip(reqs, slots):
+            plan = self._plan(r, peek=False)
+            self.pool.retain(plan["hit"])
+            fresh = self.pool.alloc(plan["n_fresh"])
+            if fresh is None:
+                self.pool.release(plan["hit"])
+                for pl in plans:
+                    self.pool.release(pl["hit"])
+                    self.pool.release(pl["fresh"])
+                for sl2 in reversed(slots):
+                    self._free.appendleft(sl2)
+                raise RuntimeError(
+                    f"request {r.rid}: page pool exhausted "
+                    f"({self.pool.available()} available, "
+                    f"{plan['n_fresh']} needed)")
+            plan["fresh"] = fresh
+            plans.append(plan)
+
+        # every allocation succeeded: COW copies and stats only now
+        for sl, plan in zip(slots, plans):
+            fresh = plan["fresh"]
+            if plan["fork_src"] is not None:
+                self._copy_page(plan["fork_src"], fresh[0])
+                self.pool.note_cow()
+            bt_row = plan["hit"] + fresh
+            assert len(bt_row) == plan["nb_need"]
+            plan["bt_row"] = bt_row
+            self._slot_pages[sl] = list(bt_row)
+            self.pool.stats["prefill_tokens_saved"] += plan["reuse"]
+
+        # Phase 2: publish full prompt pages for future waves
+        for r, plan in zip(reqs, plans):
+            n_full = len(r.tokens) // self.page_size
+            self.pool.publish(self._fp, r.tokens, plan["bt_row"][:n_full])
+
+        # Phase 3: block tables + position tracks of the admitted slots
+        admit = np.zeros((s,), bool)
+        reuse = np.zeros((s,), np.int32)
+        new_bt = np.full((s, self.n_blocks), self.num_pages, np.int32)
+        for sl, plan in zip(slots, plans):
+            admit[sl] = True
+            reuse[sl] = plan["reuse"]
+            new_bt[sl, :plan["nb_need"]] = plan["bt_row"]
+        self._setup(admit, reuse, new_bt)
+
+        # Phase 4: chunked suffix prefill at per-slot base positions
+        return self._start_wave(reqs, slots,
+                                [plan["reuse"] for plan in plans], t0)

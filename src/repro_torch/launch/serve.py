@@ -1,10 +1,24 @@
-"""Serve CLI of the port: the paged-engine demo of ``repro.launch.serve``.
+"""Lockstep serving steps and the serve CLI of the port (port of
+``repro.launch.serve``).
 
+``build_prefill_step``/``build_decode_step`` are the whole-prompt prefill
+and the one-token decode of a fixed batch over a lockstep cache;
+``build_generate_fn`` is the greedy generation of ``gen_len`` tokens that
+``repro`` runs as one ``lax.scan`` (a plain loop here, with no host sync
+until the tokens are read), and ``python_loop_decode`` the per-token
+baseline that reads each token back to the host.  Both give the same
+tokens.
+
+    python -m repro_torch.launch.serve [--nldpe | --fused] [--python-loop]
+    python -m repro_torch.launch.serve --continuous [--nldpe | --fused]
     python -m repro_torch.launch.serve --paged [--nldpe | --fused]
 
-Serves a seeded trace of requests sharing a system prompt through
-``PagedServeEngine`` on the reduced config of ``--arch`` (as the JAX CLI
-does), with seeded random weights, on the GPU unless ``--device cpu``.
+The default branch prefills ``--batch`` prompts of ``--prompt-len`` tokens
+and decodes ``--gen-len`` steps in lockstep; ``--continuous`` serves a
+staggered trace through the slotted ``ServeEngine``, ``--paged`` a
+shared-system-prompt trace through ``PagedServeEngine``.  The model is the
+reduced config of ``--arch`` (as the JAX CLI runs it) with seeded random
+weights, on the GPU unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -15,25 +29,126 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..core.engine import NLDPEConfig
+from ..core.engine import NLDPEConfig, OFF
 from ..models import lm
-from .engine import PagedServeEngine, Request
+from .engine import PagedServeEngine, Request, ServeEngine
+
+
+def build_prefill_step(cfg, *, nldpe: NLDPEConfig = OFF):
+    """prefill(params, cache, tokens) -> (last logits (B, V), cache): the
+    whole prompt (B, S) at positions 0..S-1, filling the lockstep
+    ``cache`` in place."""
+    def prefill(params, cache, tokens):
+        logits = lm.forward(params, tokens, cfg, mode="prefill", cache=cache,
+                            nldpe=nldpe)
+        return logits[:, -1], cache
+
+    return prefill
+
+
+def build_decode_step(cfg, *, nldpe: NLDPEConfig = OFF):
+    """decode(params, cache, token (B,), pos) -> (logits (B, V), cache)."""
+    def decode(params, cache, token, pos):
+        return lm.decode_step(params, cfg, token, pos, cache,
+                              nldpe=nldpe), cache
+    return decode
+
+
+def build_generate_fn(cfg, gen_len: int, *, nldpe: NLDPEConfig = OFF):
+    """Greedy decode of ``gen_len`` tokens (the first is ``tok0``).
+
+    generate(params, cache, tok0, start_pos) -> (tokens (B, gen_len),
+    cache).  Overflow guard: generating past the cache capacity would wrap
+    the ring of every (non-windowed) layer and attend to overwritten
+    positions, so the call checks ``start_pos + gen_len - 1`` against the
+    cache's length and raises instead.
+    """
+    def generate(params, cache, tok0, start_pos):
+        limit = cache["pos"].shape[-1]
+        sp = int(start_pos)
+        if sp + gen_len - 1 > limit:
+            raise ValueError(
+                f"generate overflows the KV cache: start_pos={sp} + "
+                f"gen_len={gen_len} needs {sp + gen_len - 1} positions but "
+                f"the cache holds {limit}; non-windowed layers would wrap "
+                f"their ring buffers and silently produce garbage. "
+                f"Grow max_len or shrink gen_len.")
+        tok, out = tok0, [tok0]
+        for i in range(gen_len - 1):
+            logits = lm.decode_step(params, cfg, tok, sp + i, cache,
+                                    nldpe=nldpe)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+        return torch.stack(out, dim=1), cache
+
+    return generate
+
+
+def python_loop_decode(decode_fn, params, cache, tok0, start_pos: int,
+                       gen_len: int):
+    """The per-token baseline: one ``decode_fn`` call per token, each token
+    read back to the host before the next step."""
+    tok = tok0
+    rows = [[int(t)] for t in tok0.cpu()]
+    for i in range(gen_len - 1):
+        logits, cache = decode_fn(params, cache, tok, start_pos + i)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        for row, t in zip(rows, nxt.cpu().tolist()):
+            row.append(int(t))
+        tok = nxt
+    return torch.tensor(rows, dtype=torch.int32), cache
+
+
+def _validate_args(p: argparse.ArgumentParser, args) -> None:
+    """Fail fast on incoherent flag combinations (``repro``'s rules, for
+    the flags the port has)."""
+    engine = args.continuous or args.paged
+
+    def moved(name):
+        return getattr(args, name) != p.get_default(name)
+
+    if args.continuous and args.paged:
+        p.error("--continuous and --paged are mutually exclusive "
+                "(pick one engine demo)")
+    bad = [n for n in ("page_size", "num_pages", "system_prompt_len")
+           if moved(n)]
+    if bad and not args.paged:
+        p.error(f"--{bad[0].replace('_', '-')} requires --paged "
+                f"(the lockstep/--continuous paths ignore it)")
+    bad = [n for n in ("slots", "requests") if moved(n)]
+    if bad and not engine:
+        p.error(f"--{bad[0].replace('_', '-')} requires an engine demo "
+                f"(--continuous or --paged); the lockstep path ignores it")
+    if args.python_loop and engine:
+        p.error("--python-loop is a lockstep-path baseline; the engine "
+                "demos always use the batched decode")
+    if moved("batch") and engine:
+        p.error("--batch sizes the lockstep path; engine demos size by "
+                "--slots/--requests")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--paged", action="store_true", required=True,
-                   help="serve through the paged engine (the only engine "
-                        "the port has)")
     p.add_argument("--arch", default="qwen2_5_3b")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=32)
+    p.add_argument("--gen-len", type=int, default=32)
     p.add_argument("--nldpe", action="store_true",
                    help="NL-DPE numerics (ACAM activations, log-domain "
                         "DMMul and softmax)")
     p.add_argument("--fused", action="store_true",
                    help="NL-DPE numerics with the fused crossbar->ACAM "
-                        "kernel on every MLP gate")
-    p.add_argument("--prompt-len", type=int, default=32)
-    p.add_argument("--gen-len", type=int, default=32)
+                        "kernel on every MLP gate and the log-domain "
+                        "flash kernel in whole-prompt prefill")
+    p.add_argument("--python-loop", action="store_true",
+                   help="per-token decode loop reading each token back "
+                        "(baseline; default is the generate fn)")
+    p.add_argument("--continuous", action="store_true",
+                   help="slotted continuous-batching engine over a mixed "
+                        "trace (staggered arrivals)")
+    p.add_argument("--paged", action="store_true",
+                   help="paged engine with radix prefix sharing over a "
+                        "shared-system-prompt trace")
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=None)
     p.add_argument("--system-prompt-len", type=int, default=24)
@@ -45,8 +160,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _report(label: str, eng, comps, dt: float, extra: str = "") -> None:
+    n_tok = sum(len(c.tokens) for c in comps)
+    print(f"[serve] {label} on {eng.device}: {len(comps)} requests, "
+          f"{n_tok} tokens in {dt * 1e3:.0f} ms "
+          f"({n_tok / max(dt, 1e-9):.1f} tok/s, {eng.max_slots} slots"
+          f"{extra})")
+
+
 def run(argv=None):
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    _validate_args(p, args)
     device = torch.device(args.device) if args.device else None
     cfg = get_config(args.arch, reduced=True)
     nldpe = NLDPEConfig(enabled=args.nldpe or args.fused,
@@ -55,36 +180,86 @@ def run(argv=None):
     gen.manual_seed(args.seed)
     params = lm.init_params(cfg, generator=gen, device=device)
     rng = np.random.default_rng(args.seed)
-    sys_len = min(args.system_prompt_len, args.prompt_len)
-    system = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, sys_len))
-    reqs = [Request(rid=i,
-                    tokens=system + tuple(int(t) for t in rng.integers(
-                        0, cfg.vocab_size, int(rng.integers(1, max(
-                            2, args.prompt_len - sys_len + 1))))),
-                    max_new_tokens=int(rng.integers(2, args.gen_len + 1)),
-                    arrival=int(rng.poisson(2) * i))
-            for i in range(args.requests)]
-    eng = PagedServeEngine(cfg, params, max_slots=args.slots,
-                           max_len=args.prompt_len + args.gen_len,
-                           nldpe=nldpe, page_size=args.page_size,
-                           num_pages=args.num_pages, device=device)
-    t0 = time.perf_counter()
-    comps = eng.run(reqs)
-    dt = time.perf_counter() - t0
-    n_tok = sum(len(c.tokens) for c in comps)
-    st = eng.stats
-    print(f"[serve] paged on {eng.device}: {len(comps)} requests, {n_tok} "
-          f"tokens in {dt * 1e3:.0f} ms ({n_tok / max(dt, 1e-9):.1f} tok/s, "
-          f"{args.slots} slots, {eng.pool.num_pages} pages x "
-          f"{args.page_size} tok)")
-    print(f"  prefix hits {st['hits']}/{st['lookups']}, prefill tokens "
-          f"saved {st['prefill_tokens_saved']}, cow forks "
-          f"{st['cow_forks']}, evicted {st['evicted']}")
+    max_len = args.prompt_len + args.gen_len
+
+    if args.paged:
+        sys_len = min(args.system_prompt_len, args.prompt_len)
+        system = tuple(int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                    sys_len))
+        reqs = [Request(rid=i,
+                        tokens=system + tuple(int(t) for t in rng.integers(
+                            0, cfg.vocab_size, int(rng.integers(1, max(
+                                2, args.prompt_len - sys_len + 1))))),
+                        max_new_tokens=int(rng.integers(2, args.gen_len + 1)),
+                        arrival=int(rng.poisson(2) * i))
+                for i in range(args.requests)]
+        eng = PagedServeEngine(cfg, params, max_slots=args.slots,
+                               max_len=max_len, nldpe=nldpe,
+                               page_size=args.page_size,
+                               num_pages=args.num_pages, device=device)
+        t0 = time.perf_counter()
+        comps = eng.run(reqs)
+        dt = time.perf_counter() - t0
+        st = eng.stats
+        _report("paged", eng, comps, dt, f", {eng.pool.num_pages} pages x "
+                f"{args.page_size} tok")
+        print(f"  prefix hits {st['hits']}/{st['lookups']}, prefill tokens "
+              f"saved {st['prefill_tokens_saved']}, cow forks "
+              f"{st['cow_forks']}, evicted {st['evicted']}")
+    elif args.continuous:
+        reqs = [Request(rid=i,
+                        tokens=tuple(int(t) for t in rng.integers(
+                            0, cfg.vocab_size,
+                            int(rng.integers(2, args.prompt_len + 1)))),
+                        max_new_tokens=int(rng.integers(2, args.gen_len + 1)),
+                        arrival=int(rng.poisson(2) * i))
+                for i in range(args.requests)]
+        eng = ServeEngine(cfg, params, max_slots=args.slots, max_len=max_len,
+                          nldpe=nldpe, device=device)
+        t0 = time.perf_counter()
+        comps = eng.run(reqs)
+        dt = time.perf_counter() - t0
+        _report("continuous", eng, comps, dt, f", {eng.tick} ticks")
+    else:
+        return _lockstep(args, cfg, params, nldpe, rng, max_len)
     for c in comps[:4]:
         print(f"  rid={c.rid} admitted@{c.admitted_tick} "
               f"finished@{c.finished_tick} [{c.finish_reason}] "
               f"tokens={c.tokens[:8]}")
     return comps
+
+
+def _lockstep(args, cfg, params, nldpe, rng, max_len):
+    """The default branch: prefill a batch of prompts, then decode it."""
+    dev = params["embed"]["table"].device
+    params = lm.serving_params(params, cfg, nldpe)
+    cache = lm.init_model_cache(cfg, args.batch, max_len, device=dev)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
+        dtype=torch.int32, device=dev)
+    prefill = build_prefill_step(cfg, nldpe=nldpe)
+    t0 = time.perf_counter()
+    last_logits, cache = prefill(params, cache, prompts)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(f"[serve] prefill {args.batch}x{args.prompt_len} in "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+    t0 = time.perf_counter()
+    if args.python_loop:
+        gen, cache = python_loop_decode(build_decode_step(cfg, nldpe=nldpe),
+                                        params, cache, tok, args.prompt_len,
+                                        args.gen_len)
+    else:
+        generate = build_generate_fn(cfg, args.gen_len, nldpe=nldpe)
+        gen, cache = generate(params, cache, tok, args.prompt_len)
+    gen = gen.cpu()
+    dt = time.perf_counter() - t0
+    print(f"[serve] decoded {args.gen_len - 1} steps in {dt * 1e3:.0f} ms "
+          f"({dt / max(args.gen_len - 1, 1) * 1e3:.1f} ms/tok, "
+          f"{'python loop' if args.python_loop else 'generate fn'}); "
+          f"sample row: {gen[0, :12].tolist()}")
+    return gen
 
 
 if __name__ == "__main__":

@@ -6,10 +6,15 @@ Parameters keep ``repro``'s tree, names and stacked ``"groups"`` layout
 leaf by leaf.  Where ``repro`` scans over the stacked groups, the port
 loops over layers in Python.
 
-The paged cache of the whole model is ``{"k", "v", "pos", "bt"}``: per-layer
-K/V pools stacked on a leading layer axis (L, P, Hkv, page_size, D), and
-ONE position track (B, max_len) and block table (B, NB) — ``repro`` keeps a
-copy of each per layer, but every layer's copy holds the same values.
+The model cache stacks every layer's K/V on a leading layer axis and keeps
+ONE position track (and, paged, one block table) — ``repro`` keeps a copy
+of each per layer, but every layer's copy holds the same values:
+
+* lockstep ``{"k", "v", "pos"}``: K/V (L, B, Hkv, max_len, D), pos
+  (max_len,);
+* slotted: the same with pos (B, max_len);
+* paged ``{"k", "v", "pos", "bt"}``: pools (L, P, Hkv, page_size, D), pos
+  (B, max_len), block table (B, NB).
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 
 from .. import resolve_device
 from ..core.engine import NLDPEConfig, OFF
-from ..nn.attention import AttnSpec, attn_apply, paged_write_plan
+from ..nn.attention import AttnSpec, attn_apply, init_cache, write_plan
 from ..nn.basic import embedding_apply, rmsnorm_apply, unembed_apply
 from ..nn.mlp import mlp_apply
 
@@ -104,14 +109,19 @@ def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
 
 
 def init_model_cache(cfg, batch: int, max_len: int, *,
-                     paged: tuple[int, int], dtype=torch.float32,
+                     paged: tuple[int, int] | None = None,
+                     slotted: bool = False, dtype=torch.float32,
                      device=None) -> dict:
-    """Paged cache for every layer: ``paged=(num_pages, page_size)``.
-    Unmapped block-table entries hold the sentinel ``num_pages``."""
+    """Every layer's cache: dense lockstep (default), dense ``slotted``, or
+    ``paged=(num_pages, page_size)`` (unmapped block-table entries hold the
+    sentinel ``num_pages``)."""
     _check_cfg(cfg)
     device = resolve_device(device)
-    num_pages, page_size = paged
     s = attn_spec(cfg)
+    if paged is None:
+        return init_cache(s, batch, max_len, layers=cfg.n_layers,
+                          dtype=dtype, slotted=slotted, device=device)
+    num_pages, page_size = paged
     kv = (cfg.n_layers, num_pages, s.n_kv_heads, page_size, s.head_dim)
     n_blocks = -(-max_len // page_size)
     return {"k": torch.zeros(kv, dtype=dtype, device=device),
@@ -123,28 +133,36 @@ def init_model_cache(cfg, batch: int, max_len: int, *,
 
 
 def layer_cache(cache: dict, i: int) -> dict:
-    """Layer ``i``'s view of the model cache (pools are views: writes land
+    """Layer ``i``'s view of the model cache (K/V are views: writes land
     in the model cache)."""
-    return {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"],
-            "bt": cache["bt"]}
+    return dict(cache, k=cache["k"][i], v=cache["v"][i])
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg, *, cache: dict,
-            positions: torch.Tensor, nldpe: NLDPEConfig = OFF,
-            write_mask=None) -> torch.Tensor:
+def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
+            cache: dict | None = None, positions: torch.Tensor | None = None,
+            nldpe: NLDPEConfig = OFF, write_mask=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) float32; ``cache`` updates in place.
 
-    ``repro``'s "chunk" and "decode" modes: ``positions`` (B, S) per-slot
-    offsets; ``write_mask`` (B,) bool freezes masked slots' caches."""
+    ``repro``'s modes: "prefill" (the whole prompt at positions (S,),
+    default ``arange(S)``; fills a dense ``cache`` if one is given),
+    "decode" and "chunk" (positions () shared for a lockstep cache, or
+    (B, S) per-slot offsets; ``write_mask`` (B,) bool freezes masked
+    slots' caches)."""
     spec = attn_spec(cfg)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
     x = embedding_apply(params["embed"], tokens, dtype=cfg.activation_dtype)
-    plan = paged_write_plan(layer_cache(cache, 0), positions, write_mask)
+    plan = None
+    if cache is not None:
+        plan = write_plan(layer_cache(cache, 0), positions, write_mask)
     blocks = params["groups"]["b0"]
     for i in range(cfg.n_layers):
         p = {k: {n: t[i] for n, t in v.items()} for k, v in blocks.items()}
         h = rmsnorm_apply(p["norm1"], x)
-        a = attn_apply(p["attn"], spec, h, positions=positions,
-                       cache=layer_cache(cache, i), plan=plan, nldpe=nldpe)
+        a = attn_apply(p["attn"], spec, h, positions=positions, mode=mode,
+                       cache=None if cache is None else layer_cache(cache, i),
+                       plan=plan, nldpe=nldpe)
         x = x + a.to(x.dtype)
         h2 = rmsnorm_apply(p["norm2"], x)
         x = x + mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe).to(x.dtype)
@@ -154,12 +172,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, cache: dict,
     return x.to(torch.float32) @ params["lm_head"]["w"].to(torch.float32)
 
 
-def decode_step(params: dict, cfg, token: torch.Tensor, pos: torch.Tensor,
-                cache: dict, nldpe: NLDPEConfig = OFF,
-                write_mask=None) -> torch.Tensor:
-    """token (B,), pos (B,) per-slot -> logits (B, V)."""
-    logits = forward(params, token[:, None], cfg, cache=cache,
-                     positions=pos[:, None].to(torch.int32), nldpe=nldpe,
-                     write_mask=write_mask)
+def decode_step(params: dict, cfg, token: torch.Tensor, pos, cache: dict,
+                nldpe: NLDPEConfig = OFF, write_mask=None) -> torch.Tensor:
+    """token (B,); pos () shared (lockstep cache) or (B,) per slot ->
+    logits (B, V)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
+    positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
+    logits = forward(params, token[:, None], cfg, mode="decode", cache=cache,
+                     positions=positions, nldpe=nldpe, write_mask=write_mask)
     return logits[:, 0]
-

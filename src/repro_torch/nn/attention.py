@@ -1,33 +1,54 @@
-"""GQA attention against a paged KV cache (port of the paged-serving parts
+"""GQA attention against dense and paged KV caches (port of the serving parts
 of ``repro.nn.attention``).
 
-The cache of one layer is ``{"k", "v", "pos", "bt"}``: K/V page pools
-(P, Hkv, page_size, D), the per-slot position track (B, max_len; -1 =
-never written) and the block table (B, NB) mapping a slot's logical block
-``j`` onto a physical page (``num_pages`` = unmapped sentinel).
+Cache layouts of one layer (the model cache stacks K/V on a leading layer
+axis and keeps ONE position track for every layer, ``models/lm.py``):
 
-Where ``repro`` scatters with ``mode="drop"`` and relies on clamped
-gathers, PyTorch raises on the CPU and asserts on the device, so this port
-masks writes and clamps gathers explicitly.  Caches update in place (the
+* **lockstep** ``{"k", "v", "pos"}``: K/V (B, Hkv, L, D), ``pos`` (L,) —
+  the ring a fixed batch prefills and decodes in step (``init_cache``);
+* **slotted** ``{"k", "v", "pos"}``: the same K/V, ``pos`` (B, L) — every
+  row an independent serve slot at its own offset (``slotted=True``);
+* **paged** ``{"k", "v", "pos", "bt"}``: K/V page pools (P, Hkv, ps, D),
+  ``pos`` (B, max_len) and a block table (B, NB) mapping a slot's logical
+  block ``j`` onto a physical page (``num_pages`` = unmapped sentinel).
+
+``pos`` holds the position stored at each line (-1 = never written); it
+is the only validity information attention reads.  Writes follow
+``repro``'s ``update_cache``: line ``p % L`` in dense caches (a ring),
+page ``bt[slot, p // ps]`` at offset ``p % ps`` in paged ones; masked,
+out-of-range and sentinel-mapped writes are dropped.  ``repro`` scatters
+with ``mode="drop"``; PyTorch raises on the CPU and asserts on the device
+instead, so the port computes the kept writes once per forward
+(``write_plan``) and scatters only those.  Caches update in place (the
 JAX package donates its buffers instead).
 
-Attention paths:
+Attention paths of ``attn_apply``:
 
-* ``OFF``: ``kernels.paged_attention`` — the hand-written CUDA kernel on
-  the card, its plain version (gathered dense view + masked softmax) on
-  the CPU.  There is no switch back to the dense view on the card.
-* NL-DPE (``ON``/``FUSED``): the gathered dense view through
-  ``_nldpe_cached`` (log-domain DMMuls + ACAM softmax), as in ``repro``.
+* ``mode="prefill"`` (whole prompt, positions (S,)): causal attention
+  over the new K/V alone — ``kernels.flash_attention`` (kernel F) under
+  ``OFF``, ``NLDPEConfig.attention`` (kernel C under ``FUSED``) otherwise —
+  then a ring-consistent fill of a dense cache;
+* ``"decode"`` and ``"chunk"``: the new K/V are written first, then the
+  queries attend to the whole cache under validity masking.  ``OFF`` over
+  a paged cache runs ``kernels.paged_attention`` (kernel A); over a dense
+  cache, ``cached_attention`` (plain, as ``repro`` computes it in lax).
+  NL-DPE modes run ``_nldpe_cached`` over the (gathered) dense view.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..core.engine import NLDPEConfig, OFF
+from ..core.quantization import scalar_div
+from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
 from .basic import apply_rope
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
 
 @dataclasses.dataclass(frozen=True)
 class AttnSpec:
@@ -55,20 +76,86 @@ def _project_qkv(p: dict, s: AttnSpec, x: torch.Tensor,
             apply_rope(k, positions, s.rope_theta), v)
 
 
-def paged_write_plan(cache: dict, pos: torch.Tensor, write_mask=None):
-    """Where a call's new K/V steps land, and the position-track update.
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
 
-    ``pos`` is (B, C) — C steps per slot (C = 1 in decode).  Position
-    ``p`` lands in page ``bt[slot, p // page_size]`` at offset
-    ``p % page_size``.  Masked, out-of-range and sentinel-mapped writes are
-    dropped (``repro`` routes them out of bounds with ``mode="drop"``);
-    the engine guarantees written pages are private to their slot, so no
-    two kept writes hit the same line.  The position track and block table
-    are shared by every layer, so the plan is computed once per forward
-    and the track is updated here, in place.  Returns
-    ``(slot, step, page, offset)`` index tensors of the kept writes.
+def init_cache(s: AttnSpec, batch: int, max_len: int, *, layers: int,
+               dtype=torch.float32, slotted: bool = False,
+               device=None) -> dict:
+    """Dense K/V of ``layers`` layers, (layers, B, Hkv, max_len, D), and one
+    position track: (max_len,) lockstep, or (B, max_len) with
+    ``slotted=True`` so slots sit at different offsets."""
+    kv = (layers, batch, s.n_kv_heads, max_len, s.head_dim)
+    pos = (batch, max_len) if slotted else (max_len,)
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
+            "pos": torch.full(pos, -1, dtype=torch.int32, device=device)}
+
+
+def write_plan(cache: dict, positions: torch.Tensor, write_mask=None):
+    """Where a forward's new K/V steps land, and the position-track update.
+
+    ``positions`` is what the forward writes: () one shared step (lockstep
+    decode), (S,) a whole prompt (prefill) or (B, C) per-slot steps
+    (slotted or paged decode and chunk).  A dense cache keeps position
+    ``p`` at line ``p % L``; a prefill keeps the last ``min(S, L)``
+    positions, as ``repro``'s ring-consistent fill does.  ``write_mask``
+    (B,) freezes masked slots of slotted and paged caches.  The position
+    track is shared by every layer, so it is updated here, once, in place.
+    Returns ``(slot, step, line)`` index tensors of the kept writes (for a
+    paged cache, ``line`` is ``(page, offset)``).
     """
-    num_pages, _, page_size, _ = cache["k"].shape
+    if "bt" in cache:
+        return paged_write_plan(cache, positions, write_mask)
+    length = cache["k"].shape[-2]
+    batch = cache["k"].shape[-4]
+    dev = cache["pos"].device
+    pos = positions.to(torch.int32)
+    if pos.ndim <= 1:                       # lockstep decode or prefill
+        seq = pos.numel()
+        take = min(seq, length)
+        steps = torch.arange(seq - take, seq, device=dev)
+        kept = pos.reshape(-1)[steps]
+        line = torch.remainder(kept, length).long()
+        if cache["pos"].ndim == 1:
+            cache["pos"][line] = kept
+        else:
+            cache["pos"][:, line] = kept
+        bi = torch.arange(batch, device=dev).repeat_interleave(take)
+        return bi, steps.repeat(batch), line.repeat(batch)
+    if cache["pos"].ndim != 2:
+        raise ValueError("per-slot positions need a slotted cache "
+                         "(init_cache(..., slotted=True))")
+    ok = torch.ones_like(pos, dtype=torch.bool)
+    if write_mask is not None:
+        ok = ok & write_mask[:, None]
+    bi, ci = torch.nonzero(ok, as_tuple=True)
+    kept = pos[bi, ci]
+    line = torch.remainder(kept, length).long()
+    cache["pos"][bi, line] = kept
+    return bi, ci, line
+
+
+def update_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                 plan) -> None:
+    """Write one layer's new K/V (B, H, C, D) at the lines ``write_plan``
+    chose, in place (dense or paged)."""
+    if "bt" in cache:
+        update_cache_paged(cache, k_new, v_new, plan)
+        return
+    bi, ci, line = plan
+    cache["k"][bi, :, line] = k_new[bi, :, ci].to(cache["k"].dtype)
+    cache["v"][bi, :, line] = v_new[bi, :, ci].to(cache["v"].dtype)
+
+
+def paged_write_plan(cache: dict, pos: torch.Tensor, write_mask=None):
+    """``write_plan`` of a paged cache: ``pos`` (B, C).  Position ``p``
+    lands in page ``bt[slot, p // page_size]`` at offset
+    ``p % page_size``; out-of-range and sentinel-mapped writes are dropped
+    too.  The engine guarantees written pages are private to their slot,
+    so no two kept writes hit the same line."""
+    num_pages, _, page_size, _ = cache["k"].shape[-4:]
     length = cache["pos"].shape[1]
     pos = pos.to(torch.int32)
     n_blocks = cache["bt"].shape[1]
@@ -111,11 +198,37 @@ def paged_dense_view(cache: dict) -> dict:
 
 
 def cache_valid_mask(kp: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
-    """kp (B, L) cache positions, q_pos (B, Q) query positions ->
-    bool (B, Q, L): written and causal."""
+    """Which cache lines each query may attend to: kp (L,) lockstep or
+    (B, L) per-slot line positions; q_pos () scalar, (Q,) shared or (B, Q)
+    per-slot query positions -> bool (B|1, Q, L): written and causal."""
+    if kp.ndim == 1:
+        kp = kp[None]
+    q_pos = q_pos.to(torch.int32)
+    if q_pos.ndim == 0:
+        q_pos = q_pos.reshape(1, 1)
+    elif q_pos.ndim == 1:
+        q_pos = q_pos[None, :]
     kpe = kp[:, None, :]
     qpe = q_pos[:, :, None]
     return (kpe >= 0) & (kpe <= qpe)
+
+
+def cached_attention(q: torch.Tensor, cache: dict, q_pos: torch.Tensor,
+                     s: AttnSpec) -> torch.Tensor:
+    """q (B, Hq, Q, D) against a dense cache under validity masking, float
+    numerics (``repro`` computes it in lax, outside any kernel).  Masked
+    scores take the finite f32 minimum, as in ``repro``."""
+    b, hq, nq, d = q.shape
+    g = s.group
+    qg = q.reshape(b, s.n_kv_heads, g, nq, d).to(torch.float32)
+    k, v = cache["k"].to(torch.float32), cache["v"].to(torch.float32)
+    scores = scalar_div(torch.einsum("bkgqd,bkld->bkgql", qg, k),
+                        math.sqrt(d))
+    valid = cache_valid_mask(cache["pos"], q_pos)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgql,bkld->bkgqd", p, v)
+    return out.reshape(b, hq, nq, d).to(q.dtype)
 
 
 def _nldpe_cached(nldpe: NLDPEConfig, q: torch.Tensor, att: dict,
@@ -129,37 +242,55 @@ def _nldpe_cached(nldpe: NLDPEConfig, q: torch.Tensor, att: dict,
     v = att["v"].to(torch.float32).to(q.dtype)
     qf = q.reshape(b, s.n_kv_heads, g * nq, d)
     msk = valid.repeat(1, g, 1)            # row g_idx*Q + j uses valid[:, j]
-    o = nldpe.attention(qf, k, v, mask=msk[:, None])
+    o = nldpe.attention(qf, k, v, causal=False, mask=msk[:, None])
     return o.reshape(b, hq, nq, d)
 
 
 def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
-               positions: torch.Tensor, cache: dict, plan,
-               nldpe: NLDPEConfig = OFF) -> torch.Tensor:
-    """x (B, S, d) -> y (B, S, d); the layer's pools are updated in place.
+               positions: torch.Tensor, mode: str, cache: dict | None = None,
+               plan=None, nldpe: NLDPEConfig = OFF) -> torch.Tensor:
+    """x (B, S, d) -> y (B, S, d); the layer's cache is updated in place.
 
-    ``repro``'s "decode" (S == 1) and "chunk" (S == prefill chunk) modes
-    are one path here: the S new K/V steps are written at the per-slot
-    offsets ``positions`` (B, S), then the queries attend to the cache.
-    ``plan`` is the forward's ``paged_write_plan`` (the write mask of
-    frozen slots is folded into it).
+    ``mode="prefill"``: the whole prompt at positions (S,), causal over
+    the new K/V, then (with a dense ``cache``) the fill at ``plan``.
+    ``"decode"`` (S == 1) and ``"chunk"``: the new K/V are written at
+    ``plan`` (the forward's ``write_plan``; positions () shared or (B, S)
+    per slot), then the queries attend to the cache.
     """
     b, seq, _ = x.shape
-    if positions.shape != (b, seq):
-        raise ValueError(f"positions must be (B, S) per-slot offsets, got "
-                         f"{tuple(positions.shape)}")
     q, k, v = _project_qkv(p, s, x, positions)
-    update_cache_paged(cache, k, v, plan)
-    if nldpe.enabled:
-        att = paged_dense_view(cache)
-        valid = cache_valid_mask(att["pos"], positions)        # (B, S, L)
-        o = _nldpe_cached(nldpe, q, att, valid, s)
+    if mode == "prefill":
+        if positions.ndim != 1:
+            raise ValueError("prefill takes shared positions (S,)")
+        if nldpe.enabled:
+            # plain causal with no mask: FUSED streams it through the
+            # log-domain flash kernel (GQA-aware, K/V stay grouped)
+            o = nldpe.attention(q, k, v, causal=True, mask=None)
+        else:
+            o = flash_attention(q, k, v, causal=True)
+        if cache is not None:
+            if "bt" in cache:
+                raise ValueError("paged caches are filled in 'chunk' or "
+                                 "'decode' mode, not by whole-prompt prefill")
+            update_cache(cache, k, v, plan)
+    elif mode in ("decode", "chunk"):
+        update_cache(cache, k, v, plan)
+        qpos = positions if positions.ndim == 2 else positions.reshape(-1)
+        if "bt" in cache and not nldpe.enabled:
+            # the queries sit at consecutive per-slot offsets, so query j
+            # of slot b attends to [0, positions[b, 0] + j]: the kernel's
+            # ragged staircase with base lengths positions[:, 0] + 1
+            lengths = torch.clamp(positions[:, 0] + 1, 1,
+                                  cache["pos"].shape[1]).to(torch.int32)
+            o = paged_attention(q, cache["k"], cache["v"], cache["bt"],
+                                lengths).to(q.dtype)
+        else:
+            att = paged_dense_view(cache) if "bt" in cache else cache
+            if nldpe.enabled:
+                o = _nldpe_cached(nldpe, q, att,
+                                  cache_valid_mask(att["pos"], qpos), s)
+            else:
+                o = cached_attention(q, att, qpos, s)
     else:
-        # the chunk's queries sit at consecutive per-slot offsets, so query
-        # j of slot b attends to [0, positions[b, 0] + j]: the kernel's
-        # ragged staircase with base lengths positions[:, 0] + 1
-        lengths = torch.clamp(positions[:, 0] + 1, 1,
-                              cache["pos"].shape[1]).to(torch.int32)
-        o = paged_attention(q, cache["k"], cache["v"], cache["bt"],
-                            lengths).to(q.dtype)
+        raise ValueError(f"unknown attention mode {mode!r}")
     return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(o.dtype))

@@ -92,7 +92,8 @@ def test_paged_attention_fully_masked_row_is_zero(dev):
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 11008), (512, 2048, 11008),
-                                   (37, 100, 130)])
+                                   (37, 100, 130), (4, 2048, 11008),
+                                   (1024, 2048, 11008)])
 def test_fused_crossbar_acam_kernel_matches_plain(dev, m, k, n):
     """ACAM codes may differ by one where the f32 sum order moves the
     pre-activation across an interval edge: at most one code step, on at
@@ -143,7 +144,144 @@ def test_engine_on_card_matches_cpu_plain_path(dev):
     assert out["cpu"] == out["cuda"]
 
 
+def test_slotted_engine_on_card_matches_cpu_plain_path(dev):
+    """The slotted ``ServeEngine`` (dense cache rows, plain attention on
+    both devices) on the card and on the CPU, mixed greedy and sampled
+    requests, f32 activations: the same tokens."""
+    import dataclasses
+
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(2),
+                            device="cpu")
+    rng = np.random.default_rng(6)
+    reqs = [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, 3 + 2 * i)), max_new_tokens=6,
+        temperature=0.8 * (i % 2), top_k=3 * (i % 3), arrival=i)
+        for i in range(5)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, from_jax(_np(params), device=where),
+                          max_slots=3, max_len=32, prefill_chunk=4,
+                          decode_block=2, device=where)
+        out[where] = {c.rid: c.tokens for c in eng.run(reqs)}
+    assert out["cpu"] == out["cuda"]
+
+
 def _np(tree):
     if isinstance(tree, dict):
         return {k: _np(v) for k, v in tree.items()}
     return tree.numpy()
+
+
+def _attn_case(rng, b, hq, hkv, lq, lk, d, dtype, dev):
+    q, k, v = (torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+               for shape in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)))
+    return [t.to(dtype).to(dev) for t in (q, k, v)]
+
+
+ATTN_CASES = [(2, 4, 2, 37, 53, 16), (1, 8, 1, 70, 70, 64),
+              (8, 16, 2, 512, 512, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_CASES, ids=["odd", "g8", "qwen3b"])
+def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
+    """Kernel F against its plain version on the same (upcast) inputs:
+    1e-4 absolute — the same f32 math summed in another order."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _attn_case(np.random.default_rng(2), *shape, dtype, dev)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.dtype == dtype
+    ref = flash_attention_ref(q, k, v, causal)
+    assert torch.isfinite(out).all()
+    # bf16 outputs: plus one bf16 rounding step (2^-7 relative)
+    tol = 1e-4 + (0.0 if dtype == torch.float32 else 2.0 ** -7) * ref.abs()
+    assert bool(((out.float() - ref).abs() <= tol).all())
+
+
+def test_flash_attention_rows_without_keys_are_zero(dev):
+    """Lq > Lk: the first Lq - Lk causal rows see no key and give 0."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _attn_case(np.random.default_rng(3), 1, 2, 1, 9, 4, 16,
+                         torch.float32, dev)
+    out = flash_attention(q, k, v)
+    assert torch.equal(out[:, :, :5], torch.zeros_like(out[:, :, :5]))
+    assert (out - flash_attention_ref(q, k, v)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", ATTN_CASES[:2] + [(4, 16, 2, 256, 256,
+                                                      128)],
+                         ids=["odd", "g8", "qwen3b"])
+def test_logdomain_flash_kernel_matches_plain(dev, shape):
+    """Kernel C against the materialized NL-DPE attention on the card:
+    within one exp-grid LSB, 1/255 (``repro``'s own tolerance between its
+    kernel and the oracle; row sums and dot products in another order can
+    move a log-grid code)."""
+    from repro_torch.kernels.dual_compute.ops import logdomain_flash_attention
+    from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
+    q, k, v = _attn_case(np.random.default_rng(4), *shape, torch.float32,
+                         dev)
+    before = logdomain_flash_attention.launches
+    out = logdomain_flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert logdomain_flash_attention.launches == before + 1
+    ref = logdomain_flash_ref(q, k, v)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1.0 / 255
+
+
+def test_logdomain_flash_kernel_bf16_matches_plain(dev):
+    """Kernel C with the bf16 activations of the lockstep FUSED prefill,
+    at its shape: q, k and v are upcast before they are log-quantized, on
+    the card as in the plain version; one exp-grid LSB plus one bf16 step
+    (2^-7 relative) where the same f32 result rounds apart."""
+    from repro_torch.kernels.dual_compute.ops import logdomain_flash_attention
+    from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
+    q, k, v = _attn_case(np.random.default_rng(5), 4, 16, 2, 256, 256, 128,
+                         torch.bfloat16, dev)
+    out = logdomain_flash_attention(q, k, v)
+    assert out.dtype == torch.bfloat16
+    ref = logdomain_flash_ref(q, k, v)
+    tol = 1.0 / 255 + 2.0 ** -7 * ref.abs()
+    assert bool(((out.float() - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["OFF", "FUSED"])
+def test_lockstep_on_card_matches_cpu_plain_path(dev, fused):
+    """The reduced model's lockstep prefill (kernel F, or kernels C and B)
+    and greedy generation on the card against the CPU plain path, f32
+    activations: equal tokens; last prefill logits within 1e-4 OFF and
+    1e-2 FUSED (a log-grid code may move between the kernel and the
+    materialized plain version)."""
+    import dataclasses
+
+    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.launch.serve import build_generate_fn, build_prefill_step
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    nldpe = FUSED if fused else OFF
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                            device="cpu")
+    prompts = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (3, 21)), dtype=torch.int32)
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = lm.serving_params(from_jax(_np(params), device=where), cfg, nldpe)
+        cache = lm.init_model_cache(cfg, 3, 32, device=where)
+        last, cache = build_prefill_step(cfg, nldpe=nldpe)(
+            p, cache, prompts.to(where))
+        tok = torch.argmax(last, dim=-1).to(torch.int32)
+        gen, _ = build_generate_fn(cfg, 8, nldpe=nldpe)(p, cache, tok, 21)
+        out[where] = (last.cpu(), gen.cpu())
+    tol = 1e-2 if fused else 1e-4
+    assert (out["cpu"][0] - out["cuda"][0]).abs().max().item() <= tol
+    assert torch.equal(out["cpu"][1], out["cuda"][1])

@@ -15,13 +15,20 @@ from repro.core.slicing import RESIDUAL_GAIN as J_RESIDUAL_GAIN
 from repro.core.slicing import plan_asl as j_plan_asl
 from repro.kernels.dual_compute.ops import fused_linear_acam as j_fused_linear
 from repro.kernels.dual_compute.ref import fused_crossbar_acam_ref as j_fused_ref
+from repro.kernels.dual_compute.ops import (
+    logdomain_flash_attention as j_logdomain_flash)
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.paged_attention.ops import paged_attention as j_paged
+from repro.nn.attention import blockwise_attention as j_blockwise
 
 from repro_torch.core.acam import get_table, table_thresholds
 from repro_torch.core.slicing import RESIDUAL_GAIN
 from repro_torch.kernels import build
 from repro_torch.kernels.dual_compute.ops import (fused_crossbar_acam,
-                                                  fused_linear_acam, program)
+                                                  fused_linear_acam,
+                                                  logdomain_flash_attention,
+                                                  program)
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import num_splits, paged_attention
 
 torch.set_num_threads(1)
@@ -108,10 +115,15 @@ def test_plain_paged_attention_fully_masked_row_is_zero():
 
 
 def test_cpu_tensors_never_launch():
-    before = paged_attention.launches, fused_crossbar_acam.launches
+    wrappers = (paged_attention, fused_crossbar_acam, flash_attention,
+                logdomain_flash_attention)
+    before = [w.launches for w in wrappers]
     paged_attention(*(torch.from_numpy(a) for a in _paged_case(5)))
     fused_linear_acam(torch.ones((2, 8)), torch.ones((8, 4)), "silu")
-    assert (paged_attention.launches, fused_crossbar_acam.launches) == before
+    q = torch.ones((1, 2, 3, 8))
+    flash_attention(q, q[:, :1], q[:, :1])
+    logdomain_flash_attention(q, q[:, :1], q[:, :1])
+    assert [w.launches for w in wrappers] == before
 
 
 @pytest.mark.parametrize("b,n_rows,nb,sms,want", [
@@ -195,3 +207,121 @@ def test_build_targets_hopper_from_repo_sources():
         assert build._target(name).parent == build.BUILD_DIR
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+# (B, Hq, Hkv, Lq, Lk, D): tests/test_kernel_conformance.py's ATTN_SHAPES —
+# GQA groups 1, 2 and 4, odd lengths, Lq < Lk
+ATTN_SHAPES = [(1, 2, 2, 16, 16, 8), (2, 4, 2, 32, 32, 16),
+               (1, 4, 1, 8, 40, 32), (1, 2, 2, 1, 24, 16),
+               (2, 2, 1, 12, 20, 8)]
+FLASH_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 sums in another order
+EXP_LSB = 1.0 / 255                      # one exp-grid LSB
+
+
+def _attn_inputs(shape, seed=0):
+    b, hq, hkv, lq, lk, d = shape
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=s).astype(np.float32)
+                 for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)))
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_plain_flash_attention_matches_repro(shape):
+    """Plain F against ``repro``'s ``flash_attention`` (the Pallas kernel
+    in interpret mode, 8x8 blocks) and, where Lq == Lk, against
+    ``blockwise_attention`` (the lax twin its OFF prefill runs).  The
+    Pallas kernel scales q by 1/(d**0.5), ``blockwise_attention`` divides
+    by sqrt(d): both within 1e-5 (measured <= 5.4e-7)."""
+    q, k, v = _attn_inputs(shape)
+    mine = flash_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    ref = j_flash(*map(jnp.asarray, (q, k, v)), bq=8, bk=8, interpret=True)
+    np.testing.assert_allclose(mine, np.asarray(ref), **FLASH_TOL)
+    if shape[3] == shape[4]:
+        bw = j_blockwise(*map(jnp.asarray, (q, k, v)))
+        np.testing.assert_allclose(mine, np.asarray(bw), **FLASH_TOL)
+
+
+def test_plain_flash_attention_bf16_and_masked_rows():
+    """bf16 inputs are upcast and the output cast back, as ``repro``'s
+    wrapper does; rows with no visible key (Lq > Lk) give 0."""
+    q, k, v = _attn_inputs((1, 4, 2, 6, 6, 16), seed=1)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    mine = flash_attention(qb, kb, vb)
+    assert mine.dtype == torch.bfloat16
+    ref = j_flash(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                    for t in (qb, kb, vb)), bq=2, bk=2, interpret=True)
+    assert ref.dtype == jnp.bfloat16
+    # the same f32 result may round to neighbouring bf16 values
+    np.testing.assert_allclose(mine.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=2 ** -7,
+                               atol=1e-5)
+    q, k, v = _attn_inputs((1, 2, 1, 7, 3, 8), seed=2)
+    out = flash_attention(*map(torch.from_numpy, (q, k, v)))
+    assert torch.equal(out[:, :, :4], torch.zeros_like(out[:, :, :4]))
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_plain_logdomain_flash_matches_repro(shape):
+    """Plain C (the materialized NL-DPE attention) against ``repro``'s
+    ``logdomain_flash_attention``: its Pallas kernel in interpret mode on
+    every shape, and its ``use_ref=True`` oracle on the two with GQA
+    groups (2 and 4; ``repro``'s own tests hold kernel and oracle together
+    on the rest), within one exp-grid LSB, 1/255 (``repro``'s own
+    tolerance; measured <= 2.2e-6)."""
+    q, k, v = _attn_inputs(shape, seed=3)
+    mine = logdomain_flash_attention(*map(torch.from_numpy,
+                                          (q, k, v))).numpy()
+    args = tuple(map(jnp.asarray, (q, k, v)))
+    oracles = ({"interpret": True}, {"use_ref": True})
+    for kw in oracles if shape in ATTN_SHAPES[1:3] else oracles[:1]:
+        ref = np.asarray(j_logdomain_flash(*args, **kw))
+        assert np.abs(mine - ref).max() <= EXP_LSB, kw
+
+
+@pytest.mark.parametrize("shape", [ATTN_SHAPES[1], ATTN_SHAPES[2]])
+def test_plain_logdomain_flash_bf16_matches_repro(shape):
+    """bf16 inputs, as the configs' bf16 activations give kernel C: q, k
+    and v are upcast to f32 before they are log-quantized, as ``repro``'s
+    kernel path does, and the output is cast back.  Against its Pallas
+    kernel in interpret mode: one exp-grid LSB, plus one bf16 step where
+    the same f32 result rounds to neighbouring bf16 values."""
+    q, k, v = _attn_inputs(shape, seed=4)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    mine = logdomain_flash_attention(qb, kb, vb)
+    assert mine.dtype == torch.bfloat16
+    ref = j_logdomain_flash(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                              for t in (qb, kb, vb)), interpret=True)
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref, np.float32)
+    err = np.abs(mine.float().numpy() - ref)
+    assert (err <= EXP_LSB + 2 ** -7 * np.abs(ref)).all(), err.max()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "mask"])
+@pytest.mark.parametrize("mode", ["OFF", "ON", "FUSED"])
+def test_attention_dispatch_matches_repro(mode, masked):
+    """``NLDPEConfig.attention`` with GQA inputs: maskless causal FUSED
+    streams through kernel C's path, masked or ON calls repeat K/V into
+    the materialized NL-DPE attention, OFF runs ``reference_attention`` —
+    each against ``repro``'s dispatcher (FUSED through its Pallas kernel
+    in interpret mode): f32 sums in another order, 1e-5 (OFF) and one
+    exp-grid LSB (NL-DPE)."""
+    from repro.core.engine import NLDPEConfig as JNLDPEConfig
+
+    from repro_torch.core.engine import FUSED, OFF, ON
+    mine_cfg = {"OFF": OFF, "ON": ON, "FUSED": FUSED}[mode]
+    ref_cfg = JNLDPEConfig(enabled=mode != "OFF",
+                           fused_dual_compute=mode == "FUSED")
+    q, k, v = _attn_inputs((2, 4, 2, 6, 9, 16), seed=5)
+    mask = None
+    if masked:
+        mask = np.random.default_rng(6).random((2, 1, 6, 9)) < 0.7
+        mask[..., 0] = True
+    mine = mine_cfg.attention(
+        *map(torch.from_numpy, (q, k, v)), causal=not masked,
+        mask=None if mask is None else torch.from_numpy(mask)).numpy()
+    ref = np.asarray(ref_cfg.attention(
+        *map(jnp.asarray, (q, k, v)), causal=not masked,
+        mask=None if mask is None else jnp.asarray(mask)))
+    tol = 1e-5 if mode == "OFF" else EXP_LSB
+    assert np.abs(mine - ref).max() <= tol

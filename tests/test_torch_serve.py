@@ -7,7 +7,7 @@ Greedy tokens must be equal, OFF at the harness's bf16 activations and
 FUSED at float32 activations.  At bf16, a bf16 matmul output that rounds
 one ulp (0.4%) apart between the frameworks moves an 8-bit log-grid code
 (4.7% steps) in roughly one case in twelve, so FUSED logits deviate by up
-to 6e-2 (tests/test_torch_model.py) — more than the top-2 margins of this
+to 1.5e-2 (tests/test_torch_model.py) — more than the top-2 margins of this
 random reduced model — and FUSED bf16 traces are not token-comparable; at
 float32 the FUSED logits agree to 3e-7.
 
