@@ -27,6 +27,14 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
 7. serves a small model on the card and on the CPU (plain versions): the
    paged engine's greedy tokens must agree, and the lockstep prefill's
    last logits within a stated tolerance;
+8. ``[library]``: drives the public NL-DPE kernel library at full width —
+   the layer-0 MLP gate (2048 x 11008) programmed with A-SL programming
+   noise, then ``crossbar_matmul`` with read noise (kernel E) and
+   ``acam_apply`` (kernel D) at M = 8 and 512, held against kernel B on the
+   same cells; ``nldpe_matmul_int8`` (kernel G) at three DMMul shapes, held
+   against its plain version and ``nldpe_matmul(mode="fused")``; and
+   ``repro_torch.quickstart.main()`` on the card — then times D, E and G
+   like the other kernels;
 
 then prints one JSON line with the kernels' numbers and, last, the device
 line.  It exits non-zero, printing no result, if there is no GPU, if it
@@ -54,6 +62,10 @@ F_TOL = 1e-4                    # flash attention: f32 sums in another order
                                 # (bf16 outputs: plus one bf16 rounding step)
 C_TOL = 1.0 / 255               # log-domain flash: one exp-grid LSB, as in
                                 # tests/test_fused_dual_compute.py
+U32 = 2.0 ** -24                # float32 unit roundoff
+G_SHAPES = ((512, 128, 512),    # one head's QK^T in the lockstep prefill
+            (512, 512, 128),    # P . V
+            (4096, 2048, 2048))  # 8 x 512 tokens through a d_model product
 
 
 def fail(msg: str) -> None:
@@ -616,6 +628,286 @@ def logdomain_phase(torch, timer, launches: dict) -> dict:
             "timing": timer.source, "cases": cases}
 
 
+def gemm_err(torch, out, ref, a, b, slack_u: int = 8) -> float:
+    """max |out - ref| / ((2 K + slack_u) u (|A| @ |B|)) over the outputs:
+    at most 1 when two float32 GEMMs differ only by their sum order (the
+    worst-case rounding of two length-K dot products is 2 K u of
+    sum |a||b|), with ``slack_u`` u per product for operands that round
+    apart: 8 for expf against exp on both of G's operands; 40 against
+    ``nldpe_matmul`` fused, whose decode rounds ``code * step + log_lo``
+    twice where G rounds it once — one ulp of an argument up to 9.2 in
+    magnitude is 16 u of its exp."""
+    k = a.shape[-1]
+    scale = (a.abs() @ b.abs()) * ((2 * k + slack_u) * U32)
+    return ((out - ref).abs() / scale.clamp(min=1e-30)).max().item()
+
+
+def library_phase(torch, params) -> dict:
+    """The ``[library]`` path at full width, kernels D, E and G through
+    the public entry points, with every count set to 0 before it and read
+    after it: the layer-0 MLP gate weight (the one kernel B's phase takes)
+    programmed with A-SL programming noise, then E -> D at M = 8 (a paged
+    decode tick) and M = 512 (a prefill chunk), G at ``G_SHAPES``, and the
+    quickstart.  Returns the launches and the tensors the kernel phases
+    time."""
+    from repro_torch import quickstart
+    from repro_torch.core.acam import get_table
+    from repro_torch.core.crossbar import program_linear
+    from repro_torch.kernels import (acam_apply, crossbar_matmul,
+                                     nldpe_matmul_int8)
+    from repro_torch.launch import prng
+    w = params["groups"]["b0"]["ffn"]["gate"][0]
+    k, n = w.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    xs = {m: torch.randn((m, k), generator=gen, device="cuda")
+          for m in (8, 512)}
+    g_in = {shape: log_grid_operands(torch, shape, gen) for shape in G_SHAPES}
+    table = get_table("silu", 8)
+    for fn in counters():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan, eps = program_linear(w, rng=prng.prng_key(1))
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    y, z, read_s = {}, {}, {}
+    for m, x in xs.items():
+        t0 = time.perf_counter()
+        y[m] = crossbar_matmul(x, plan, rng=prng.prng_key(10 + m))
+        z[m] = acam_apply(y[m], table)
+        torch.cuda.synchronize()
+        read_s[m] = time.perf_counter() - t0
+    c = {shape: nldpe_matmul_int8(a, b) for shape, (a, b) in g_in.items()}
+    qs = quickstart.main()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters()}
+    want = {"crossbar_vmm": 3, "acam_apply": 3, "nldpe_qmatmul": 4}
+    for name, count in want.items():
+        check(launches[name] == count, f"library: {name} launched "
+              f"{launches[name]} times, expected {count} (2 + 1 quickstart "
+              f"for E and D, 3 + 1 for G)")
+    check(bool(torch.equal(qs["gelu"]["kernel"], qs["gelu"]["interval"])),
+          "library: quickstart's kernel-D GELU differs from its interval "
+          "match")
+    for m in xs:
+        check(bool(torch.isfinite(z[m]).all()) and z[m].shape == (m, n),
+              f"library: E->D output at M={m}")
+    for shape, out in c.items():
+        check(bool(torch.isfinite(out).all()) and tuple(out.shape)
+              == (shape[0], shape[2]), f"library: G output at {shape}")
+    out = {"w": [k, n], "program_noise_s": program_s,
+           "max_programming_residual": eps.max().item(),
+           "read_noise_e_d_s": read_s, "launches": launches,
+           "quickstart": {k: v for k, v in qs.items() if k != "gelu"}}
+    print("[library] " + json.dumps(out))
+    return {"plan": plan, "x": xs, "y": y, "z": z, "table": table,
+            "g_in": g_in, "c": c, "launches": launches, **out}
+
+
+def log_grid_operands(torch, shape, gen):
+    """DMMul operands (M, K) and (K, N) drawn into the log grid's range:
+    magnitudes log-uniform over [1e-4, 16] (every code), random signs, and
+    1% exact zeros (dead values, sign 0)."""
+    from repro_torch.core.logdomain import DEFAULT_CFG
+    spec = DEFAULT_CFG.mag_spec
+    out = []
+    for rows, cols in ((shape[0], shape[1]), (shape[1], shape[2])):
+        u = torch.rand((rows, cols), generator=gen, device="cuda")
+        mag = torch.exp(spec.log_lo + u * (spec.log_hi - spec.log_lo))
+        sign = torch.where(torch.rand((rows, cols), generator=gen,
+                                      device="cuda") < 0.5, -1.0, 1.0)
+        keep = torch.rand((rows, cols), generator=gen, device="cuda") >= 0.01
+        out.append(mag * sign * keep)
+    return out
+
+
+def library_checks(torch, lib: dict) -> dict:
+    """D o E against kernel B on the same read-noise cells and the same
+    float32 inv: bitwise expected (shared main loop and epilogue),
+    otherwise one ACAM code on at most B_MAX_FLIP_FRACTION of outputs; G
+    against ``nldpe_matmul(mode="fused")``."""
+    from repro_torch.core.acam import table_thresholds
+    from repro_torch.core.logdomain import nldpe_matmul
+    from repro_torch.kernels.crossbar_vmm.ops import inv_g_ratio, read_cells
+    from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
+    from repro_torch.launch import prng
+    table, plan = lib["table"], lib["plan"]
+    lo, hi = table_thresholds(table, "cuda")
+    step = float(table.out_spec.step)
+    inv = torch.tensor([inv_g_ratio(plan)], device="cuda")
+    res = {}
+    for m, x in lib["x"].items():
+        cells = read_cells(plan, prng.prng_key(10 + m))
+        b = fused_crossbar_acam(x, *cells, inv, lo, hi,
+                                out_lo=float(table.out_spec.lo),
+                                out_step=step)
+        torch.cuda.synchronize()
+        diff = (b - lib["z"][m]).abs()
+        n_diff = int((diff > 0).sum().item())
+        check(diff.max().item() <= step * 1.0001
+              and n_diff <= B_MAX_FLIP_FRACTION * diff.numel(),
+              f"library: D o E vs B at M={m}: {n_diff} outputs differ, max "
+              f"{diff.max().item()}")
+        res[f"d_e_vs_b_m{m}_outputs_differing"] = n_diff
+    for shape, (a, b) in lib["g_in"].items():
+        ref = nldpe_matmul(a, b, mode="fused")
+        torch.cuda.synchronize()
+        r = gemm_err(torch, lib["c"][shape], ref, a, b, slack_u=40)
+        check(r <= 1.0, f"library: G vs nldpe_matmul fused at {shape}: "
+              f"error {r:.3g} of the sum-order bound")
+        res[f"g_vs_fused_{'x'.join(map(str, shape))}_err_of_bound"] = r
+    print("[library checks] " + json.dumps(res))
+    return res
+
+
+def acam_phase(torch, timer, lib: dict) -> dict:
+    """Kernel D on the library path's pre-activations, (8, 11008) and
+    (512, 11008), against its plain version (bitwise: the same compares
+    and roundings) and beside the piecewise fast path."""
+    from repro_torch.core.acam import acam_activation, table_thresholds
+    from repro_torch.kernels.acam_activation.ops import acam_apply
+    from repro_torch.kernels.acam_activation.ref import acam_activation_ref
+    table = lib["table"]
+    lo, hi = table_thresholds(table, "cuda")
+    kw = dict(out_lo=float(table.out_spec.lo),
+              out_step=float(table.out_spec.step))
+    cases = []
+    for m in (8, 512):
+        y = lib["y"][m]
+        out = acam_apply(y, table)
+        ref = acam_activation_ref(y, lo, hi, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(bool(torch.equal(out, ref)), f"acam_apply {tuple(y.shape)}: "
+              f"kernel differs from plain (max {err})")
+        ms, call_ms = timer.ms(lambda: acam_apply(y, table), iters=20)
+        plain_ms, _ = timer.ms(lambda: acam_activation_ref(y, lo, hi, **kw),
+                               iters=3)
+        lib_ms, _ = timer.ms(lambda: acam_activation(y, "silu"), iters=20)
+        # 4 bytes in and 4 out per element, the table once; the compares
+        # are not float32 FLOPs
+        bms, by = bound(8 * y.numel() + 4 * 2 * lo.numel(), 0)
+        case = {"shape": list(y.shape), "max_abs_err": err, "ms": ms,
+                "call_ms": call_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+        print("[kernel D] " + json.dumps(case))
+        cases.append(case)
+    top = cases[1]
+    return {"name": "acam_apply", "route": "cuda",
+            "source": "src/repro_torch/csrc/acam_activation.cu",
+            "replaces": "src/repro/kernels/acam_activation/kernel.py:57",
+            "launches": lib["launches"]["acam_apply"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": "bitwise", "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "library": "none computes the interval match; fast path "
+                       "core.acam.acam_activation (searchsorted) in the "
+                       "cases' library_ms",
+            "timing": timer.source, "cases": cases}
+
+
+def crossbar_phase(torch, timer, lib: dict) -> dict:
+    """Kernel E at M = 8 and 512, K = 2048, N = 11008, on the library
+    plan's read-noise cells, against its plain version (cuBLAS)."""
+    from repro_torch.kernels.crossbar_vmm.ops import (crossbar_vmm,
+                                                      inv_g_ratio,
+                                                      read_cells)
+    from repro_torch.kernels.crossbar_vmm.ref import crossbar_vmm_ref
+    from repro_torch.kernels.dual_compute.ref import effective_weight
+    from repro_torch.launch import prng
+    plan = lib["plan"]
+    inv = inv_g_ratio(plan)
+    cases = []
+    for m, x in lib["x"].items():
+        cells = read_cells(plan, prng.prng_key(10 + m))
+        w_eff = effective_weight(*cells, inv)
+        k, n = w_eff.shape
+        out = crossbar_vmm(x, *cells, inv)
+        ref = crossbar_vmm_ref(x, *cells, inv)
+        torch.cuda.synchronize()
+        check(torch.equal(out, lib["y"][m]), f"crossbar_vmm M={m}: not the "
+              f"library path's output")
+        r = gemm_err(torch, out, ref, x, w_eff)
+        check(r <= 1.0, f"crossbar_vmm M={m}: error {r:.3g} of the "
+              f"sum-order bound")
+        err = (out - ref).abs().max().item()
+        ms, call_ms = timer.ms(lambda: crossbar_vmm(x, *cells, inv), iters=10)
+        plain_ms, _ = timer.ms(lambda: crossbar_vmm_ref(x, *cells, inv),
+                               iters=3)
+        lib_ms, _ = timer.ms(lambda: torch.matmul(x, w_eff), iters=10)
+        nbytes = 4 * (m * k + 4 * k * n + m * n)
+        flops = 2 * m * k * n + 5 * k * n
+        bms, by = bound(nbytes, flops)
+        case = {"m": m, "k": k, "n": n, "max_abs_err": err,
+                "err_of_bound": r, "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bms, "bound_by": by}
+        print("[kernel E] " + json.dumps(case))
+        cases.append(case)
+    top = cases[0]
+    return {"name": "crossbar_vmm", "route": "cuda",
+            "source": "src/repro_torch/csrc/crossbar_vmm.cu",
+            "replaces": "src/repro/kernels/crossbar_vmm/kernel.py:44",
+            "launches": lib["launches"]["crossbar_vmm"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": "(2K + 8) u (|x| @ |W_eff|) per output",
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library": "torch.matmul(x, W_eff), the GEMM alone",
+            "timing": timer.source, "cases": cases}
+
+
+def qmatmul_phase(torch, timer, lib: dict) -> dict:
+    """Kernel G at the three DMMul shapes on the library path's operands,
+    against its plain version (dequantize, cuBLAS)."""
+    from repro_torch.core.logdomain import DEFAULT_CFG
+    from repro_torch.kernels.nldpe_qmatmul.ops import (encode_int8,
+                                                       nldpe_qmatmul)
+    from repro_torch.kernels.nldpe_qmatmul.ref import (dequant_ref,
+                                                       nldpe_qmatmul_ref)
+    spec = DEFAULT_CFG.mag_spec
+    cases = []
+    for shape, (a, b) in lib["g_in"].items():
+        m, k, n = shape
+        codes = (*encode_int8(a), *encode_int8(b), spec.step, spec.log_lo)
+        out = nldpe_qmatmul(*codes)
+        ref = nldpe_qmatmul_ref(*codes)
+        torch.cuda.synchronize()
+        check(torch.equal(out, lib["c"][shape]), f"nldpe_qmatmul {shape}: "
+              f"not the library path's output")
+        da, db = dequant_ref(*codes[:2], *codes[4:]), \
+            dequant_ref(*codes[2:4], *codes[4:])
+        r = gemm_err(torch, out, ref, da, db)
+        check(r <= 1.0, f"nldpe_qmatmul {shape}: error {r:.3g} of the "
+              f"sum-order bound")
+        err = (out - ref).abs().max().item()
+        ms, call_ms = timer.ms(lambda: nldpe_qmatmul(*codes), iters=10)
+        plain_ms, _ = timer.ms(lambda: nldpe_qmatmul_ref(*codes), iters=3)
+        lib_ms, _ = timer.ms(lambda: torch.matmul(da, db), iters=10)
+        bms, by = bound(2 * (m * k + k * n) + 4 * m * n, 2 * m * k * n)
+        case = {"shape": list(shape), "max_abs_err": err,
+                "err_of_bound": r, "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bms, "bound_by": by}
+        print("[kernel G] " + json.dumps(case))
+        cases.append(case)
+    top = cases[-1]
+    return {"name": "nldpe_qmatmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/nldpe_qmatmul.cu",
+            "replaces": "src/repro/kernels/nldpe_qmatmul/kernel.py:50",
+            "launches": lib["launches"]["nldpe_qmatmul"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": "(2K + 8) u (|A^| @ |B^|) per output; against "
+                         "nldpe_matmul fused (2K + 40) u",
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library": "torch.matmul of the dequantized f32 operands",
+            "timing": timer.source, "cases": cases}
+
+
 def small_model_agrees(torch) -> None:
     """The reduced model (float32 activations) served on the card through
     the kernels and on the CPU through the plain versions gives the same
@@ -673,12 +965,16 @@ def _to(tree, dev):
 
 def counters() -> list:
     """The kernel wrappers, each counting its launches."""
+    from repro_torch.kernels.acam_activation.ops import acam_apply
+    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm
     from repro_torch.kernels.dual_compute.ops import (
         fused_crossbar_acam, logdomain_flash_attention)
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.nldpe_qmatmul.ops import nldpe_qmatmul
     from repro_torch.kernels.paged_attention.ops import paged_attention
     return [paged_attention, fused_crossbar_acam, flash_attention,
-            logdomain_flash_attention]
+            logdomain_flash_attention, acam_apply, crossbar_vmm,
+            nldpe_qmatmul]
 
 
 def main() -> None:
@@ -768,6 +1064,11 @@ def main() -> None:
     print(f"[serve slotted OFF] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    lib = library_phase(torch, params)
+    library_checks(torch, lib)
+    print(f"[library] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     timer = Timer(torch)
     kernels = [
         paged_attention_phase(torch, timer, off,
@@ -776,8 +1077,12 @@ def main() -> None:
                          path_launches(fused_res, "fused_crossbar_acam")),
         logdomain_phase(torch, timer, lock_fused["per_kernel"][
             "logdomain_flash_attention"]),
+        acam_phase(torch, timer, lib),
+        crossbar_phase(torch, timer, lib),
         flash_phase(torch, timer,
-                    lock_off["per_kernel"]["flash_attention"])]
+                    lock_off["per_kernel"]["flash_attention"]),
+        qmatmul_phase(torch, timer, lib)]
+    del lib
     print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

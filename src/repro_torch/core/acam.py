@@ -1,9 +1,10 @@
 """ACAM array evaluation (port of ``repro.core.acam``).
 
-* ``match_bits`` / ``gray_decode_bits`` / ``eval_table`` — the
-  hardware-faithful interval matcher: per-bit row match
+* ``match_bits`` / ``gray_decode_bits`` / ``eval_table`` / ``eval_acam``
+  — the hardware-faithful interval matcher: per-bit row match
   (lo <= x <= hi), OR across rows, XOR Gray decode.  These are the plain
-  versions the fused crossbar->ACAM kernel's epilogue is held against.
+  versions the ACAM kernel (D) and the fused crossbar->ACAM kernel's
+  epilogue (B) are held against.
 * ``compile_piecewise`` / ``eval_piecewise`` — the noise-free fast path
   the ``ON`` numerics use: the whole unit is a piecewise-constant map of
   the scalar input, evaluated with a sorted-breakpoint search.
@@ -37,12 +38,26 @@ def gray_decode_bits(g: torch.Tensor) -> torch.Tensor:
 
 
 def eval_table(lo: torch.Tensor, hi: torch.Tensor, x: torch.Tensor,
-               out_lo: float, out_step: float) -> torch.Tensor:
-    """Full Gray-coded ACAM unit: thresholds -> dequantized value (f32)."""
-    b = gray_decode_bits(match_bits(lo, hi, x))
+               out_lo: float, out_step: float,
+               encoding: str = "gray") -> torch.Tensor:
+    """Full ACAM unit: thresholds -> dequantized value (f32)."""
+    g = match_bits(lo, hi, x)
+    b = gray_decode_bits(g) if encoding == "gray" else g
     weights = 2 ** torch.arange(b.shape[-1], device=b.device)
     code = torch.sum(b.to(torch.int64) * weights, dim=-1).to(torch.float32)
     return code * out_step + out_lo
+
+
+def eval_acam(table: ACAMTable, x: torch.Tensor,
+              lo: torch.Tensor | None = None,
+              hi: torch.Tensor | None = None) -> torch.Tensor:
+    """The interval match of ``table`` on ``x``; pass noisy (lo, hi) to
+    simulate device noise."""
+    dev_lo, dev_hi = table_thresholds(table, x.device)
+    return eval_table(dev_lo if lo is None else lo,
+                      dev_hi if hi is None else hi, x,
+                      float(table.out_spec.lo), float(table.out_spec.step),
+                      table.encoding)
 
 
 def eval_table_np(table: ACAMTable, x: np.ndarray) -> np.ndarray:

@@ -5,8 +5,9 @@
 
 ``log`` and ``exp`` are single-variable functions computed by 8-bit ACAMs,
 so every log/exp crossing quantizes to an 8-bit grid: the DMMul number
-format is sign-magnitude 8-bit log quantization.  Only the ``fused`` mode
-(a plain matmul over log-quantized reconstructions) is on the serve path.
+format is sign-magnitude 8-bit log quantization.  The ``fused`` mode (a
+plain matmul over log-quantized reconstructions) is on the serve path;
+``exact`` re-quantizes every product and is the fidelity oracle.
 """
 from __future__ import annotations
 
@@ -29,22 +30,82 @@ class LogDomainConfig:
     # scores are max-shifted into [-score_range, 0] before exp
     score_range: float = 8.0
 
+    def exp_out_spec(self) -> QuantSpec:
+        """Grid for q8(exp(la+lb)) outputs in ``exact`` mode."""
+        hi = math.exp(2 * self.mag_spec.log_hi)
+        return QuantSpec(lo=0.0, hi=hi, bits=self.bits)
+
 
 DEFAULT_CFG = LogDomainConfig()
+
+
+def encode_live(x: torch.Tensor, cfg: LogDomainConfig = DEFAULT_CFG
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(code, sign) on the DMMul grid, sign 0 where |x| is below the grid
+    floor (a flushed zero)."""
+    code, sign = cfg.mag_spec.encode(x)
+    dead = torch.abs(x) < weak(math.exp(cfg.mag_spec.log_lo), x)
+    return code, torch.where(dead, 0.0, sign)
 
 
 def log_quantize(x: torch.Tensor,
                  cfg: LogDomainConfig = DEFAULT_CFG) -> torch.Tensor:
     """sign * exp(q8(log|x|)); |x| below the grid floor flushes to 0."""
-    code, sign = cfg.mag_spec.encode(x)
-    dead = torch.abs(x) < weak(math.exp(cfg.mag_spec.log_lo), x)
-    return torch.where(dead, 0.0, cfg.mag_spec.decode(code, sign))
+    return cfg.mag_spec.decode(*encode_live(x, cfg))
+
+
+def _exp_lut_arg(sums: torch.Tensor, cfg: LogDomainConfig) -> torch.Tensor:
+    """exp's argument for a code sum: ``sum * step + 2 * log_lo``."""
+    spec = cfg.mag_spec
+    return sums.to(torch.float32) * spec.step + 2 * spec.log_lo
+
+
+def nldpe_matmul(a: torch.Tensor, b: torch.Tensor,
+                 cfg: LogDomainConfig = DEFAULT_CFG, mode: str = "fused",
+                 block_k: int = 64) -> torch.Tensor:
+    """C = A @ B through the log-domain ACAM pipeline (Fig 6a).
+    a: (..., M, K), b: (..., K, N).
+
+    * ``fused`` — a plain matmul over the log-quantized reconstructions
+      (exp(la + lb) = exp(la) * exp(lb) on the grid; kernel G computes
+      this mode from int8 codes).
+    * ``exact`` — each product's exp is its own 8-bit ACAM output:
+      C = sum_k s * q8(exp(la + lb)), a LUT over code sums, summed in
+      ``block_k`` slices of K."""
+    if mode == "fused":
+        return torch.matmul(log_quantize(a, cfg), log_quantize(b, cfg))
+    if mode != "exact":
+        raise ValueError(mode)
+    ca, sa = encode_live(a, cfg)
+    cb, sb = encode_live(b, cfg)
+    sums = torch.arange(2 * cfg.mag_spec.levels - 1, device=a.device)
+    lut = cfg.exp_out_spec().apply(torch.exp(_exp_lut_arg(sums, cfg)))
+    k = a.shape[-1]
+    out = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, k, block_k):
+        k1 = min(k0 + block_k, k)
+        idx = ca[..., :, k0:k1, None] + cb[..., None, k0:k1, :]
+        prod = lut[idx.long()]                       # (..., M, kb, N)
+        sgn = sa[..., :, k0:k1, None] * sb[..., None, k0:k1, :]
+        out = out + torch.sum(prod * sgn, dim=-2)
+    return out
 
 
 def nldpe_mul(a: torch.Tensor, b: torch.Tensor,
-              cfg: LogDomainConfig = DEFAULT_CFG) -> torch.Tensor:
-    """Element-wise DMMul, fused mode (the gated-MLP gate * up product)."""
-    return log_quantize(a, cfg) * log_quantize(b, cfg)
+              cfg: LogDomainConfig = DEFAULT_CFG,
+              mode: str = "fused") -> torch.Tensor:
+    """Element-wise DMMul (the gated-MLP gate * up product): ``fused``
+    multiplies the log-quantized values, ``exact`` re-quantizes each
+    product's exp on the 8-bit output grid."""
+    if mode == "fused":
+        return log_quantize(a, cfg) * log_quantize(b, cfg)
+    if mode != "exact":
+        raise ValueError(mode)
+    ca, sa = encode_live(a, cfg)
+    cb, sb = encode_live(b, cfg)
+    mag = cfg.exp_out_spec().apply(torch.exp(_exp_lut_arg(ca + cb, cfg)))
+    return mag * (sa * sb)
 
 
 def nldpe_log_softmax(y: torch.Tensor, cfg: LogDomainConfig = DEFAULT_CFG,

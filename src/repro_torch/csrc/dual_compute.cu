@@ -16,34 +16,27 @@
 //
 // What bounds it on an H100: at decode (M = 8) bytes — the four cell
 // matrices are 4*K*N*4 bytes (360 MB per MLP gate at K=2048, N=11008) for
-// 2*M*K*N FLOPs; at chunk prefill (M = 512) f32 operations.  The design:
-//   * a 64x64 output tile per block, 4x4 outputs per thread, K in steps
-//     of 16 through shared memory; W_eff is formed in shared memory from
-//     the four cells as the reference kernel forms it (kernel.py:62), with
-//     __fsub_rn/__fmul_rn/__fadd_rn so the compiler cannot contract it
-//     into FMAs — the f32 rounding of the conductance differences decides
-//     ACAM codes at interval edges;
-//   * the product accumulates with IEEE fmaf in k order (no TF32, no
-//     tensor cores in this first version);
-//   * the ACAM table lives in shared memory; each output walks the rows of
-//     each bit and stops at the first match (the bit is an OR), instead of
-//     the reference's (strip, bn, bits, rows) compare tensor;
-//   * ragged M/N/K edges are masked (zero operands, no stores), not padded.
+// 2*M*K*N FLOPs; at chunk prefill (M = 512) f32 operations.  The design
+// is the shared tile code of xbar_tiles.cuh:
+//   * the GEMM main loop (64x64 tile, 4x4 outputs per thread, K in steps
+//     of 16) with W_eff formed in shared memory from the four cells as the
+//     reference kernel forms it (kernel.py:62), with __fsub_rn/__fmul_rn/
+//     __fadd_rn so the compiler cannot contract it into FMAs — the f32
+//     rounding of the conductance differences decides ACAM codes at
+//     interval edges; kernel E (crossbar_vmm.cu) is the same loop;
+//   * the ACAM epilogue on the accumulator (kernel D, acam_activation.cu,
+//     is the same function on values read from memory), its table in
+//     shared memory;
+//   * ragged M/N/K edges are masked (zero operands, no stores), not padded;
 //   * inv is read from device memory, so w_max never round-trips the host.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "xbar_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+using namespace xbar;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_crossbar_acam_kernel(const float* __restrict__ x,
                            const float* __restrict__ gp,
                            const float* __restrict__ gn,
@@ -60,95 +53,31 @@ fused_crossbar_acam_kernel(const float* __restrict__ x,
   float* w_s = x_s + BK * BM;         // BK x BN
   float* lo_s = w_s + BK * BN;        // bits x rows
   float* hi_s = lo_s + bits * rows;   // bits x rows
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const float inv = *inv_ptr;
 
-  for (int idx = tid; idx < bits * rows; idx += THREADS) {
-    lo_s[idx] = lo[idx];
-    hi_s[idx] = hi[idx];
-  }
-
+  load_table(lo, hi, lo_s, hi_s, bits * rows);
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += THREADS) {
-      const int mm = idx / BK;
-      const int kk = idx % BK;
-      const int gm = m0 + mm;
-      const int gk = k0 + kk;
-      x_s[kk * BM + mm] =
-          (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.0f;
-    }
-    for (int idx = tid; idx < BK * BN; idx += THREADS) {
-      const int kk = idx / BN;
-      const int nn = idx % BN;
-      const int gk = k0 + kk;
-      const int gnn = n0 + nn;
-      float w = 0.0f;
-      if (gk < K && gnn < N) {
-        const size_t o = (size_t)gk * N + gnn;
-        const float main = __fsub_rn(gp[o], gn[o]);
-        const float res = __fmul_rn(__fsub_rn(rp[o], rn[o]), res_scale);
-        w = __fmul_rn(__fadd_rn(main, res), inv);
-      }
-      w_s[kk * BN + nn] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = x_s[kk * BM + ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = w_s[kk * BN + tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  gemm_tile(RowMajorA{x, M, K},
+            CellsB{gp, gn, rp, rn, res_scale, *inv_ptr, K, N}, x_s, w_s, K,
+            m0, n0, acc);
 
   // epilogue: the bit-line current drives the ACAM directly
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
+    const int gm = m0 + tile_row() + i;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int gnn = n0 + tx * TN + j;
-      if (gm >= M || gnn >= N) continue;
-      const float y = acc[i][j];
-      int b = 0;
-      int code = 0;
-      for (int bit = bits - 1; bit >= 0; --bit) {
-        int g = 0;
-        for (int r = 0; r < rows; ++r) {
-          if (lo_s[bit * rows + r] <= y && y <= hi_s[bit * rows + r]) {
-            g = 1;
-            break;
-          }
-        }
-        b ^= g;                        // b_i = XOR(g_{n-1}, ..., g_i)
-        code += b << bit;
-      }
-      out[(size_t)gm * N + gnn] =
-          __fadd_rn(__fmul_rn((float)code, out_step), out_lo);
+      const int gc = n0 + tile_col() + j;
+      if (gm >= M || gc >= N) continue;
+      out[(size_t)gm * N + gc] = acam_value(acc[i][j], lo_s, hi_s, bits,
+                                            rows, out_lo, out_step);
     }
   }
 }
 
 size_t smem_bytes(int bits, int rows) {
-  return sizeof(float) * ((size_t)BK * BM + (size_t)BK * BN +
-                          2 * (size_t)bits * rows);
+  return sizeof(float) * ((size_t)TILE_FLOATS + 2 * (size_t)bits * rows);
 }
 
 }  // namespace

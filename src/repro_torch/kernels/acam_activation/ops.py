@@ -1,0 +1,62 @@
+"""ACAM activation wrapper (port of ``repro.kernels.acam_activation.ops``):
+apply an ACAM table to a tensor of any shape — the CUDA kernel
+``csrc/acam_activation.cu`` for CUDA tensors, the plain version
+(``ref.py``) for CPU tensors.
+
+The input is upcast to float32 and flattened; the kernel masks the ragged
+tail, so nothing is padded.  The output is float32 in the input's shape.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.acam import table_thresholds
+from ...core.dt import ACAMTable
+from .. import build
+from .ref import acam_activation_ref
+
+
+def _lib():
+    lib = build.load("acam_activation")
+    if not getattr(lib, "_typed", False):
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.acam_activation_launch.argtypes = [vp, vp, vp, vp,
+                                               ctypes.c_longlong, i, i, f, f,
+                                               vp]
+        lib.acam_activation_launch.restype = i
+        lib.acam_activation_smem_bytes.argtypes = [i, i]
+        lib.acam_activation_smem_bytes.restype = ctypes.c_size_t
+        lib._typed = True
+    return lib
+
+
+def acam_apply(x: torch.Tensor, table: ACAMTable) -> torch.Tensor:
+    """The Gray-coded ACAM unit of ``table`` on every element of ``x``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise — there is no fallback)."""
+    lo, hi = table_thresholds(table, x.device)
+    out_lo = float(table.out_spec.lo)
+    out_step = float(table.out_spec.step)
+    if x.device.type == "cpu":
+        return acam_activation_ref(x, lo, hi, out_lo, out_step)
+    if not (x.is_floating_point() and x.numel() > 0):
+        raise ValueError("acam_apply: x must be a non-empty float tensor")
+    bits, rows = lo.shape
+    lib = _lib()
+    if lib.acam_activation_smem_bytes(bits, rows) > 227 * 1024:
+        raise ValueError(f"acam_apply: table {bits}x{rows} does not fit in "
+                         f"shared memory")
+    flat = x.to(torch.float32).contiguous()
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    err = lib.acam_activation_launch(
+        flat.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+        flat.numel(), bits, rows, out_lo, out_step,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "acam_apply")
+    acam_apply.launches += 1
+    return out
+
+
+acam_apply.launches = 0

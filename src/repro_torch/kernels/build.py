@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "dual_compute", "flash_attention",
-           "logdomain_flash")
+           "logdomain_flash", "acam_activation", "crossbar_vmm",
+           "nldpe_qmatmul")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LOCK = threading.Lock()

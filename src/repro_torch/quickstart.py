@@ -1,0 +1,97 @@
+"""Quickstart: the NL-DPE kernel library of the port.
+
+    PYTHONPATH=src python -m repro_torch.quickstart [--device cpu]
+
+The counterpart of ``examples/quickstart.py`` sections 1 and 2, plus an
+analog-slicing section; it runs on the GPU unless ``--device cpu`` is
+given (the kernels then take their plain versions).
+
+1. Build the per-bit decision tree of GELU, map it to an ACAM table and
+   evaluate it three ways: the hardware-faithful interval match, the
+   compiled piecewise fast path and kernel D (``acam_apply``).
+2. A log-domain DMMul (exp(log a + log b)) in ``nldpe_matmul``'s fused and
+   exact modes and through kernel G (``nldpe_matmul_int8``), against a
+   float32 matmul.
+3. Program a weight matrix with A-SL and programming noise
+   (``program_linear``), then one crossbar pass with read noise through
+   kernel E (``crossbar_matmul``), against the ideal VMM.
+
+Noise-Aware Fine-tuning (the reference's section 3) is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .core import acam, crossbar, dt, logdomain
+from .core.functions import TORCH_FUNCTIONS
+from .kernels import acam_apply, crossbar_matmul, nldpe_matmul_int8
+from .launch import prng
+
+
+def main(device=None) -> dict:
+    """Run the three sections on ``device`` (the GPU by default); prints
+    their errors and returns them with the GELU outputs."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    out = {}
+
+    # -- 1. ACAM-computed GELU ------------------------------------------------
+    table = dt.build_table("gelu", bits=8, encoding="gray")
+    print(f"GELU DT -> ACAM: rows per bit (MSB..LSB) = "
+          f"{list(reversed(table.rows_per_bit))}, total = {table.total_rows}")
+    x = torch.from_numpy(rng.uniform(-6, 6, (4, 128)).astype(np.float32)
+                         ).to(dev)
+    ys = {"interval": acam.eval_acam(table, x),
+          "piecewise": acam.acam_activation(x, "gelu"),
+          "kernel": acam_apply(x, table)}
+    ref = TORCH_FUNCTIONS["gelu"](x)
+    for name, y in ys.items():
+        mse = float(torch.mean((y - ref) ** 2))
+        out[f"gelu_{name}_mse"] = mse
+        print(f"  {name:9s} MSE vs fp32 gelu: {mse:.2e}")
+    out["gelu"] = ys
+
+    # -- 2. log-domain DMMul ------------------------------------------------
+    a = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32)).to(dev)
+    exact = a @ b
+    for name, c in (("fused", logdomain.nldpe_matmul(a, b)),
+                    ("exact", logdomain.nldpe_matmul(a, b, mode="exact")),
+                    ("kernel", nldpe_matmul_int8(a, b))):
+        rel = float(torch.mean((c - exact) ** 2) / torch.var(exact))
+        out[f"dmmul_{name}_rel_mse"] = rel
+        print(f"DMMul exp(log+log) {name:6s}: relative MSE vs fp32 matmul "
+              f"= {rel:.2e}")
+
+    # -- 3. A-SL crossbar with programming and read noise --------------------
+    w = torch.from_numpy((rng.normal(size=(256, 128)) / 16).astype(
+        np.float32)).to(dev)
+    xw = torch.from_numpy(rng.normal(size=(16, 256)).astype(np.float32)
+                          ).to(dev)
+    plan, eps = crossbar.program_linear(w, rng=prng.prng_key(1))
+    y = crossbar_matmul(xw, plan, rng=prng.prng_key(2))
+    ideal = crossbar.ideal_vmm(xw, w)
+    rel = float(torch.mean((y - ideal) ** 2) / torch.var(ideal))
+    out["asl_rel_mse"] = rel
+    out["asl_max_eps"] = float(eps.max())
+    print(f"A-SL crossbar (programming + read noise): relative MSE vs the "
+          f"ideal VMM = {rel:.2e}; max |programming residual| "
+          f"{out['asl_max_eps']:.2e}")
+    print("quickstart OK")
+    return out
+
+
+def cli(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU; 'cpu' runs the "
+                        "plain versions)")
+    main(p.parse_args(argv).device)
+
+
+if __name__ == "__main__":
+    cli()

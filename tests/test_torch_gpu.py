@@ -285,3 +285,149 @@ def test_lockstep_on_card_matches_cpu_plain_path(dev, fused):
     tol = 1e-2 if fused else 1e-4
     assert (out["cpu"][0] - out["cuda"][0]).abs().max().item() <= tol
     assert torch.equal(out["cpu"][1], out["cuda"][1])
+
+
+# -- the NL-DPE kernel library: D, E and G --------------------------------
+
+U32 = 2.0 ** -24
+
+
+def _within_sum_order(out, ref, a, b, slack_u=8):
+    """|out - ref| <= (2 K + slack_u) u (|A| @ |B|) per output: two
+    float32 GEMMs that differ only by their sum order (2 K u, the worst
+    case of two length-K dot products), with ``slack_u`` u per product for
+    operands a few ulps apart."""
+    k = a.shape[-1]
+    tol = (a.abs() @ b.abs()) * ((2 * k + slack_u) * U32)
+    return bool(((out - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "exp", "log"])
+@pytest.mark.parametrize("shape,dtype", [((8, 11008), torch.float32),
+                                         ((3, 1000, 7), torch.float32),
+                                         ((1, 1), torch.float32),
+                                         ((77, 129), torch.bfloat16)])
+def test_acam_activation_kernel_matches_plain(dev, name, shape, dtype):
+    """Kernel D against its plain version: bitwise (the same compares and
+    the same two float32 roundings), ragged sizes and a bf16 input."""
+    from repro_torch.kernels.acam_activation.ops import acam_apply
+    from repro_torch.kernels.acam_activation.ref import acam_activation_ref
+    table = get_table(name, 8)
+    lo, hi = table_thresholds(table, dev)
+    x = (torch.tensor(np.random.default_rng(0).normal(size=shape) * 4,
+                      dtype=torch.float32).to(dtype).to(dev))
+    before = acam_apply.launches
+    out = acam_apply(x, table)
+    torch.cuda.synchronize()
+    assert acam_apply.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    ref = acam_activation_ref(x, lo, hi, float(table.out_spec.lo),
+                              float(table.out_spec.step))
+    assert torch.equal(out, ref)
+
+
+def _noisy_plan(dev, k, n, seed=0):
+    from repro_torch.core.crossbar import program_linear
+    from repro_torch.launch import prng
+    w = torch.tensor(np.random.default_rng(seed).normal(size=(k, n))
+                     * k ** -0.5, dtype=torch.float32, device=dev)
+    plan, _ = program_linear(w, rng=prng.prng_key(seed + 1))
+    return plan
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 11008), (512, 2048, 11008),
+                                   (37, 100, 130), (1, 17, 5)])
+def test_crossbar_vmm_kernel_matches_plain(dev, m, k, n):
+    """Kernel E against its plain version on read-noise cells: within the
+    float32 sum-order bound (2 K + 8) u (|x| @ |W_eff|)."""
+    from repro_torch.kernels.crossbar_vmm.ops import (crossbar_matmul,
+                                                      crossbar_vmm,
+                                                      inv_g_ratio,
+                                                      read_cells)
+    from repro_torch.kernels.crossbar_vmm.ref import crossbar_vmm_ref
+    from repro_torch.kernels.dual_compute.ref import effective_weight
+    from repro_torch.launch import prng
+    plan = _noisy_plan(dev, k, n)
+    x = torch.tensor(np.random.default_rng(1).normal(size=(m, k)),
+                     dtype=torch.float32, device=dev)
+    before = crossbar_vmm.launches
+    out = crossbar_matmul(x, plan, rng=prng.prng_key(9))
+    torch.cuda.synchronize()
+    assert crossbar_vmm.launches == before + 1
+    cells = read_cells(plan, prng.prng_key(9))
+    inv = inv_g_ratio(plan)
+    ref = crossbar_vmm_ref(x, *cells, inv)
+    assert torch.isfinite(out).all()
+    assert _within_sum_order(out, ref, x, effective_weight(*cells, inv))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 11008), (512, 2048, 11008),
+                                   (37, 100, 130)])
+def test_crossbar_then_acam_equals_fused_kernel(dev, m, k, n):
+    """D o E against kernel B on the same read-noise cells and the same
+    float32 inv: bit for bit — B is E's main loop with D's function as its
+    epilogue."""
+    from repro_torch.kernels.acam_activation.ops import acam_apply
+    from repro_torch.kernels.crossbar_vmm.ops import (crossbar_matmul,
+                                                      inv_g_ratio,
+                                                      read_cells)
+    from repro_torch.launch import prng
+    plan = _noisy_plan(dev, k, n, seed=3)
+    x = torch.tensor(np.random.default_rng(4).normal(size=(m, k)),
+                     dtype=torch.float32, device=dev)
+    table = get_table("silu", 8)
+    lo, hi = table_thresholds(table, dev)
+    de = acam_apply(crossbar_matmul(x, plan, rng=prng.prng_key(5)), table)
+    inv = torch.tensor([inv_g_ratio(plan)], device=dev)
+    b = fused_crossbar_acam(x, *read_cells(plan, prng.prng_key(5)), inv, lo,
+                            hi, out_lo=float(table.out_spec.lo),
+                            out_step=float(table.out_spec.step))
+    assert torch.equal(de, b)
+
+
+def _log_grid_operand(rng, shape, dev):
+    """Magnitudes log-uniform over the DMMul grid [1e-4, 16], random signs,
+    2% exact zeros (sign 0)."""
+    mag = np.exp(rng.uniform(np.log(1e-4), np.log(16.0), shape))
+    sign = np.where(rng.random(shape) < 0.5, -1.0, 1.0)
+    keep = rng.random(shape) >= 0.02
+    return torch.tensor(mag * sign * keep, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 128, 512), (512, 512, 128),
+                                   (4096, 2048, 2048), (37, 100, 130)])
+def test_nldpe_qmatmul_kernel_matches_plain_and_fused(dev, m, k, n):
+    """Kernel G against its plain version (the same FMA-rounded dequant,
+    expf against exp: (2 K + 8) u) and against ``nldpe_matmul`` fused,
+    the same function with a twice-rounded decode ((2 K + 40) u: one ulp
+    of an exp argument up to 9.2 in magnitude is 16 u of its value)."""
+    from repro_torch.core.logdomain import DEFAULT_CFG, nldpe_matmul
+    from repro_torch.kernels.nldpe_qmatmul.ops import (encode_int8,
+                                                       nldpe_matmul_int8,
+                                                       nldpe_qmatmul)
+    from repro_torch.kernels.nldpe_qmatmul.ref import (dequant_ref,
+                                                       nldpe_qmatmul_ref)
+    spec = DEFAULT_CFG.mag_spec
+    rng = np.random.default_rng(6)
+    a = _log_grid_operand(rng, (m, k), dev)
+    b = _log_grid_operand(rng, (k, n), dev)
+    before = nldpe_qmatmul.launches
+    out = nldpe_matmul_int8(a, b)
+    torch.cuda.synchronize()
+    assert nldpe_qmatmul.launches == before + 1
+    (ac, as_), (bc, bs) = encode_int8(a), encode_int8(b)
+    ref = nldpe_qmatmul_ref(ac, as_, bc, bs, spec.step, spec.log_lo)
+    da = dequant_ref(ac, as_, spec.step, spec.log_lo)
+    db = dequant_ref(bc, bs, spec.step, spec.log_lo)
+    assert torch.isfinite(out).all()
+    assert _within_sum_order(out, ref, da, db)
+    fused = nldpe_matmul(a, b, mode="fused")
+    assert _within_sum_order(out, fused, da, db, slack_u=40)
+
+
+def test_quickstart_on_card(dev):
+    """The library quickstart on the card: its kernel-D GELU equals the
+    interval match bit for bit."""
+    from repro_torch import quickstart
+    out = quickstart.main()
+    assert torch.equal(out["gelu"]["kernel"], out["gelu"]["interval"])
