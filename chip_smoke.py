@@ -23,7 +23,8 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
 5. serves the paged phase's 8 requests through the slotted ``ServeEngine``;
 6. holds each kernel against its plain PyTorch version on the card at the
    shapes the serve paths launch, and times kernel, plain version and a
-   PyTorch library call beside the card's bound;
+   PyTorch library call beside the card's bound (the crossbar kernels B,
+   E and G also name the tile they launched and the rates they reached);
 7. serves a small model on the card and on the CPU (plain versions): the
    paged engine's greedy tokens must agree, and the lockstep prefill's
    last logits within a stated tolerance;
@@ -63,6 +64,9 @@ F_TOL = 1e-4                    # flash attention: f32 sums in another order
 C_TOL = 1.0 / 255               # log-domain flash: one exp-grid LSB, as in
                                 # tests/test_fused_dual_compute.py
 U32 = 2.0 ** -24                # float32 unit roundoff
+PORT_KERNELS = ("paged_attention", "fused_crossbar_acam", "logdomain_flash",
+                "flash_attention", "acam_activation", "crossbar_vmm",
+                "nldpe_qmatmul")
 G_SHAPES = ((512, 128, 512),    # one head's QK^T in the lockstep prefill
             (512, 512, 128),    # P . V
             (4096, 2048, 2048))  # 8 x 512 tokens through a d_model product
@@ -130,6 +134,13 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def achieved(nbytes: float, flops: float, ms: float) -> dict:
+    """The rates a call of ``ms`` device milliseconds reached on the bytes
+    and operations its bound counts."""
+    return {"achieved_gb_per_s": nbytes / ms / 1e6,
+            "achieved_tflop_per_s": flops / ms / 1e9}
 
 
 def make_trace(cfg, n: int, max_new: int, base_tick: int):
@@ -246,10 +257,18 @@ def profiled(torch, fn, label: str) -> dict:
         wall = time.perf_counter() - t0
     ka = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ka) / 1e6
+    # the port's kernels, each summed over its template instances (tiles)
+    port = {}
+    for name in PORT_KERNELS:
+        ms = sum(e.self_device_time_total for e in ka
+                 if f"{name}_kernel" in e.key) / 1e3
+        if ms:
+            port[name] = {"ms": ms, "share_of_busy": ms / 1e3 / busy}
     out = {"wall_s": wall, "device_busy_s": busy,
            "device_idle_share": 1 - busy / wall,
            "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3]
-                              for e in ka[:8]]}
+                              for e in ka[:8]],
+           "port_kernels": port}
     print(f"[{label} profile] " + json.dumps(out))
     return out
 
@@ -449,11 +468,12 @@ def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
     """Kernel B at every M the serve paths give the MLP gate: 8 (a paged
     decode tick over 8 slots), 4 (a lockstep FUSED decode step), 512 (a
     paged prefill chunk of 8 x 64) and 1024 (the lockstep FUSED prefill,
-    4 x 256); K=2048, N=11008, the layer-0 gate weight, the 8-bit silu
-    table."""
-    from repro_torch.core.acam import get_table, table_thresholds
+    4 x 256), and at M = 1 and 16, the edges of the small tile; K=2048,
+    N=11008, the layer-0 gate weight, the 8-bit silu table and its cached
+    compiled map, as ``fused_linear_acam`` passes them."""
+    from repro_torch.core.acam import get_table, table_map, table_thresholds
     from repro_torch.kernels.dual_compute.ops import (fused_crossbar_acam,
-                                                      program)
+                                                      program, tile_variant)
     from repro_torch.kernels.dual_compute.ref import (
         effective_weight, fused_crossbar_acam_ref)
     w = params["groups"]["b0"]["ffn"]["gate"][0]
@@ -462,14 +482,15 @@ def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
     lo, hi = table_thresholds(table, "cuda")
     step = float(table.out_spec.step)
     kw = dict(out_lo=float(table.out_spec.lo), out_step=step)
+    acam_map = table_map(table, "cuda")
     cells, inv = program(w)
     w_eff = effective_weight(*cells, inv)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cases = []
-    for m in (8, 4, 512, 1024):
+    for m in (8, 4, 512, 1024, 1, 16):
         x = torch.randn((m, k), generator=gen, device="cuda")
         args = (x, *cells, inv, lo, hi)
-        out = fused_crossbar_acam(*args, **kw)
+        out = fused_crossbar_acam(*args, **kw, acam_map=acam_map)
         ref = fused_crossbar_acam_ref(*args, **kw)
         torch.cuda.synchronize()
         diff = (out - ref).abs()
@@ -479,18 +500,20 @@ def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
               f"- plain| {err} > one ACAM code ({step})")
         check(flips <= B_MAX_FLIP_FRACTION, f"fused_crossbar_acam M={m}: "
               f"{flips:.2e} of outputs differ (> {B_MAX_FLIP_FRACTION})")
-        ms, call_ms = timer.ms(lambda: fused_crossbar_acam(*args, **kw),
-                               iters=10)
+        ms, call_ms = timer.ms(lambda: fused_crossbar_acam(
+            *args, **kw, acam_map=acam_map), iters=10)
         plain_ms, _ = timer.ms(lambda: fused_crossbar_acam_ref(*args, **kw),
                                iters=3)
         lib_ms, _ = timer.ms(lambda: torch.matmul(x, w_eff), iters=10)
         nbytes = 4 * (m * k + 4 * k * n + m * n + 2 * lo.numel() + 1)
         flops = 2 * m * k * n + 5 * k * n
         bms, by = bound(nbytes, flops)
-        case = {"m": m, "k": k, "n": n, "max_abs_err": err,
+        case = {"m": m, "k": k, "n": n, "tile": tile_variant(m, n),
+                "max_abs_err": err,
                 "flipped_fraction": flips, "ms": ms, "call_ms": call_ms,
                 "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                **achieved(nbytes, flops, ms)}
         print("[kernel B] " + json.dumps(case))
         cases.append(case)
     top = cases[0]                          # paged decode: most launches
@@ -786,10 +809,12 @@ def acam_phase(torch, timer, lib: dict) -> dict:
         lib_ms, _ = timer.ms(lambda: acam_activation(y, "silu"), iters=20)
         # 4 bytes in and 4 out per element, the table once; the compares
         # are not float32 FLOPs
-        bms, by = bound(8 * y.numel() + 4 * 2 * lo.numel(), 0)
+        nbytes = 8 * y.numel() + 4 * 2 * lo.numel()
+        bms, by = bound(nbytes, 0)
         case = {"shape": list(y.shape), "max_abs_err": err, "ms": ms,
                 "call_ms": call_ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                **achieved(nbytes, 0, ms)}
         print("[kernel D] " + json.dumps(case))
         cases.append(case)
     top = cases[1]
@@ -812,7 +837,8 @@ def crossbar_phase(torch, timer, lib: dict) -> dict:
     plan's read-noise cells, against its plain version (cuBLAS)."""
     from repro_torch.kernels.crossbar_vmm.ops import (crossbar_vmm,
                                                       inv_g_ratio,
-                                                      read_cells)
+                                                      read_cells,
+                                                      tile_variant)
     from repro_torch.kernels.crossbar_vmm.ref import crossbar_vmm_ref
     from repro_torch.kernels.dual_compute.ref import effective_weight
     from repro_torch.launch import prng
@@ -839,10 +865,12 @@ def crossbar_phase(torch, timer, lib: dict) -> dict:
         nbytes = 4 * (m * k + 4 * k * n + m * n)
         flops = 2 * m * k * n + 5 * k * n
         bms, by = bound(nbytes, flops)
-        case = {"m": m, "k": k, "n": n, "max_abs_err": err,
+        case = {"m": m, "k": k, "n": n, "tile": tile_variant(m, n),
+                "max_abs_err": err,
                 "err_of_bound": r, "ms": ms, "call_ms": call_ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bms, "bound_by": by}
+                "bound_ms": bms, "bound_by": by,
+                **achieved(nbytes, flops, ms)}
         print("[kernel E] " + json.dumps(case))
         cases.append(case)
     top = cases[0]
@@ -864,7 +892,8 @@ def qmatmul_phase(torch, timer, lib: dict) -> dict:
     against its plain version (dequantize, cuBLAS)."""
     from repro_torch.core.logdomain import DEFAULT_CFG
     from repro_torch.kernels.nldpe_qmatmul.ops import (encode_int8,
-                                                       nldpe_qmatmul)
+                                                       nldpe_qmatmul,
+                                                       tile_variant)
     from repro_torch.kernels.nldpe_qmatmul.ref import (dequant_ref,
                                                        nldpe_qmatmul_ref)
     spec = DEFAULT_CFG.mag_spec
@@ -886,11 +915,14 @@ def qmatmul_phase(torch, timer, lib: dict) -> dict:
         ms, call_ms = timer.ms(lambda: nldpe_qmatmul(*codes), iters=10)
         plain_ms, _ = timer.ms(lambda: nldpe_qmatmul_ref(*codes), iters=3)
         lib_ms, _ = timer.ms(lambda: torch.matmul(da, db), iters=10)
-        bms, by = bound(2 * (m * k + k * n) + 4 * m * n, 2 * m * k * n)
-        case = {"shape": list(shape), "max_abs_err": err,
+        nbytes, flops = 2 * (m * k + k * n) + 4 * m * n, 2 * m * k * n
+        bms, by = bound(nbytes, flops)
+        case = {"shape": list(shape), "tile": tile_variant(m, n),
+                "max_abs_err": err,
                 "err_of_bound": r, "ms": ms, "call_ms": call_ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bms, "bound_by": by}
+                "bound_ms": bms, "bound_by": by,
+                **achieved(nbytes, flops, ms)}
         print("[kernel G] " + json.dumps(case))
         cases.append(case)
     top = cases[-1]

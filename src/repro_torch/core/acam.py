@@ -8,6 +8,10 @@
 * ``compile_piecewise`` / ``eval_piecewise`` — the noise-free fast path
   the ``ON`` numerics use: the whole unit is a piecewise-constant map of
   the scalar input, evaluated with a sorted-breakpoint search.
+* ``compile_thresholds`` / ``eval_compiled`` / ``table_map`` — the exact
+  compile of any threshold pair (noisy ones too) into breakpoints and the
+  code at and between each, bit for bit the interval matcher: the map the
+  kernels B and D search.
 """
 from __future__ import annotations
 
@@ -84,6 +88,78 @@ def table_thresholds(table: ACAMTable,
     if device not in dev:
         dev[device] = (torch.from_numpy(table.lo).to(device),
                        torch.from_numpy(table.hi).to(device))
+    return dev[device]
+
+
+@dataclasses.dataclass
+class AcamMap:
+    """An ACAM unit compiled exactly: sorted breakpoints b_0 <= ... <=
+    b_{n-1} and 2n + 1 codes, ``codes[2i + 1]`` the code at x == b_i and
+    ``codes[2i]`` the code on the open gap (b_{i-1}, b_i) — gap 0 below
+    b_0, gap n above b_{n-1}.  What kernels B and D search."""
+
+    breakpoints: torch.Tensor  # (n,)      float32
+    codes: torch.Tensor        # (2n + 1,) int32
+
+
+def compile_thresholds(lo: torch.Tensor, hi: torch.Tensor,
+                       encoding: str = "gray",
+                       unique: bool = False) -> AcamMap:
+    """Compile a threshold pair (bits, rows), any values, into an
+    ``AcamMap`` on their device, equal to ``eval_table`` bit for bit.
+
+    Every threshold is a breakpoint (NaN ones become +inf: an extra
+    breakpoint is harmless, and the rows keep their NaN, which matches
+    nothing).  On the open gap between neighbouring breakpoints b_i < b_j
+    a row matches iff lo <= b_i and hi >= b_j, since its lo and hi are
+    breakpoints themselves; at a breakpoint the rows are matched as the
+    walk matches them.  Below the first and above the last breakpoint no
+    row matches, and a NaN input (compared false everywhere) lands there,
+    as in the walk.  ``unique`` drops repeated breakpoints (the search
+    gets shorter) at the cost of a data-dependent size, which on the card
+    waits for the device; without it a repeated value gives an empty gap
+    that no input reaches."""
+    v = torch.cat([lo.reshape(-1), hi.reshape(-1)]).to(torch.float32)
+    v = torch.where(torch.isnan(v), torch.inf, v)
+    bp = torch.unique(v) if unique else torch.sort(v).values
+    lo_, hi_ = lo[None], hi[None]                   # (1, bits, rows)
+    pt = (lo_ <= bp[:, None, None]) & (bp[:, None, None] <= hi_)
+    gap = ((lo_ <= bp[:-1, None, None]) & (hi_ >= bp[1:, None, None]))
+    g = torch.cat([torch.any(pt, -1), torch.any(gap, -1)]).to(torch.int32)
+    b = gray_decode_bits(g) if encoding == "gray" else g
+    weights = 2 ** torch.arange(b.shape[-1], device=b.device)
+    code = torch.sum(b.to(torch.int64) * weights, dim=-1).to(torch.int32)
+    n = bp.shape[0]
+    codes = torch.zeros(2 * n + 1, dtype=torch.int32, device=bp.device)
+    codes[1::2] = code[:n]
+    codes[2:-1:2] = code[n:]
+    return AcamMap(bp.contiguous(), codes)
+
+
+def eval_compiled(acam_map: AcamMap, x: torch.Tensor, out_lo: float,
+                  out_step: float) -> torch.Tensor:
+    """The compiled unit on ``x`` (float32): the first breakpoint not
+    below x, its code or its gap's, dequantized as ``eval_table``
+    dequantizes."""
+    bp, codes = acam_map.breakpoints, acam_map.codes
+    x = x.to(torch.float32).contiguous()
+    first = torch.searchsorted(bp, x, side="left")
+    at = bp[first.clamp(max=bp.shape[0] - 1)] == x
+    code = codes[2 * first + at.to(first.dtype)].to(torch.float32)
+    return code * out_step + out_lo
+
+
+def table_map(table: ACAMTable, device) -> AcamMap:
+    """``table`` compiled (``unique``) on the host once and uploaded once
+    per device, beside ``table_thresholds``: the serve path's kernel B and
+    ``acam_apply`` read it without a per-call compile."""
+    device = torch.device(device)
+    dev = table.__dict__.setdefault("_torch_maps", {})
+    if device not in dev:
+        m = compile_thresholds(torch.from_numpy(table.lo),
+                               torch.from_numpy(table.hi), table.encoding,
+                               unique=True)
+        dev[device] = AcamMap(m.breakpoints.to(device), m.codes.to(device))
     return dev[device]
 
 

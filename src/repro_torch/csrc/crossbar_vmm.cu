@@ -12,11 +12,13 @@
 // What bounds it on an H100: at decode (M = 8) bytes — 4*K*N*4 bytes of
 // cells (360 MB at K=2048, N=11008) for 2*M*K*N FLOPs; at prefill
 // (M = 512) f32 operations.  The design is kernel B's (dual_compute.cu)
-// without its ACAM epilogue: the shared main loop of xbar_tiles.cuh with
-// the W_eff loader (W_eff formed once per K step in shared memory, each
-// operation rounded on its own), the accumulator stored with the ragged
-// edge masked.  The TPU wrapper pads the cells with g_min (weight 0); here
-// nothing is padded.  inv comes by value, as the reference's static float.
+// without its ACAM epilogue: the pipelined main loop of xbar_tiles.cuh
+// with the crossbar operands (the cells streamed through cp.async, W_eff
+// formed once per block per K step, each operation rounded on its own),
+// the tile chosen from M, and the accumulator tile stored through shared
+// memory with coalesced, masked stores.  The TPU wrapper pads the cells
+// with g_min (weight 0); here nothing is padded.  inv comes by value, as
+// the reference's static float.
 
 #include "xbar_tiles.cuh"
 
@@ -24,38 +26,62 @@ namespace {
 
 using namespace xbar;
 
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
 crossbar_vmm_kernel(const float* __restrict__ x,
                     const float* __restrict__ gp,
                     const float* __restrict__ gn,
                     const float* __restrict__ rp,
                     const float* __restrict__ rn, float* __restrict__ out,
-                    int M, int N, int K, float res_scale, float inv) {
-  __shared__ float x_s[BK * BM];
-  __shared__ float w_s[BK * BN];
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  float acc[TM][TN];
-  gemm_tile(RowMajorA{x, M, K},
-            CellsB{gp, gn, rp, rn, res_scale, inv, K, N}, x_s, w_s, K, m0,
-            n0, acc);
-  store_tile(acc, out, M, N, m0, n0);
+                    int M, int N, int K, float res_scale, float inv,
+                    bool x_vec, bool cells_vec) {
+  using Op = CrossbarOp<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* comp =
+      reinterpret_cast<float*>(smem + ring_bytes<T>(Op::STAGE_BYTES));
+  int m0, n0;
+  tile_origin<T>(M, m0, n0);
+  const Op op{x, {gp, gn, rp, rn}, res_scale, inv, M, N, K, x_vec,
+              cells_vec};
+  float acc[T::TM][T::TN];
+  gemm_tile<T>(op, smem, comp, K, m0, n0, acc);
+  store_tile<T>(acc, reinterpret_cast<float*>(smem), out, M, N, m0, n0,
+                Identity{});
+}
+
+template <class T>
+int launch(const float* x, const float* gp, const float* gn, const float* rp,
+           const float* rn, float* out, int M, int N, int K, float res_scale,
+           float inv, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(CrossbarOp<T>::STAGE_BYTES, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      crossbar_vmm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  crossbar_vmm_kernel<T><<<grid_blocks<T>(M, N), T::THREADS, smem, stream>>>(
+      x, gp, gn, rp, rn, out, M, N, K, res_scale, inv,
+      rows_aligned16(x, 4LL * K), cells_aligned16(gp, gn, rp, rn, N));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// The tile variant (xbar::Variant) a launch at (M, N) takes.
+int crossbar_vmm_variant(int M, int N) {
+  return (int)choose(M, N, sm_count());
+}
+
 // Returns the cudaError_t of the launch.
 int crossbar_vmm_launch(const float* x, const float* gp, const float* gn,
                         const float* rp, const float* rn, float* out, int M,
                         int N, int K, float res_scale, float inv,
                         void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  crossbar_vmm_kernel<<<grid, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, gp, gn, rp, rn, out, M, N, K, res_scale, inv);
-  return (int)cudaGetLastError();
+  return with_tile(M, N, [&](auto tile) {
+    return launch<decltype(tile)>(x, gp, gn, rp, rn, out, M, N, K, res_scale,
+                                  inv, static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -6,28 +6,31 @@
 //   (src/repro/kernels/acam_activation/kernel.py:29) as its epilogue.
 //
 // Computes, for x (M, K) f32, four A-SL conductance cells (K, N) f32, the
-// device scalar inv = w_max / (g_max - g_min) and an ACAM table lo/hi
-// (bits, rows) f32:
+// device scalar inv = w_max / (g_max - g_min) and an ACAM table compiled
+// to n breakpoints and 2n + 1 codes (core/acam.py, compile_thresholds):
 //   W_eff = ((G+ - G-) + (G+res - G-res) * (1/res_gain)) * inv
 //   y     = x @ W_eff                               (f32 accumulator)
-//   out   = dequant(gray_decode(OR_r [lo[i,r] <= y <= hi[i,r]]))
-// The pre-activation y never goes to device memory: the interval match
-// and the Gray decode run on the accumulator registers.
+//   out   = dequant(code of y)   == the row walk OR_r [lo <= y <= hi],
+//                                   Gray-decoded, bit for bit
+// The pre-activation y never goes to device memory.
 //
 // What bounds it on an H100: at decode (M = 8) bytes — the four cell
 // matrices are 4*K*N*4 bytes (360 MB per MLP gate at K=2048, N=11008) for
 // 2*M*K*N FLOPs; at chunk prefill (M = 512) f32 operations.  The design
 // is the shared tile code of xbar_tiles.cuh:
-//   * the GEMM main loop (64x64 tile, 4x4 outputs per thread, K in steps
-//     of 16) with W_eff formed in shared memory from the four cells as the
-//     reference kernel forms it (kernel.py:62), with __fsub_rn/__fmul_rn/
-//     __fadd_rn so the compiler cannot contract it into FMAs — the f32
-//     rounding of the conductance differences decides ACAM codes at
-//     interval edges; kernel E (crossbar_vmm.cu) is the same loop;
-//   * the ACAM epilogue on the accumulator (kernel D, acam_activation.cu,
-//     is the same function on values read from memory), its table in
-//     shared memory;
-//   * ragged M/N/K edges are masked (zero operands, no stores), not padded;
+//   * the pipelined main loop: the x tile and the four cell tiles of the
+//     next steps stream in through cp.async while the block computes, and
+//     W_eff is formed once per block per K step from the staged cells as
+//     the reference kernel forms it (kernel.py:62), with __fsub_rn/
+//     __fmul_rn/__fadd_rn so the compiler cannot contract it into FMAs —
+//     the f32 rounding of the conductance differences decides ACAM codes
+//     at interval edges; kernel E (crossbar_vmm.cu) is the same loop;
+//   * the tile sized to M (xbar::choose): 16 x 32 at decode, so the 344
+//     blocks of N = 11008 keep the cells streaming; 128 x 128 at prefill;
+//   * the ACAM epilogue spread over all threads of the block: a binary
+//     search of the compiled map in shared memory (about 9 steps for a
+//     noise-free 8-bit table) in place of a walk over up to 8 x 66 rows;
+//     kernel D (acam_activation.cu) is the same function;
 //   * inv is read from device memory, so w_max never round-trips the host.
 
 #include "xbar_tiles.cuh"
@@ -36,77 +39,89 @@ namespace {
 
 using namespace xbar;
 
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
 fused_crossbar_acam_kernel(const float* __restrict__ x,
                            const float* __restrict__ gp,
                            const float* __restrict__ gn,
                            const float* __restrict__ rp,
                            const float* __restrict__ rn,
                            const float* __restrict__ inv_ptr,
-                           const float* __restrict__ lo,
-                           const float* __restrict__ hi,
+                           const float* __restrict__ bp,
+                           const int* __restrict__ code,
                            float* __restrict__ out, int M, int N, int K,
-                           float res_scale, int bits, int rows, float out_lo,
-                           float out_step) {
-  extern __shared__ float smem[];
-  float* x_s = smem;                  // BK x BM (k-major)
-  float* w_s = x_s + BK * BM;         // BK x BN
-  float* lo_s = w_s + BK * BN;        // bits x rows
-  float* hi_s = lo_s + bits * rows;   // bits x rows
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+                           float res_scale, int n_bp, float out_lo,
+                           float out_step, bool x_vec, bool cells_vec) {
+  using Op = CrossbarOp<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* comp =
+      reinterpret_cast<float*>(smem + ring_bytes<T>(Op::STAGE_BYTES));
+  float* bp_s = comp + 2 * T::COMPUTE_FLOATS;
+  int* code_s = reinterpret_cast<int*>(bp_s + n_bp);
+  int m0, n0;
+  tile_origin<T>(M, m0, n0);
 
-  load_table(lo, hi, lo_s, hi_s, bits * rows);
-  float acc[TM][TN];
-  gemm_tile(RowMajorA{x, M, K},
-            CellsB{gp, gn, rp, rn, res_scale, *inv_ptr, K, N}, x_s, w_s, K,
-            m0, n0, acc);
-
-  // epilogue: the bit-line current drives the ACAM directly
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + tile_row() + i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = n0 + tile_col() + j;
-      if (gm >= M || gc >= N) continue;
-      out[(size_t)gm * N + gc] = acam_value(acc[i][j], lo_s, hi_s, bits,
-                                            rows, out_lo, out_step);
-    }
-  }
+  load_map(bp, code, bp_s, code_s, n_bp);
+  const Op op{x, {gp, gn, rp, rn}, res_scale, *inv_ptr, M, N, K, x_vec,
+              cells_vec};
+  float acc[T::TM][T::TN];
+  gemm_tile<T>(op, smem, comp, K, m0, n0, acc);
+  // the bit-line current drives the ACAM directly
+  store_tile<T>(acc, reinterpret_cast<float*>(smem), out, M, N, m0, n0,
+                Acam{bp_s, code_s, n_bp, out_lo, out_step});
 }
 
-size_t smem_bytes(int bits, int rows) {
-  return sizeof(float) * ((size_t)TILE_FLOATS + 2 * (size_t)bits * rows);
+template <class T>
+size_t smem_for(int n_bp) {
+  return smem_bytes<T>(CrossbarOp<T>::STAGE_BYTES, map_bytes(n_bp));
+}
+
+template <class T>
+int launch(const float* x, const float* gp, const float* gn, const float* rp,
+           const float* rn, const float* inv, const float* bp,
+           const int* code, float* out, int M, int N, int K, float res_scale,
+           int n_bp, float out_lo, float out_step, cudaStream_t stream) {
+  const size_t smem = smem_for<T>(n_bp);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_crossbar_acam_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_crossbar_acam_kernel<T><<<grid_blocks<T>(M, N), T::THREADS, smem,
+                                  stream>>>(
+      x, gp, gn, rp, rn, inv, bp, code, out, M, N, K, res_scale, n_bp,
+      out_lo, out_step, rows_aligned16(x, 4LL * K),
+      cells_aligned16(gp, gn, rp, rn, N));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t fused_crossbar_acam_smem_bytes(int bits, int rows) {
-  return smem_bytes(bits, rows);
+// The tile variant (xbar::Variant) a launch at (M, N) takes.
+int fused_crossbar_acam_variant(int M, int N) {
+  return (int)choose(M, N, sm_count());
+}
+
+// Shared-memory bytes of the launch at (M, N) with an n_bp-point map.
+size_t fused_crossbar_acam_smem_bytes(int M, int N, int n_bp) {
+  return with_tile(M, N, [&](auto tile) {
+    return smem_for<decltype(tile)>(n_bp);
+  });
 }
 
 // Returns the cudaError_t of the launch.
 int fused_crossbar_acam_launch(const float* x, const float* gp,
                                const float* gn, const float* rp,
                                const float* rn, const float* inv,
-                               const float* lo, const float* hi, float* out,
-                               int M, int N, int K, float res_scale, int bits,
-                               int rows, float out_lo, float out_step,
-                               void* stream) {
-  const size_t smem = smem_bytes(bits, rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_crossbar_acam_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_crossbar_acam_kernel<<<grid, THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      x, gp, gn, rp, rn, inv, lo, hi, out, M, N, K, res_scale, bits, rows,
-      out_lo, out_step);
-  return (int)cudaGetLastError();
+                               const float* bp, const int* code, float* out,
+                               int M, int N, int K, float res_scale, int n_bp,
+                               float out_lo, float out_step, void* stream) {
+  return with_tile(M, N, [&](auto tile) {
+    return launch<decltype(tile)>(x, gp, gn, rp, rn, inv, bp, code, out, M,
+                                  N, K, res_scale, n_bp, out_lo, out_step,
+                                  static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

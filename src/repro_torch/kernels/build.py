@@ -28,6 +28,8 @@ SOURCES = ("paged_attention", "dual_compute", "flash_attention",
            "logdomain_flash", "acam_activation", "crossbar_vmm",
            "nldpe_qmatmul")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# the crossbar family's tiles, by xbar::Variant (csrc/xbar_tiles.cuh)
+TILE_VARIANTS = ("small 16x32", "mid 64x64", "large 128x128")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -29,6 +29,8 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.crossbar_vmm_launch.argtypes = [vp] * 6 + [i, i, i, f, f, vp]
         lib.crossbar_vmm_launch.restype = i
+        lib.crossbar_vmm_variant.argtypes = [i, i]
+        lib.crossbar_vmm_variant.restype = i
         lib._typed = True
     return lib
 
@@ -75,6 +77,11 @@ def crossbar_vmm(x: torch.Tensor, g_pos: torch.Tensor, g_neg: torch.Tensor,
 
 
 crossbar_vmm.launches = 0
+
+
+def tile_variant(m: int, n: int) -> str:
+    """The tile (``xbar::choose``) kernel E launches at (M, N)."""
+    return build.TILE_VARIANTS[_lib().crossbar_vmm_variant(m, n)]
 
 
 def read_cells(plan: SlicedWeights, rng: torch.Tensor | None,

@@ -2,7 +2,9 @@
 
 * ``fused_crossbar_acam`` — plan level: four A-SL cell matrices + an ACAM
   table -> one fused pass; the CUDA kernel ``csrc/dual_compute.cu`` for
-  CUDA tensors, the plain version (``ref.py``) for CPU tensors.
+  CUDA tensors, the plain version (``ref.py``) for CPU tensors.  The
+  kernel takes the table compiled exactly (``core.acam.AcamMap``): given,
+  or compiled from (lo, hi) on the device per call.
 * ``fused_linear_acam`` — model level: a float32 weight is programmed to
   ideal A-SL conductances on every call (as ``repro`` does inside ``jit``;
   w_max stays a device scalar) and routed through ``fused_crossbar_acam``.
@@ -22,7 +24,8 @@ import math
 
 import torch
 
-from ...core.acam import get_table, table_thresholds
+from ...core.acam import (AcamMap, compile_thresholds, get_table,
+                          table_map, table_thresholds)
 from ...core.logdomain import (DEFAULT_CFG, LogDomainConfig, inv_sqrt,
                                log_quantize)
 from ...core.noise import DEFAULT
@@ -37,10 +40,12 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_crossbar_acam_launch.argtypes = [vp] * 9 + [
-            i, i, i, f, i, i, f, f, vp]
+            i, i, i, f, i, f, f, vp]
         lib.fused_crossbar_acam_launch.restype = i
-        lib.fused_crossbar_acam_smem_bytes.argtypes = [i, i]
+        lib.fused_crossbar_acam_smem_bytes.argtypes = [i, i, i]
         lib.fused_crossbar_acam_smem_bytes.restype = ctypes.c_size_t
+        lib.fused_crossbar_acam_variant.argtypes = [i, i]
+        lib.fused_crossbar_acam_variant.restype = i
         lib._typed = True
     return lib
 
@@ -60,11 +65,14 @@ def fused_crossbar_acam(x: torch.Tensor, g_pos: torch.Tensor,
                         g_neg_res: torch.Tensor, inv_g_ratio: torch.Tensor,
                         lo: torch.Tensor, hi: torch.Tensor, *,
                         out_lo: float, out_step: float,
-                        res_gain: float = RESIDUAL_GAIN) -> torch.Tensor:
+                        res_gain: float = RESIDUAL_GAIN,
+                        acam_map: AcamMap | None = None) -> torch.Tensor:
     """acam(x @ W_eff): x (M, K) f32; cells (K, N) f32; inv_g_ratio a
     0-d/1-element f32 tensor on the device; lo/hi (bits, rows) f32 ->
-    (M, N) f32.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (or raise — there is no fallback)."""
+    (M, N) f32.  ``acam_map``, when given, is (lo, hi) compiled already
+    (``table_map``); otherwise the kernel's map is compiled from them on
+    the device, per call.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise — there is no fallback)."""
     cells = (g_pos, g_neg, g_pos_res, g_neg_res)
     if x.device.type == "cpu":
         return fused_crossbar_acam_ref(x, *cells, inv_g_ratio, lo, hi,
@@ -72,29 +80,35 @@ def fused_crossbar_acam(x: torch.Tensor, g_pos: torch.Tensor,
                                        res_gain=res_gain)
     m, k = x.shape
     n = g_pos.shape[1]
-    bits, rows = lo.shape
     operands = (x, *cells, inv_g_ratio, lo, hi)
     if any(t.dtype != torch.float32 for t in operands):
         raise TypeError("fused_crossbar_acam: every operand must be float32")
     if any(t.device != x.device for t in operands):
         raise ValueError("fused_crossbar_acam: all operands on one device")
     if any(g.shape != (k, n) for g in cells) or hi.shape != lo.shape \
-            or inv_g_ratio.numel() != 1:
+            or inv_g_ratio.numel() != 1 or min(m, n, k) < 1:
         raise ValueError("fused_crossbar_acam: shapes x (M, K), cells "
                          "(K, N), lo/hi (bits, rows), inv_g_ratio scalar")
+    if acam_map is None:
+        acam_map = compile_thresholds(lo, hi)
+    bp, codes = acam_map.breakpoints, acam_map.codes
+    if bp.device != x.device or bp.dtype != torch.float32 \
+            or codes.dtype != torch.int32 \
+            or codes.shape != (2 * bp.shape[0] + 1,):
+        raise ValueError("fused_crossbar_acam: acam_map must be an AcamMap "
+                         "on x's device")
     lib = _lib()
-    if lib.fused_crossbar_acam_smem_bytes(bits, rows) > 227 * 1024:
-        raise ValueError(f"fused_crossbar_acam: table {bits}x{rows} does "
-                         f"not fit in shared memory")
+    if lib.fused_crossbar_acam_smem_bytes(m, n, bp.shape[0]) > 227 * 1024:
+        raise ValueError(f"fused_crossbar_acam: a {bp.shape[0]}-point ACAM "
+                         f"map does not fit in shared memory")
     x = x.contiguous()
     cells = tuple(g.contiguous() for g in cells)
     inv = inv_g_ratio.reshape(1).contiguous()
-    lo, hi = lo.contiguous(), hi.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     err = lib.fused_crossbar_acam_launch(
         x.data_ptr(), *(g.data_ptr() for g in cells), inv.data_ptr(),
-        lo.data_ptr(), hi.data_ptr(), out.data_ptr(), m, n, k,
-        recip(res_gain), bits, rows, out_lo, out_step,
+        bp.data_ptr(), codes.data_ptr(), out.data_ptr(), m, n, k,
+        recip(res_gain), bp.shape[0], out_lo, out_step,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fused_crossbar_acam")
     fused_crossbar_acam.launches += 1
@@ -102,6 +116,11 @@ def fused_crossbar_acam(x: torch.Tensor, g_pos: torch.Tensor,
 
 
 fused_crossbar_acam.launches = 0
+
+
+def tile_variant(m: int, n: int) -> str:
+    """The tile (``xbar::choose``) kernel B launches at (M, N)."""
+    return build.TILE_VARIANTS[_lib().fused_crossbar_acam_variant(m, n)]
 
 
 def program(w: torch.Tensor):
@@ -119,14 +138,16 @@ def fused_linear_acam(x: torch.Tensor, w: torch.Tensor, act: str,
     """act(x @ w) through an ideally programmed A-SL crossbar, fused.
     x (..., K) any leading shape, w (K, N) float32 -> (..., N) float32.
     Programming happens per call: four (K, N) float32 cell matrices are
-    transient (caching the plan is later work)."""
+    transient (caching the plan is later work).  The table's compiled map
+    is cached per device (``table_map``), not compiled per call."""
     table = get_table(act, bits)
     cells, inv = program(w)
     lo, hi = table_thresholds(table, x.device)
     shape = x.shape
     out = fused_crossbar_acam(
         x.reshape(-1, shape[-1]).to(torch.float32), *cells, inv, lo, hi,
-        out_lo=float(table.out_spec.lo), out_step=float(table.out_spec.step))
+        out_lo=float(table.out_spec.lo), out_step=float(table.out_spec.step),
+        acam_map=table_map(table, x.device))
     return out.reshape(*shape[:-1], w.shape[1])
 
 

@@ -21,6 +21,8 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.nldpe_qmatmul_launch.argtypes = [vp] * 5 + [i, i, i, f, f, vp]
         lib.nldpe_qmatmul_launch.restype = i
+        lib.nldpe_qmatmul_variant.argtypes = [i, i]
+        lib.nldpe_qmatmul_variant.restype = i
         lib._typed = True
     return lib
 
@@ -64,6 +66,11 @@ def nldpe_qmatmul(a_code: torch.Tensor, a_sign: torch.Tensor,
 
 
 nldpe_qmatmul.launches = 0
+
+
+def tile_variant(m: int, n: int) -> str:
+    """The tile (``xbar::choose``) kernel G launches at (M, N)."""
+    return build.TILE_VARIANTS[_lib().nldpe_qmatmul_variant(m, n)]
 
 
 def nldpe_matmul_int8(a: torch.Tensor, b: torch.Tensor,

@@ -91,9 +91,17 @@ def test_paged_attention_fully_masked_row_is_zero(dev):
     assert torch.equal(out, torch.zeros_like(out))
 
 
+# Every tile variant of the crossbar family (csrc/xbar_tiles.cuh) and its
+# ragged edges: small (M <= 16), mid, large (M >= 128); N = 11001 and
+# K = 2047 are multiples of no tile width and unaligned to 16 bytes (the
+# scalar copy path).
+XBAR_RAGGED = [(1, 2048, 11008), (3, 2047, 11001), (16, 2048, 11001),
+               (17, 2047, 11008), (130, 2047, 11001)]
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 11008), (512, 2048, 11008),
                                    (37, 100, 130), (4, 2048, 11008),
-                                   (1024, 2048, 11008)])
+                                   (1024, 2048, 11008)] + XBAR_RAGGED)
 def test_fused_crossbar_acam_kernel_matches_plain(dev, m, k, n):
     """ACAM codes may differ by one where the f32 sum order moves the
     pre-activation across an interval edge: at most one code step, on at
@@ -326,6 +334,27 @@ def test_acam_activation_kernel_matches_plain(dev, name, shape, dtype):
     assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("name", ["silu", "gelu", "exp", "log"])
+def test_acam_activation_noisy_thresholds_match_plain(dev, name):
+    """Kernel D with caller-given thresholds moved by a seeded normal
+    (compiled on the device per call) against its plain version on the
+    same thresholds: bitwise."""
+    from repro_torch.kernels.acam_activation.ops import acam_apply
+    from repro_torch.kernels.acam_activation.ref import acam_activation_ref
+    table = get_table(name, 8)
+    rng = np.random.default_rng(8)
+    lo, hi = (torch.tensor(t + rng.normal(0, 0.01, t.shape),
+                           dtype=torch.float32, device=dev)
+              for t in (table.lo, table.hi))
+    x = torch.tensor(rng.normal(size=(512, 1001)) * 4, dtype=torch.float32,
+                     device=dev)
+    out = acam_apply(x, table, lo, hi)
+    ref = acam_activation_ref(x, lo, hi, float(table.out_spec.lo),
+                              float(table.out_spec.step))
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, acam_apply(x, table))
+
+
 def _noisy_plan(dev, k, n, seed=0):
     from repro_torch.core.crossbar import program_linear
     from repro_torch.launch import prng
@@ -336,7 +365,8 @@ def _noisy_plan(dev, k, n, seed=0):
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 11008), (512, 2048, 11008),
-                                   (37, 100, 130), (1, 17, 5)])
+                                   (37, 100, 130), (1, 17, 5)]
+                         + XBAR_RAGGED)
 def test_crossbar_vmm_kernel_matches_plain(dev, m, k, n):
     """Kernel E against its plain version on read-noise cells: within the
     float32 sum-order bound (2 K + 8) u (|x| @ |W_eff|)."""
@@ -362,7 +392,7 @@ def test_crossbar_vmm_kernel_matches_plain(dev, m, k, n):
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 11008), (512, 2048, 11008),
-                                   (37, 100, 130)])
+                                   (37, 100, 130)] + XBAR_RAGGED)
 def test_crossbar_then_acam_equals_fused_kernel(dev, m, k, n):
     """D o E against kernel B on the same read-noise cells and the same
     float32 inv: bit for bit — B is E's main loop with D's function as its
@@ -395,7 +425,9 @@ def _log_grid_operand(rng, shape, dev):
 
 
 @pytest.mark.parametrize("m,k,n", [(512, 128, 512), (512, 512, 128),
-                                   (4096, 2048, 2048), (37, 100, 130)])
+                                   (4096, 2048, 2048), (37, 100, 130),
+                                   (8, 512, 1024), (3, 2047, 1001),
+                                   (130, 2047, 16448), (1030, 517, 2049)])
 def test_nldpe_qmatmul_kernel_matches_plain_and_fused(dev, m, k, n):
     """Kernel G against its plain version (the same FMA-rounded dequant,
     expf against exp: (2 K + 8) u) and against ``nldpe_matmul`` fused,
