@@ -12,7 +12,12 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    through ``PagedServeEngine`` in ``OFF`` numerics — 8 requests sharing a
    256-token system prompt — and checks that every request completes, that
    the radix cache hit, and that the paged-attention kernel (A) carried it;
-3. serves 4 of those requests in ``FUSED`` numerics and checks that the
+3. ``[serve OFF log8]``: serves the same trace through
+   ``PagedServeEngine(kv_quant="log8")`` — int8 code pools with float32
+   scale rows, never decoded to an fp pool — and checks that kernel A's
+   code-pool variant carried every attention call (36 per prefill chunk,
+   144 per decode tick) and reports the pool's bytes beside an f32 pool's;
+   then serves 4 of the requests in ``FUSED`` numerics and checks that the
    fused crossbar->ACAM kernel (B) carried every MLP gate;
 4. serves a lockstep batch (``launch/serve.py``: whole-prompt prefill,
    then greedy generation) in ``OFF`` numerics — 8 prompts of 512 tokens,
@@ -24,10 +29,12 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
 6. holds each kernel against its plain PyTorch version on the card at the
    shapes the serve paths launch, and times kernel, plain version and a
    PyTorch library call beside the card's bound (the crossbar kernels B,
-   E and G also name the tile they launched and the rates they reached);
+   E and G also name the tile they launched and the rates they reached;
+   kernel A runs f32 and bf16 pools and, on the log8 engine's pools, int8
+   and log8 code pools);
 7. serves a small model on the card and on the CPU (plain versions): the
-   paged engine's greedy tokens must agree, and the lockstep prefill's
-   last logits within a stated tolerance;
+   paged engine's greedy tokens must agree, with fp, int8 and log8 pools,
+   and the lockstep prefill's last logits within a stated tolerance;
 8. ``[library]``: drives the public NL-DPE kernel library at full width —
    the layer-0 MLP gate (2048 x 11008) programmed with A-SL programming
    noise, then ``crossbar_matmul`` with read noise (kernel E) and
@@ -168,8 +175,7 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
                         arrival=engine.tick)])
     base = engine.tick
     reqs = [dataclasses.replace(r, arrival=base + r.arrival) for r in reqs]
-    for fn in counters():
-        fn.launches = 0
+    zero_counts()
     engine.prefill_seconds = engine.decode_seconds = 0.0
     engine.decode_ticks = 0
     # the path's launches inside each prefill chunk and each decode tick
@@ -194,6 +200,9 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
     wall = time.perf_counter() - t0
     del engine._chunk, engine.step
     launches = {fn.__name__: fn.launches for fn in counters()}
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    pool_launches = {k: v for k, v in paged_attention.pool_launches.items()
+                     if v}
     if counter is not None:
         check(split["prefill_chunk"][1] + split["decode_tick"][1]
               == launches[counter.__name__], f"{label}: "
@@ -228,6 +237,7 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
            "prefix_hits": st["hits"], "lookups": st["lookups"],
            "prefill_tokens_saved": st["prefill_tokens_saved"],
            "cow_forks": st["cow_forks"], "launches": launches,
+           "paged_attention_by_pool": pool_launches,
            "prefill_chunks": split["prefill_chunk"][0],
            "launches_per_prefill_chunk": split["prefill_chunk"][1]
            / max(split["prefill_chunk"][0], 1),
@@ -235,6 +245,50 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
            / max(split["decode_tick"][0], 1)}
     print(f"[{label}] " + json.dumps(out))
     return out
+
+
+def serve_log8(torch, engine, f32_pool_bytes: int, reqs) -> dict:
+    """``[serve OFF log8]``: the paged OFF trace over log8 code pools.
+    Every attention call must go through kernel A's code-pool variant —
+    one launch per layer per forward, 36 per prefill chunk and 144 per
+    decode tick, all of them log8 — and no layer may decode its cache to
+    an fp view on the way.  Reports the pools' bytes beside the paged OFF
+    engine's f32 pools' (the same slots, pages and widths)."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.nn import attention
+    decoded = [0]
+    plain = attention._dequantize_kv
+
+    def counted(*args, **kwargs):
+        decoded[0] += 1
+        return plain(*args, **kwargs)
+
+    attention._dequantize_kv = counted
+    try:
+        res = serve(torch, engine, reqs, paged_attention, "serve OFF log8")
+    finally:
+        attention._dequantize_kv = plain
+    n_layers = engine.cfg.n_layers
+    total = res["launches"]["paged_attention"]
+    check(res["paged_attention_by_pool"] == {"log8": total},
+          f"serve OFF log8: kernel A launches by pool "
+          f"{res['paged_attention_by_pool']}, expected all {total} log8")
+    check(res["launches_per_prefill_chunk"] == n_layers,
+          f"serve OFF log8: {res['launches_per_prefill_chunk']} kernel A "
+          f"launches per prefill chunk, expected {n_layers}")
+    check(res["launches_per_decode_tick"] == n_layers * engine.decode_block,
+          f"serve OFF log8: {res['launches_per_decode_tick']} kernel A "
+          f"launches per decode tick, expected "
+          f"{n_layers * engine.decode_block}")
+    check(decoded[0] == 0, f"serve OFF log8: {decoded[0]} cache reads "
+          f"decoded the pool outside kernel A")
+    qb, fb = pool_bytes(engine.cache), f32_pool_bytes
+    check(fb == 2 * 4 * engine.cache["k"].numel(), "serve OFF log8: the "
+          "f32 engine's pools are not the same shape")
+    out = {"pool_bytes": qb, "f32_pool_bytes": fb,
+           "pool_bytes_ratio": qb / fb}
+    print("[serve OFF log8] " + json.dumps(out))
+    return {**res, **out}
 
 
 def path_launches(res: dict, name: str) -> dict:
@@ -313,8 +367,7 @@ def lockstep(torch, cfg, params, nldpe, *, batch: int, prompt_len: int,
         sp, warm, torch.argmax(last, -1).to(torch.int32), 16)
     del warm
     cache = lm.init_model_cache(cfg, batch, max_len, device="cuda")
-    for fn in counters():
-        fn.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -376,92 +429,151 @@ def lockstep(torch, cfg, params, nldpe, *, batch: int, prompt_len: int,
     return out
 
 
-def paged_attention_phase(torch, timer, engine, launches: dict) -> dict:
-    """Kernel A on the OFF engine's own layer-0 pools and block tables:
-    decode (Q=1) and chunk prefill (Q=64), f32 and bf16 pools, with
-    sentinel entries written into the block table."""
-    from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    cache = engine.cache
-    k0, v0 = cache["k"][0], cache["v"][0]
-    num_pages, hkv, ps, d = k0.shape
-    bt = cache["bt"].clone()
-    bt[0, 3] = num_pages                    # unmapped sentinel
-    bt[1, 5] = -1                           # negative sentinel
-    b, nb = bt.shape
-    hq = engine.cfg.n_heads
-    length = cache["pos"].shape[1]
-    pos = engine._pos.clone()               # K/V valid on [0, pos)
+def kernel_a_inputs(engine) -> dict:
+    """What the kernel-A phase reads of a served paged engine, copied so
+    the engine can be freed: its layer-0 pools (and scale pools), block
+    table, position-track length, decode positions and head count."""
+    from repro_torch.models.lm import POOL_LEAVES
+    c = engine.cache
+    return {**{n: c[n][0].clone() for n in POOL_LEAVES if n in c},
+            "bt": c["bt"].clone(), "length": c["pos"].shape[1],
+            "pos": engine._pos.clone(), "n_heads": engine.cfg.n_heads}
+
+
+def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
+                          q_in: dict, qlaunches: dict) -> dict:
+    """Kernel A on the OFF engine's own layer-0 pools and block tables
+    (``kernel_a_inputs``): decode (Q=1) and chunk prefill (Q=64), f32 and
+    bf16 pools; then on the log8 engine's own layer-0 code and scale pools
+    and block tables, the log8 pools as served and the same K/V re-encoded
+    on the int8 grid.  Sentinel entries are written into each block
+    table."""
+    from repro_torch.core.quantization import kv_decode
+    from repro_torch.nn.attention import _quantize_kv
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k0, v0 = fp_in["k"], fp_in["v"]
+    pools = {"log8": (q_in["k"], q_in["v"], q_in["k_scale"],
+                      q_in["v_scale"])}
+    kf, vf = (kv_decode(q_in[n], q_in[f"{n}_scale"], "log8")
+              for n in ("k", "v"))
+    (kc, ks), (vc, vs) = _quantize_kv(kf, "int8"), _quantize_kv(vf, "int8")
+    pools["int8"] = (kc, vc, ks, vs)
+    del kf, vf
     cases = []
     for q_len in (1, 64):
-        q = torch.randn((b, hq, q_len, d), generator=gen, device="cuda")
-        lengths = torch.clamp(pos - q_len + 1, 1, length).to(torch.int32)
+        q = torch.randn((fp_in["bt"].shape[0], fp_in["n_heads"], q_len,
+                         k0.shape[-1]), generator=gen, device="cuda")
         for pool_dtype in (torch.float32, torch.bfloat16):
-            kp, vp = k0.to(pool_dtype), v0.to(pool_dtype)
-            args = (q, kp, vp, bt, lengths)
-            out = paged_attention(*args)
-            ref = paged_attention_ref(*args)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()), "paged_attention: "
-                  "non-finite output")
-            err = (out - ref).abs().max().item()
-            check(err <= A_TOL, f"paged_attention q_len={q_len} "
-                  f"{pool_dtype}: max |kernel - plain| {err} > {A_TOL}")
-            # library yardstick: SDPA on the gathered dense view (the
-            # gather itself is not timed)
-            btc = bt.long().clamp(0, num_pages - 1)
-            kd = kp[btc].transpose(1, 2).reshape(b, hkv, nb * ps, d)
-            vd = vp[btc].transpose(1, 2).reshape(b, hkv, nb * ps, d)
-            allowed = lengths.long()[:, None] + torch.arange(
-                q_len, device="cuda")
-            ok_blk = ((bt >= 0) & (bt < num_pages)).repeat_interleave(ps, 1)
-            mask = (torch.arange(nb * ps, device="cuda")[None, None]
-                    < allowed[..., None]) & ok_blk[:, None]
-            qd = q.to(pool_dtype)
-
-            def lib():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qd, kd, vd, attn_mask=mask[:, None], enable_gqa=True)
-
-            ms, call_ms = timer.ms(lambda: paged_attention(*args), iters=20)
-            plain_ms, _ = timer.ms(lambda: paged_attention_ref(*args),
-                                   iters=5)
-            lib_ms, _ = timer.ms(lib, iters=20)
-            # what this run's data needs: pages below each row's length
-            # that are mapped, each read once; 4*D FLOPs per attended
-            # (row, position) pair
-            bt_np, len_np = bt.cpu().numpy(), lengths.cpu().numpy()
-            mapped = (bt_np >= 0) & (bt_np < num_pages)
-            n_pages, pairs = 0, 0
-            for bi in range(b):
-                need = -(-(int(len_np[bi]) + q_len - 1) // ps)
-                n_pages += int(mapped[bi, :need].sum())
-                valid = np.repeat(mapped[bi], ps)
-                for j in range(q_len):
-                    pairs += int(valid[:int(len_np[bi]) + j].sum())
-            esz = kp.element_size()
-            nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + b * 4
-                      + 2 * n_pages * hkv * ps * d * esz)
-            flops = 4 * d * pairs * hq
-            bms, by = bound(nbytes, flops)
-            case = {"q_len": q_len, "pool": str(pool_dtype).split(".")[-1],
-                    "max_abs_err": err, "ms": ms, "call_ms": call_ms,
-                    "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bms, "bound_by": by}
-            print("[kernel A] " + json.dumps(case))
-            cases.append(case)
+            cases.append(paged_case(
+                torch, timer, fp_in, q, k0.to(pool_dtype),
+                v0.to(pool_dtype), {}, str(pool_dtype).split(".")[-1]))
+        for mode in ("int8", "log8"):
+            kc, vc, ks, vs = pools[mode]
+            cases.append(paged_case(
+                torch, timer, q_in, q, kc, vc,
+                dict(k_scale=ks, v_scale=vs, kv_quant=mode), mode,
+                launches=qlaunches["paged_attention_by_pool"].get(mode, 0)))
     top = cases[0]                          # decode, f32 pool: the hot case
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:114",
             **launches,
+            "launches_serve_off_log8":
+                qlaunches["launches"]["paged_attention"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tolerance": A_TOL, "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
-            "library": "scaled_dot_product_attention on the gathered view",
+            "library": "scaled_dot_product_attention on the gathered view "
+                       "(code pools: gathered and plainly dequantized to "
+                       "f32, the dequantization untimed)",
             "timing": timer.source, "cases": cases}
+
+
+def paged_case(torch, timer, inputs: dict, q, kp, vp, qkw: dict, pool: str,
+               launches: int | None = None) -> dict:
+    """One kernel-A case on an engine's block table (with two sentinel
+    entries written in) and decode positions (``kernel_a_inputs``): held
+    against the plain version, timed beside it, SDPA and the bound.
+    ``qkw`` carries the scales and grid of a code pool."""
+    from repro_torch.core.quantization import kv_decode
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    num_pages, hkv, ps, d = kp.shape
+    bt = inputs["bt"].clone()
+    bt[0, 3] = num_pages                    # unmapped sentinel
+    bt[1, 5] = -1                           # negative sentinel
+    b, nb = bt.shape
+    q_len = q.shape[2]
+    lengths = torch.clamp(inputs["pos"] - q_len + 1, 1,
+                          inputs["length"]).to(torch.int32)
+    args = (q, kp, vp, bt, lengths)
+    out = paged_attention(*args, **qkw)
+    ref = paged_attention_ref(*args, **qkw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"paged_attention {pool}: "
+          f"non-finite output")
+    err = (out - ref).abs().max().item()
+    check(err <= A_TOL, f"paged_attention q_len={q_len} {pool}: max "
+          f"|kernel - plain| {err} > {A_TOL}")
+    # library yardstick: SDPA on the gathered dense view (the gather, and
+    # a code pool's dequantization, are not timed)
+    btc = bt.long().clamp(0, num_pages - 1)
+    kd = kp[btc].transpose(1, 2).reshape(b, hkv, nb * ps, d)
+    vd = vp[btc].transpose(1, 2).reshape(b, hkv, nb * ps, d)
+    extra = {}
+    if qkw:
+        mode = qkw["kv_quant"]
+
+        def decode(x, sc):
+            return kv_decode(x, sc[btc].transpose(1, 2).reshape(
+                b, hkv, nb * ps), mode)
+        kd, vd = decode(kd, qkw["k_scale"]), decode(vd, qkw["v_scale"])
+        # an f32 pool of the decoded values gives the code variant's bits
+        fp = paged_attention(q, kv_decode(kp, qkw["k_scale"], mode),
+                             kv_decode(vp, qkw["v_scale"], mode), bt,
+                             lengths)
+        check(torch.equal(fp, out), f"paged_attention {pool}: the f32 pool "
+              f"of the decoded values gives other bits")
+        extra["equals_f32_pool_of_decoded_values"] = True
+    allowed = lengths.long()[:, None] + torch.arange(q_len, device="cuda")
+    ok_blk = ((bt >= 0) & (bt < num_pages)).repeat_interleave(ps, 1)
+    mask = (torch.arange(nb * ps, device="cuda")[None, None]
+            < allowed[..., None]) & ok_blk[:, None]
+    qd = q.to(kd.dtype)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask[:, None], enable_gqa=True)
+
+    ms, call_ms = timer.ms(lambda: paged_attention(*args, **qkw), iters=20)
+    plain_ms, _ = timer.ms(lambda: paged_attention_ref(*args, **qkw),
+                           iters=5)
+    lib_ms, _ = timer.ms(lib, iters=20)
+    # what this run's data needs: pages below each row's length that are
+    # mapped, each read once (a code pool: 1 B per element plus a 4 B scale
+    # per position and head); 4*D FLOPs per attended (row, position) pair
+    bt_np, len_np = bt.cpu().numpy(), lengths.cpu().numpy()
+    mapped = (bt_np >= 0) & (bt_np < num_pages)
+    n_pages, pairs = 0, 0
+    for bi in range(b):
+        need = -(-(int(len_np[bi]) + q_len - 1) // ps)
+        n_pages += int(mapped[bi, :need].sum())
+        valid = np.repeat(mapped[bi], ps)
+        for j in range(q_len):
+            pairs += int(valid[:int(len_np[bi]) + j].sum())
+    per_pos = d * kp.element_size() + (4 if qkw else 0)
+    nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + b * 4
+              + 2 * n_pages * hkv * ps * per_pos)
+    flops = 4 * d * pairs * q.shape[1]
+    bms, by = bound(nbytes, flops)
+    case = {"q_len": q_len, "pool": pool, "max_abs_err": err, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bms, "bound_by": by, **extra}
+    if launches is not None:
+        case["launches"] = launches
+    print("[kernel A] " + json.dumps(case))
+    return case
 
 
 def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
@@ -686,8 +798,7 @@ def library_phase(torch, params) -> dict:
           for m in (8, 512)}
     g_in = {shape: log_grid_operands(torch, shape, gen) for shape in G_SHAPES}
     table = get_table("silu", 8)
-    for fn in counters():
-        fn.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plan, eps = program_linear(w, rng=prng.prng_key(1))
@@ -956,16 +1067,20 @@ def small_model_agrees(torch) -> None:
     reqs = [Request(rid=i, tokens=shared + tuple(int(t) for t in rng.integers(
         0, cfg.vocab_size, 1 + 2 * i)), max_new_tokens=8, arrival=i)
         for i in range(6)]
-    tokens = {}
-    for dev in ("cpu", "cuda"):
-        params = {k: _to(v, dev) for k, v in cpu.items()}
-        eng = PagedServeEngine(cfg, params, max_slots=3, max_len=48,
-                               page_size=4, prefill_chunk=8, decode_block=2,
-                               device=dev)
-        tokens[dev] = {c.rid: c.tokens for c in eng.run(reqs)}
-    check(tokens["cpu"] == tokens["cuda"], "small model: card and CPU "
-          f"tokens differ: {tokens}")
-    print("[reference] small model: card tokens == CPU plain-path tokens")
+    for kv_quant in (None, "int8", "log8"):
+        tokens = {}
+        for dev in ("cpu", "cuda"):
+            params = {k: _to(v, dev) for k, v in cpu.items()}
+            eng = PagedServeEngine(cfg, params, max_slots=3, max_len=48,
+                                   page_size=4, prefill_chunk=8,
+                                   decode_block=2, kv_quant=kv_quant,
+                                   device=dev)
+            tokens[dev] = {c.rid: c.tokens for c in eng.run(reqs)}
+        pools = kv_quant or "f32"
+        check(tokens["cpu"] == tokens["cuda"], f"small model, {pools} "
+              f"pools: card and CPU tokens differ: {tokens}")
+        print(f"[reference] small model, {pools} pools: card tokens == CPU "
+              f"plain-path tokens")
     # lockstep prefill (kernel F; kernels C and B): last logits against the
     # CPU plain path.  Three attention implementations meet near-flat
     # random-weight logits here, so logits are compared, not tokens.
@@ -993,6 +1108,22 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def zero_counts() -> None:
+    """Every kernel count to 0 (kernel A's per-pool-kind counts too)."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    for fn in counters():
+        fn.launches = 0
+    for kind in paged_attention.pool_launches:
+        paged_attention.pool_launches[kind] = 0
+
+
+def pool_bytes(cache: dict) -> int:
+    """Bytes of a paged cache's pools (codes and scales alike)."""
+    from repro_torch.models.lm import POOL_LEAVES
+    return sum(cache[n].numel() * cache[n].element_size()
+               for n in POOL_LEAVES if n in cache)
 
 
 def counters() -> list:
@@ -1059,7 +1190,23 @@ def main() -> None:
     off_res = serve(torch, off, make_trace(cfg, 8, 32, 0), paged_attention,
                     "serve OFF")
     profile_window(torch, off, make_trace(cfg, 4, 32, 0), "serve OFF")
+    # each serve phase's peak memory holds one engine: keep only what the
+    # kernel phase reads
+    off_in, off_bytes = kernel_a_inputs(off), pool_bytes(off.cache)
+    del off
+    torch.cuda.empty_cache()
     print(f"[serve OFF] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log8 = PagedServeEngine(cfg, params, max_slots=8, max_len=1024,
+                            nldpe=OFF, page_size=16, prefill_chunk=64,
+                            decode_block=4, kv_quant="log8")
+    log8_res = serve_log8(torch, log8, off_bytes, make_trace(cfg, 8, 32, 0))
+    profile_window(torch, log8, make_trace(cfg, 4, 32, 0), "serve OFF log8")
+    log8_in = kernel_a_inputs(log8)
+    del log8
+    torch.cuda.empty_cache()
+    print(f"[serve OFF log8] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     fused = PagedServeEngine(cfg, params, max_slots=8, max_len=1024,
@@ -1103,8 +1250,9 @@ def main() -> None:
     t0 = time.perf_counter()
     timer = Timer(torch)
     kernels = [
-        paged_attention_phase(torch, timer, off,
-                              path_launches(off_res, "paged_attention")),
+        paged_attention_phase(torch, timer, off_in,
+                              path_launches(off_res, "paged_attention"),
+                              log8_in, log8_res),
         fused_acam_phase(torch, timer, params,
                          path_launches(fused_res, "fused_crossbar_acam")),
         logdomain_phase(torch, timer, lock_fused["per_kernel"][
@@ -1114,7 +1262,7 @@ def main() -> None:
         flash_phase(torch, timer,
                     lock_off["per_kernel"]["flash_attention"]),
         qmatmul_phase(torch, timer, lib)]
-    del lib
+    del lib, off_in, log8_in
     print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -111,3 +111,77 @@ class LogQuantSpec:
     def decode(self, code: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
         return sign * torch.exp(code.to(torch.float32) * self.step
                                 + self.log_lo)
+
+
+# ---------------------------------------------------------------------------
+# The KV-cache log grid (DESIGN.md §11): the drafter's sign-magnitude log
+# quantizer renormalized per storage granule.  Scales carry the absmax, so
+# magnitudes land on (0, 1] and 7 bits of log grid cover four decades at a
+# uniform ~3.6% max relative error; the int8 sign carries the sign and code
+# 0 is the flushed zero.
+# ---------------------------------------------------------------------------
+
+KV_LOG_SPEC = LogQuantSpec(log_lo=float(np.log(1e-4)), log_hi=0.0, bits=7)
+
+# The committed error contract of the log8 KV grid: for every element x of a
+# granule with absmax scale,
+#   |decode(encode(x)) - x| <= max(KV_LOG8_REL_ERR * |x|,
+#                                  KV_LOG8_FLUSH * scale)
+# (half a log-grid step of relative error; magnitudes under the flush
+# threshold reconstruct as 0).
+KV_LOG8_REL_ERR = float(np.expm1(KV_LOG_SPEC.step / 2))         # ~3.7%
+KV_LOG8_FLUSH = float(np.exp(KV_LOG_SPEC.log_lo + KV_LOG_SPEC.step / 2))
+
+KV_QUANT_MODES = ("int8", "log8")
+
+
+def kv_log_arg(codes: torch.Tensor) -> torch.Tensor:
+    """The exp argument ``|code| * step + log_lo`` of the log8 grid, rounded
+    once to float32 as XLA contracts it into an FMA under ``jit``: the
+    product of a 7-bit code and a float32 step is exact in float64, and so
+    is the sum, so one rounding of the float64 value is the FMA's."""
+    c = codes.to(torch.float64).abs()
+    return (c * float(np.float32(KV_LOG_SPEC.step))
+            + float(np.float32(KV_LOG_SPEC.log_lo))).to(torch.float32)
+
+
+def kv_decode(codes: torch.Tensor, scale: torch.Tensor | None = None,
+              mode: str = "int8") -> torch.Tensor:
+    """Dequantize signed int8 KV codes (``nn.attention._quantize_kv``'s
+    inverse up to the grid); ``scale`` broadcasts over the trailing
+    (feature) axis.
+
+    ``"int8"``: value = code * scale (scale carries absmax / 127).
+    ``"log8"``: sign-magnitude — |code| indexes ``KV_LOG_SPEC``'s 7-bit log
+    grid, the sign of the code is the sign (0 = flushed zero), and scale
+    carries the granule's absmax.
+    """
+    c = codes.to(torch.float32)
+    if mode == "log8":
+        v = torch.sign(c) * torch.exp(kv_log_arg(codes))
+    elif mode == "int8":
+        v = c
+    else:
+        raise ValueError(f"unknown kv quant mode {mode!r}")
+    if scale is not None:
+        v = v * scale[..., None]
+    return v
+
+
+def kv_table(mode: str, device) -> torch.Tensor:
+    """``kv_decode`` of every int8 code, -128..127, as a (256,) float32
+    table on ``device``, built there once per (mode, device) with the plain
+    formula and cached: ``table[code + 128] * scale`` is then bit for bit
+    ``kv_decode(code, scale, mode)`` on that device (kernel A's
+    quantized-pool variant decodes through it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (mode, device)
+    if key not in _KV_TABLES:
+        codes = torch.arange(-128, 128, dtype=torch.int32, device=device)
+        _KV_TABLES[key] = kv_decode(codes.to(torch.int8), None, mode)
+    return _KV_TABLES[key]
+
+
+_KV_TABLES: dict[tuple, torch.Tensor] = {}

@@ -3,7 +3,8 @@
 // Replaces: src/repro/kernels/paged_attention/kernel.py,
 //   paged_attention_kernel (pallas_call at :164; body _paged_kernel at :55).
 //
-// Computes, for q (B, Hq, Q, D) f32, pools (P, Hkv, ps, D) in f32 or bf16,
+// Computes, for q (B, Hq, Q, D) f32, pools (P, Hkv, ps, D) in f32 or bf16
+// -- or int8 codes with (P, Hkv, ps) f32 scales (kv_quant "int8"/"log8") --
 // block table bt (B, NB) int32 and lengths (B,) int32:
 //   out[b, h*G+g, j] = softmax_p(q . k_p / sqrt(D)) @ v over the logical
 //   positions p < lengths[b] + j, position p stored in page bt[b, p / ps]
@@ -29,6 +30,16 @@
 //   * the online softmax runs four threads per row (shuffle reductions);
 //   * pages are read in the pool's own dtype and widened to f32 in shared
 //     memory; the pool is never upcast as a whole;
+//   * int8 code pools (a third pool kind) are decoded as each page is
+//     staged, as the TPU kernel decodes one page tile in VMEM: four codes
+//     per 4-byte load, each value table[code + 128] * scale, the 256-entry
+//     f32 table (core.quantization.kv_table: sign * exp(fma) for log8, the
+//     code for int8) copied to shared memory once per block.  The table is
+//     built with the plain version's own formula, so the kernel and the
+//     plain version decode to the same floats and differ only in sum order;
+//     an 8-bit pool moves a quarter of an f32 pool's bytes plus 4 B of
+//     scale per (page, head, position).  A sentinel page's codes and scale
+//     row are never read;
 //   * when B*Hkv*tiles is too small to fill 132 SMs (decode), the page
 //     axis is split over gridDim.z and a second kernel merges the partial
 //     (max, sum, acc) triples (flash-decoding);
@@ -41,22 +52,30 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int ROWS = 32;      // query rows per block
 constexpr int THREADS = 128;  // = 4 * ROWS; one thread per column in P@V
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int TABLE = 256;    // int8 decode table entries (code + 128)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// T = float or __nv_bfloat16: fp pools; T = int8_t: code pools, decoded
+// through table[code + 128] * scale as each page is staged.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const float* __restrict__ q,
                        const T* __restrict__ k_pages,
                        const T* __restrict__ v_pages,
+                       const float* __restrict__ k_scale,  // int8 pools
+                       const float* __restrict__ v_scale,  // int8 pools
+                       const float* __restrict__ table,    // int8 pools
                        const int* __restrict__ bt,
                        const int* __restrict__ lengths,
                        float* __restrict__ out,       // splits == 1
@@ -73,6 +92,8 @@ paged_attention_kernel(const float* __restrict__ q,
   float* m_s = p_s + ROWS * ps;         // ROWS running max
   float* l_s = m_s + ROWS;              // ROWS running sum
   float* c_s = l_s + ROWS;              // ROWS correction factor
+  float* t_s = c_s + ROWS;              // TABLE decode entries (int8 pools)
+  constexpr bool kCodes = std::is_same<T, int8_t>::value;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;            // b * Hkv + h
@@ -97,6 +118,9 @@ paged_attention_kernel(const float* __restrict__ q,
     m_s[r] = -INFINITY;
     l_s[r] = 0.0f;
   }
+  if constexpr (kCodes) {
+    for (int i = tid; i < TABLE; i += THREADS) t_s[i] = table[i];
+  }
   float acc[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
@@ -114,9 +138,31 @@ paged_attention_kernel(const float* __restrict__ q,
     const int blk = bt[(size_t)b * NB + i];
     if (blk < 0 || blk >= P) continue;  // unmapped sentinel: never read
     const size_t base = (size_t)blk * page_stride + (size_t)h * ps * D;
-    for (int idx = tid; idx < ps * D; idx += THREADS) {
-      k_s[(idx / D) * DP + idx % D] = to_f32(k_pages[base + idx]);
-      v_s[idx] = to_f32(v_pages[base + idx]);
+    if constexpr (kCodes) {
+      // four codes per load (D % 4 == 0, so they share a position); the
+      // page's base is a multiple of D bytes, so the char4 loads align
+      const size_t srow = ((size_t)blk * Hkv + h) * ps;
+      const char4* kc = reinterpret_cast<const char4*>(k_pages + base);
+      const char4* vc = reinterpret_cast<const char4*>(v_pages + base);
+      for (int i4 = tid; i4 < ps * D / 4; i4 += THREADS) {
+        const int slot = (i4 * 4) / D;
+        const int col = (i4 * 4) % D;
+        const float ks = k_scale[srow + slot];
+        const float vs = v_scale[srow + slot];
+        const char4 kq = kc[i4];
+        const char4 vq = vc[i4];
+        *reinterpret_cast<float4*>(k_s + slot * DP + col) = make_float4(
+            t_s[kq.x + 128] * ks, t_s[kq.y + 128] * ks,
+            t_s[kq.z + 128] * ks, t_s[kq.w + 128] * ks);
+        *reinterpret_cast<float4*>(v_s + i4 * 4) = make_float4(
+            t_s[vq.x + 128] * vs, t_s[vq.y + 128] * vs,
+            t_s[vq.z + 128] * vs, t_s[vq.w + 128] * vs);
+      }
+    } else {
+      for (int idx = tid; idx < ps * D; idx += THREADS) {
+        k_s[(idx / D) * DP + idx % D] = to_f32(k_pages[base + idx]);
+        v_s[idx] = to_f32(v_pages[base + idx]);
+      }
     }
     __syncthreads();
 
@@ -285,18 +331,19 @@ __global__ void paged_attention_combine(const float* __restrict__ part_acc,
   }
 }
 
-size_t smem_bytes(int D, int ps) {
+size_t smem_bytes(int D, int ps, bool codes) {
   return sizeof(float) *
          ((size_t)ROWS * (D + 4) + (size_t)ps * (D + 4) + (size_t)ps * D +
-          (size_t)ROWS * ps + 3 * ROWS);
+          (size_t)ROWS * ps + 3 * ROWS + (codes ? TABLE : 0));
 }
 
 template <typename T, int D>
 int launch(const float* q, const void* k_pages, const void* v_pages,
+           const float* k_scale, const float* v_scale, const float* table,
            const int* bt, const int* lengths, float* out, float* part_acc,
            float* part_ml, int B, int Hq, int Hkv, int Q, int P, int ps,
            int NB, int splits, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, ps);
+  const size_t smem = smem_bytes(D, ps, std::is_same<T, int8_t>::value);
   cudaError_t err = cudaFuncSetAttribute(
       paged_attention_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -306,8 +353,9 @@ int launch(const float* q, const void* k_pages, const void* v_pages,
   dim3 grid(B * Hkv, (n_rows + ROWS - 1) / ROWS, splits);
   const float scale = 1.0f / sqrtf((float)D);
   paged_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      q, static_cast<const T*>(k_pages), static_cast<const T*>(v_pages), bt,
-      lengths, out, splits > 1 ? part_acc : nullptr,
+      q, static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+      k_scale, v_scale, table, bt, lengths, out,
+      splits > 1 ? part_acc : nullptr,
       splits > 1 ? part_ml : nullptr, Hq, Hkv, Q, P, ps, NB,
       pages_per_split, scale);
   err = cudaGetLastError();
@@ -319,14 +367,16 @@ int launch(const float* q, const void* k_pages, const void* v_pages,
 
 template <typename T>
 int launch_d(const float* q, const void* k_pages, const void* v_pages,
+             const float* k_scale, const float* v_scale, const float* table,
              const int* bt, const int* lengths, float* out, float* part_acc,
              float* part_ml, int B, int Hq, int Hkv, int Q, int D, int P,
              int ps, int NB, int splits, cudaStream_t stream) {
   switch (D) {
-#define PAGED_D(DV)                                                        \
-  case DV:                                                                 \
-    return launch<T, DV>(q, k_pages, v_pages, bt, lengths, out, part_acc,  \
-                         part_ml, B, Hq, Hkv, Q, P, ps, NB, splits, stream);
+#define PAGED_D(DV)                                                       \
+  case DV:                                                                \
+    return launch<T, DV>(q, k_pages, v_pages, k_scale, v_scale, table, bt, \
+                         lengths, out, part_acc, part_ml, B, Hq, Hkv, Q, P, \
+                         ps, NB, splits, stream);
     PAGED_D(16)
     PAGED_D(32)
     PAGED_D(64)
@@ -342,26 +392,38 @@ int launch_d(const float* q, const void* k_pages, const void* v_pages,
 extern "C" {
 
 // Shared memory one block needs; the wrapper checks it against the card.
-size_t paged_attention_smem_bytes(int D, int ps) { return smem_bytes(D, ps); }
+size_t paged_attention_smem_bytes(int D, int ps, int kv_kind) {
+  return smem_bytes(D, ps, kv_kind == 2);
+}
 
 int paged_attention_rows_per_block() { return ROWS; }
 
-// kv_dtype: 0 = float32 pools, 1 = bfloat16 pools; D in {16, 32, 64, 128}.  part_acc/part_ml are
-// scratch of (B*Hkv, splits, G*Q, D) and (B*Hkv, splits, G*Q, 2) floats,
-// used only when splits > 1.  Returns the cudaError_t of the launches.
+// kv_kind: 0 = float32 pools, 1 = bfloat16 pools, 2 = int8 code pools with
+// k_scale/v_scale (P, Hkv, ps) floats and the 256-entry decode table
+// (unused, and may be null, for fp pools); D in {16, 32, 64, 128}.
+// part_acc/part_ml are scratch of (B*Hkv, splits, G*Q, D) and
+// (B*Hkv, splits, G*Q, 2) floats, used only when splits > 1.  Returns the
+// cudaError_t of the launches.
 int paged_attention_launch(const float* q, const void* k_pages,
-                           const void* v_pages, int kv_dtype, const int* bt,
+                           const void* v_pages, int kv_kind,
+                           const float* k_scale, const float* v_scale,
+                           const float* table, const int* bt,
                            const int* lengths, float* out, float* part_acc,
                            float* part_ml, int B, int Hq, int Hkv, int Q,
                            int D, int P, int ps, int NB, int splits,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k_pages, v_pages, bt, lengths, out,
-                                   part_acc, part_ml, B, Hq, Hkv, Q, D, P, ps,
-                                   NB, splits, s);
-  return launch_d<float>(q, k_pages, v_pages, bt, lengths, out, part_acc,
-                         part_ml, B, Hq, Hkv, Q, D, P, ps, NB, splits, s);
+  if (kv_kind == 2)
+    return launch_d<int8_t>(q, k_pages, v_pages, k_scale, v_scale, table, bt,
+                            lengths, out, part_acc, part_ml, B, Hq, Hkv, Q, D,
+                            P, ps, NB, splits, s);
+  if (kv_kind == 1)
+    return launch_d<__nv_bfloat16>(q, k_pages, v_pages, k_scale, v_scale,
+                                   table, bt, lengths, out, part_acc, part_ml,
+                                   B, Hq, Hkv, Q, D, P, ps, NB, splits, s);
+  return launch_d<float>(q, k_pages, v_pages, k_scale, v_scale, table, bt,
+                         lengths, out, part_acc, part_ml, B, Hq, Hkv, Q, D, P,
+                         ps, NB, splits, s);
 }
 
 }  // extern "C"

@@ -25,9 +25,14 @@ scheduler exists once and the subclass swaps the cache layout, wave
 selection (page budget) and slot release (page references, prefix
 publication).
 
+* **KV storage grid** — ``kv_quant="int8"``/``"log8"`` (or a config whose
+  ``kv_cache_dtype`` names the grid) stores 8-bit codes with per-(position,
+  head) scales (DESIGN.md §11); the paged engine keys its radix root on the
+  grid.
+
 Not ported yet (``ROADMAP.md`` queue A): speculative decoding,
 drift/fidelity, telemetry, the host spill tier and preemption, meshes, AOT
-prefill buckets, the async engine and quantized KV pools.
+prefill buckets and the async engine.
 
 Where ``repro`` donates device buffers to its jitted steps, these engines
 update the cache and the decode state in place.
@@ -80,19 +85,28 @@ class ServeEngine:
     Drive it with :meth:`run` (serve a whole trace, returns completions
     sorted by rid).  ``params`` is the float32 parameter tree of
     ``models.lm.init_params`` (or ``convert.from_jax``) on ``device`` — the
-    card unless ``device="cpu"``.
+    card unless ``device="cpu"``.  ``kv_quant`` selects the KV storage grid
+    ("int8", "log8", or None to keep ``cfg.kv_cache_dtype``); it is carried
+    on the config, so setting it is ``dataclasses.replace(cfg,
+    kv_cache_dtype=kv_quant)``.
     """
 
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  nldpe: NLDPEConfig = OFF, prefill_chunk: int = 16,
                  decode_block: int = 4, eos_id: int = -1,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, kv_quant: str | None = None,
+                 device=None):
         if any(t != "attn" for t in cfg.layer_pattern):
             raise NotImplementedError(
                 f"the serve engines serve attention blocks only; "
                 f"{cfg.name} pattern is {cfg.layer_pattern}")
         if prefill_chunk < 1 or decode_block < 1 or max_slots < 1:
             raise ValueError("max_slots, prefill_chunk, decode_block >= 1")
+        if kv_quant not in (None, "int8", "log8"):
+            raise ValueError('kv_quant must be None, "int8", or "log8"')
+        if kv_quant is not None:
+            cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_quant)
+        self.kv_quant = lm.kv_quant_of(cfg)
         self.device = resolve_device(device)
         if params["embed"]["table"].device.type != self.device.type:
             raise ValueError(f"params live on "
@@ -448,7 +462,8 @@ class PagedServeEngine(ServeEngine):
         self._slot_pages: list[list[int] | None] = [None] * max_slots
         super().__init__(cfg, params, max_slots=max_slots, max_len=max_len,
                          **kw)
-        self._fp = nldpe_fingerprint(self.nldpe)
+        # the root is keyed on the numerics and the effective storage grid
+        self._fp = nldpe_fingerprint(self.nldpe, self.kv_quant)
 
     def _init_cache(self) -> dict:
         return lm.init_model_cache(
@@ -476,9 +491,11 @@ class PagedServeEngine(ServeEngine):
                                            self.cache["bt"]))
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy-on-write fork: page ``src`` -> ``dst`` in every layer."""
-        for name in ("k", "v"):
-            self.cache[name][:, dst] = self.cache[name][:, src]
+        """Copy-on-write fork: page ``src`` -> ``dst`` in every layer (codes
+        and scales of a quantized pool alike)."""
+        for name in lm.POOL_LEAVES:
+            if name in self.cache:
+                self.cache[name][:, dst] = self.cache[name][:, src]
 
     def _plan(self, req: Request, *, peek: bool) -> dict:
         """Map a request onto pages: radix-hit pages to share, an optional

@@ -29,12 +29,15 @@ from collections import deque
 import numpy as np
 
 
-def nldpe_fingerprint(nldpe) -> tuple:
+def nldpe_fingerprint(nldpe, kv_quant: str | None = None) -> tuple:
     """Stable, hashable fingerprint of the pool's byte semantics: the
-    NLDPEConfig flattened to sorted (name, value) tuples.  Two configs with
-    the same fingerprint produce bit-identical cached K/V for the same
-    tokens, which is what radix prefix sharing requires."""
-    return (("nldpe", tuple(sorted(dataclasses.asdict(nldpe).items()))),)
+    NLDPEConfig flattened to sorted (name, value) tuples, and the KV storage
+    grid.  Two configs with the same fingerprint produce bit-identical
+    cached K/V for the same tokens, which is what radix prefix sharing
+    requires — so an fp pool and a quantized one (or "int8" and "log8"),
+    whose bytes mean different things, never share a root."""
+    return (("kv_quant", kv_quant),
+            ("nldpe", tuple(sorted(dataclasses.asdict(nldpe).items()))))
 
 
 class RadixNode:

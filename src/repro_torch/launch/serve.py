@@ -12,11 +12,14 @@ tokens.
     python -m repro_torch.launch.serve [--nldpe | --fused] [--python-loop]
     python -m repro_torch.launch.serve --continuous [--nldpe | --fused]
     python -m repro_torch.launch.serve --paged [--nldpe | --fused]
+                                       [--kv-quant {log8,int8}]
 
 The default branch prefills ``--batch`` prompts of ``--prompt-len`` tokens
 and decodes ``--gen-len`` steps in lockstep; ``--continuous`` serves a
 staggered trace through the slotted ``ServeEngine``, ``--paged`` a
-shared-system-prompt trace through ``PagedServeEngine``.  The model is the
+shared-system-prompt trace through ``PagedServeEngine`` (``--kv-quant``
+stores its pages as 8-bit codes).  A config whose ``kv_cache_dtype`` names
+a grid gives every path quantized caches.  The model is the
 reduced config of ``--arch`` (as the JAX CLI runs it) with seeded random
 weights, on the GPU unless ``--device cpu``.
 """
@@ -110,8 +113,8 @@ def _validate_args(p: argparse.ArgumentParser, args) -> None:
     if args.continuous and args.paged:
         p.error("--continuous and --paged are mutually exclusive "
                 "(pick one engine demo)")
-    bad = [n for n in ("page_size", "num_pages", "system_prompt_len")
-           if moved(n)]
+    bad = [n for n in ("page_size", "num_pages", "system_prompt_len",
+                       "kv_quant") if moved(n)]
     if bad and not args.paged:
         p.error(f"--{bad[0].replace('_', '-')} requires --paged "
                 f"(the lockstep/--continuous paths ignore it)")
@@ -152,6 +155,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=None)
     p.add_argument("--system-prompt-len", type=int, default=24)
+    p.add_argument("--kv-quant", choices=("log8", "int8"), default=None,
+                   help="store KV pages as 8-bit codes + per-(page, head, "
+                        "position) scales for --paged: 'log8' = the "
+                        "drafter's sign-magnitude log grid (DESIGN.md "
+                        "§11), 'int8' = uniform absmax grid")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--requests", type=int, default=12)
     p.add_argument("--seed", type=int, default=0)
@@ -196,13 +204,15 @@ def run(argv=None):
         eng = PagedServeEngine(cfg, params, max_slots=args.slots,
                                max_len=max_len, nldpe=nldpe,
                                page_size=args.page_size,
-                               num_pages=args.num_pages, device=device)
+                               num_pages=args.num_pages,
+                               kv_quant=args.kv_quant, device=device)
         t0 = time.perf_counter()
         comps = eng.run(reqs)
         dt = time.perf_counter() - t0
         st = eng.stats
+        quant = f", kv_quant={args.kv_quant}" if args.kv_quant else ""
         _report("paged", eng, comps, dt, f", {eng.pool.num_pages} pages x "
-                f"{args.page_size} tok")
+                f"{args.page_size} tok{quant}")
         print(f"  prefix hits {st['hits']}/{st['lookups']}, prefill tokens "
               f"saved {st['prefill_tokens_saved']}, cow forks "
               f"{st['cow_forks']}, evicted {st['evicted']}")

@@ -15,6 +15,10 @@ of each per layer, but every layer's copy holds the same values:
 * slotted: the same with pos (B, max_len);
 * paged ``{"k", "v", "pos", "bt"}``: pools (L, P, Hkv, page_size, D), pos
   (B, max_len), block table (B, NB).
+
+A config whose ``kv_cache_dtype`` is "int8" or "log8" gets quantized
+caches: K/V hold int8 codes and ``k_scale``/``v_scale`` one float32 scale
+per position and head, stacked on the same leading layer axis.
 """
 from __future__ import annotations
 
@@ -22,14 +26,23 @@ import torch
 
 from .. import resolve_device
 from ..core.engine import NLDPEConfig, OFF
-from ..nn.attention import AttnSpec, attn_apply, init_cache, write_plan
+from ..core.quantization import KV_QUANT_MODES
+from ..nn.attention import (AttnSpec, attn_apply, init_cache, kv_leaves,
+                            write_plan)
 from ..nn.basic import embedding_apply, rmsnorm_apply, unembed_apply
 from ..nn.mlp import mlp_apply
 
 
+def kv_quant_of(cfg) -> str | None:
+    """The KV storage grid ``cfg.kv_cache_dtype`` names, or None (fp)."""
+    return (cfg.kv_cache_dtype if cfg.kv_cache_dtype in KV_QUANT_MODES
+            else None)
+
+
 def attn_spec(cfg) -> AttnSpec:
     return AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                    head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+                    head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                    kv_quant=kv_quant_of(cfg))
 
 
 def _check_cfg(cfg) -> None:
@@ -114,7 +127,8 @@ def init_model_cache(cfg, batch: int, max_len: int, *,
                      device=None) -> dict:
     """Every layer's cache: dense lockstep (default), dense ``slotted``, or
     ``paged=(num_pages, page_size)`` (unmapped block-table entries hold the
-    sentinel ``num_pages``)."""
+    sentinel ``num_pages``); int8 codes and float32 scales in place of
+    ``dtype`` values when ``cfg.kv_cache_dtype`` names a grid."""
     _check_cfg(cfg)
     device = resolve_device(device)
     s = attn_spec(cfg)
@@ -124,18 +138,21 @@ def init_model_cache(cfg, batch: int, max_len: int, *,
     num_pages, page_size = paged
     kv = (cfg.n_layers, num_pages, s.n_kv_heads, page_size, s.head_dim)
     n_blocks = -(-max_len // page_size)
-    return {"k": torch.zeros(kv, dtype=dtype, device=device),
-            "v": torch.zeros(kv, dtype=dtype, device=device),
-            "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
-                              device=device),
-            "bt": torch.full((batch, n_blocks), num_pages, dtype=torch.int32,
-                             device=device)}
+    cache = kv_leaves(kv, dtype, s.kv_quant, device)
+    cache["pos"] = torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device)
+    cache["bt"] = torch.full((batch, n_blocks), num_pages, dtype=torch.int32,
+                             device=device)
+    return cache
+
+
+POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
 def layer_cache(cache: dict, i: int) -> dict:
-    """Layer ``i``'s view of the model cache (K/V are views: writes land
-    in the model cache)."""
-    return dict(cache, k=cache["k"][i], v=cache["v"][i])
+    """Layer ``i``'s view of the model cache (K/V and scales are views:
+    writes land in the model cache)."""
+    return dict(cache, **{n: cache[n][i] for n in POOL_LEAVES if n in cache})
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",

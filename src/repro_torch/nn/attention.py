@@ -12,6 +12,14 @@ axis and keeps ONE position track for every layer, ``models/lm.py``):
   ``pos`` (B, max_len) and a block table (B, NB) mapping a slot's logical
   block ``j`` onto a physical page (``num_pages`` = unmapped sentinel).
 
+Quantized caches (``AttnSpec.kv_quant`` "int8" or "log8", DESIGN.md §11)
+hold int8 codes in ``k``/``v`` and one float32 scale per (row, head,
+position) in ``k_scale``/``v_scale`` — (B, Hkv, L) dense, (P, Hkv, ps)
+paged.  New K/V are quantized when written (``_quantize_kv``) and decoded
+with ``core.quantization.kv_decode`` where they are read; kernel A decodes
+the code pages itself, so the paged OFF path never materializes an fp
+pool.
+
 ``pos`` holds the position stored at each line (-1 = never written); it
 is the only validity information attention reads.  Writes follow
 ``repro``'s ``update_cache``: line ``p % L`` in dense caches (a ring),
@@ -42,7 +50,8 @@ import math
 import torch
 
 from ..core.engine import NLDPEConfig, OFF
-from ..core.quantization import scalar_div
+from ..core.quantization import (KV_LOG_SPEC, KV_QUANT_MODES, kv_decode,
+                                 scalar_div)
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
 from .basic import apply_rope
@@ -56,6 +65,7 @@ class AttnSpec:
     n_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
+    kv_quant: str | None = None        # KV cache storage grid: "int8"/"log8"
 
     @property
     def group(self) -> int:
@@ -85,12 +95,67 @@ def init_cache(s: AttnSpec, batch: int, max_len: int, *, layers: int,
                device=None) -> dict:
     """Dense K/V of ``layers`` layers, (layers, B, Hkv, max_len, D), and one
     position track: (max_len,) lockstep, or (B, max_len) with
-    ``slotted=True`` so slots sit at different offsets."""
+    ``slotted=True`` so slots sit at different offsets.  With
+    ``s.kv_quant`` set, K/V are int8 codes beside (layers, B, Hkv,
+    max_len) float32 scales (``dtype`` is then unused)."""
     kv = (layers, batch, s.n_kv_heads, max_len, s.head_dim)
     pos = (batch, max_len) if slotted else (max_len,)
-    return {"k": torch.zeros(kv, dtype=dtype, device=device),
-            "v": torch.zeros(kv, dtype=dtype, device=device),
-            "pos": torch.full(pos, -1, dtype=torch.int32, device=device)}
+    cache = kv_leaves(kv, dtype, s.kv_quant, device)
+    cache["pos"] = torch.full(pos, -1, dtype=torch.int32, device=device)
+    return cache
+
+
+def kv_leaves(kv_shape: tuple, dtype, kv_quant: str | None,
+              device) -> dict:
+    """Zeroed K/V leaves of ``kv_shape``: ``dtype`` values, or int8 codes
+    plus float32 scales over every axis but the last when ``kv_quant`` is
+    set."""
+    if kv_quant is None:
+        return {"k": torch.zeros(kv_shape, dtype=dtype, device=device),
+                "v": torch.zeros(kv_shape, dtype=dtype, device=device)}
+    if kv_quant not in KV_QUANT_MODES:
+        raise ValueError(f"unknown kv quant mode {kv_quant!r}")
+    return {"k": torch.zeros(kv_shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(kv_shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(kv_shape[:-1], dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(kv_shape[:-1], dtype=torch.float32,
+                                   device=device)}
+
+
+def _quantize_kv(x: torch.Tensor, mode: str = "int8"):
+    """(..., D) -> int8 codes (..., D) + float32 scales (...,), one per
+    row of D.
+
+    ``"int8"``: uniform grid — scale carries absmax / 127 (divided as
+    ``jit`` divides by a constant, through ``scalar_div``), code =
+    round(x / scale).  ``"log8"``: ``KV_LOG_SPEC``'s sign-magnitude log grid
+    renormalized per row — scale carries the absmax, |code| indexes the
+    7-bit log grid of |x| / absmax, the code's sign is the sign (0 = flushed
+    zero).  ``core.quantization.kv_decode`` is the inverse.
+    """
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1)
+    if mode == "log8":
+        scale = torch.clamp(absmax, min=1e-8)
+        code, sign = KV_LOG_SPEC.encode(xf / scale[..., None])
+        q = (sign * code.to(torch.float32)).to(torch.int8)
+    elif mode == "int8":
+        scale = torch.clamp(scalar_div(absmax, 127.0), min=1e-8)
+        q = torch.clamp(torch.round(xf / scale[..., None]),
+                        -127, 127).to(torch.int8)
+    else:
+        raise ValueError(f"unknown kv quant mode {mode!r}")
+    return q, scale
+
+
+def _dequantize_kv(cache: dict, name: str,
+                   kv_quant: str | None = None) -> torch.Tensor:
+    """Leaf ``name`` ("k"/"v") of a cache or dense view as float32 values."""
+    if f"{name}_scale" in cache:
+        return kv_decode(cache[name], cache[f"{name}_scale"],
+                         kv_quant or "int8")
+    return cache[name].to(torch.float32)
 
 
 def write_plan(cache: dict, positions: torch.Tensor, write_mask=None):
@@ -137,16 +202,29 @@ def write_plan(cache: dict, positions: torch.Tensor, write_mask=None):
     return bi, ci, line
 
 
+def _stored(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+            kv_quant: str | None) -> dict:
+    """New K/V (B, H, C, D) as the cache stores them: cast to the pool's
+    dtype, or int8 codes plus (B, H, C) scales for a quantized cache."""
+    if "k_scale" not in cache:
+        return {"k": k_new.to(cache["k"].dtype),
+                "v": v_new.to(cache["v"].dtype)}
+    kq, ks = _quantize_kv(k_new, kv_quant or "int8")
+    vq, vs = _quantize_kv(v_new, kv_quant or "int8")
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
 def update_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 plan) -> None:
+                 plan, kv_quant: str | None = None) -> None:
     """Write one layer's new K/V (B, H, C, D) at the lines ``write_plan``
-    chose, in place (dense or paged)."""
+    chose, in place (dense or paged; quantized on the ``kv_quant`` grid
+    when the cache holds codes)."""
     if "bt" in cache:
-        update_cache_paged(cache, k_new, v_new, plan)
+        update_cache_paged(cache, k_new, v_new, plan, kv_quant)
         return
     bi, ci, line = plan
-    cache["k"][bi, :, line] = k_new[bi, :, ci].to(cache["k"].dtype)
-    cache["v"][bi, :, line] = v_new[bi, :, ci].to(cache["v"].dtype)
+    for name, new in _stored(cache, k_new, v_new, kv_quant).items():
+        cache[name][bi, :, line] = new[bi, :, ci]
 
 
 def paged_write_plan(cache: dict, pos: torch.Tensor, write_mask=None):
@@ -173,12 +251,12 @@ def paged_write_plan(cache: dict, pos: torch.Tensor, write_mask=None):
 
 
 def update_cache_paged(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                       plan) -> None:
-    """Write one layer's new K/V (B, H, C, D) into its pools, in place,
-    at the lines ``paged_write_plan`` chose."""
+                       plan, kv_quant: str | None = None) -> None:
+    """Write one layer's new K/V (B, H, C, D) into its pools (and scale
+    pools), in place, at the lines ``paged_write_plan`` chose."""
     bi, ci, pg, off = plan
-    cache["k"][pg, :, off] = k_new[bi, :, ci].to(cache["k"].dtype)
-    cache["v"][pg, :, off] = v_new[bi, :, ci].to(cache["v"].dtype)
+    for name, new in _stored(cache, k_new, v_new, kv_quant).items():
+        cache[name][pg, :, off] = new[bi, :, ci]
 
 
 def paged_dense_view(cache: dict) -> dict:
@@ -190,11 +268,16 @@ def paged_dense_view(cache: dict) -> dict:
     bt = cache["bt"].long().clamp(0, num_pages - 1)
 
     def gather(name):
-        x = cache[name][bt]                     # (B, NB, H, ps, D)
-        x = x.transpose(1, 2)                   # (B, H, NB, ps, D)
-        return x.reshape(x.shape[0], x.shape[1], -1, x.shape[4])[:, :, :length]
+        x = cache[name][bt]                     # (B, NB, H, ps[, D])
+        x = x.transpose(1, 2)                   # (B, H, NB, ps[, D])
+        flat = x.reshape(x.shape[0], x.shape[1], -1, *x.shape[4:])
+        return flat[:, :, :length]
 
-    return {"pos": cache["pos"], "k": gather("k"), "v": gather("v")}
+    view = {"pos": cache["pos"]}
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in cache:
+            view[name] = gather(name)
+    return view
 
 
 def cache_valid_mask(kp: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
@@ -221,7 +304,8 @@ def cached_attention(q: torch.Tensor, cache: dict, q_pos: torch.Tensor,
     b, hq, nq, d = q.shape
     g = s.group
     qg = q.reshape(b, s.n_kv_heads, g, nq, d).to(torch.float32)
-    k, v = cache["k"].to(torch.float32), cache["v"].to(torch.float32)
+    k = _dequantize_kv(cache, "k", s.kv_quant)
+    v = _dequantize_kv(cache, "v", s.kv_quant)
     scores = scalar_div(torch.einsum("bkgqd,bkld->bkgql", qg, k),
                         math.sqrt(d))
     valid = cache_valid_mask(cache["pos"], q_pos)
@@ -238,8 +322,8 @@ def _nldpe_cached(nldpe: NLDPEConfig, q: torch.Tensor, att: dict,
     KV head's block), so K/V are never repeated."""
     b, hq, nq, d = q.shape
     g = s.group
-    k = att["k"].to(torch.float32).to(q.dtype)
-    v = att["v"].to(torch.float32).to(q.dtype)
+    k = _dequantize_kv(att, "k", s.kv_quant).to(q.dtype)
+    v = _dequantize_kv(att, "v", s.kv_quant).to(q.dtype)
     qf = q.reshape(b, s.n_kv_heads, g * nq, d)
     msk = valid.repeat(1, g, 1)            # row g_idx*Q + j uses valid[:, j]
     o = nldpe.attention(qf, k, v, causal=False, mask=msk[:, None])
@@ -272,9 +356,9 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
             if "bt" in cache:
                 raise ValueError("paged caches are filled in 'chunk' or "
                                  "'decode' mode, not by whole-prompt prefill")
-            update_cache(cache, k, v, plan)
+            update_cache(cache, k, v, plan, s.kv_quant)
     elif mode in ("decode", "chunk"):
-        update_cache(cache, k, v, plan)
+        update_cache(cache, k, v, plan, s.kv_quant)
         qpos = positions if positions.ndim == 2 else positions.reshape(-1)
         if "bt" in cache and not nldpe.enabled:
             # the queries sit at consecutive per-slot offsets, so query j
@@ -283,7 +367,9 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
             lengths = torch.clamp(positions[:, 0] + 1, 1,
                                   cache["pos"].shape[1]).to(torch.int32)
             o = paged_attention(q, cache["k"], cache["v"], cache["bt"],
-                                lengths).to(q.dtype)
+                                lengths, k_scale=cache.get("k_scale"),
+                                v_scale=cache.get("v_scale"),
+                                kv_quant=s.kv_quant).to(q.dtype)
         else:
             att = paged_dense_view(cache) if "bt" in cache else cache
             if nldpe.enabled:

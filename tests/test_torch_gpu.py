@@ -91,6 +91,128 @@ def test_paged_attention_fully_masked_row_is_zero(dev):
     assert torch.equal(out, torch.zeros_like(out))
 
 
+def _code_pools(args, mode):
+    """The case's f32 pools put on ``mode``'s grid: codes + scales."""
+    from repro_torch.nn.attention import _quantize_kv
+    q, kp, vp, bt, lengths = args
+    kc, ks = _quantize_kv(kp, mode)
+    vc, vs = _quantize_kv(vp, mode)
+    return (q, kc, vc, bt, lengths), dict(k_scale=ks, v_scale=vs,
+                                          kv_quant=mode)
+
+
+@pytest.mark.parametrize("q_len", [1, 5, 64])
+@pytest.mark.parametrize("mode", ["int8", "log8"])
+@pytest.mark.parametrize("shape", [(2, 4, 2, 48, 20, 5, 16),
+                                   (8, 16, 2, 512, 64, 16, 128)],
+                         ids=["small", "qwen3b"])
+def test_paged_attention_code_pools_match_plain(dev, shape, mode, q_len):
+    """int8 code pools (odd page size 5, sentinels mid-table and at the
+    end): the kernel decodes through the table the plain version's formula
+    built, so only the sum order differs — tolerance 1e-4 as for fp pools.
+    Each launch is counted under its grid."""
+    from repro_torch.core.quantization import kv_decode
+    rng = np.random.default_rng(0)
+    args, kw = _code_pools(_paged_case(rng, *shape, q_len, torch.float32,
+                                       dev), mode)
+    before = dict(paged_attention.pool_launches)
+    out = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.pool_launches[mode] == before[mode] + 1
+    ref = paged_attention_ref(*args, **kw)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+    # an f32 pool holding the decoded values gives the same bits: the code
+    # variant stages exactly those floats and shares every other step
+    fp = (args[0], kv_decode(args[1], kw["k_scale"], mode),
+          kv_decode(args[2], kw["v_scale"], mode), *args[3:])
+    assert torch.equal(paged_attention(*fp), out)
+
+
+@pytest.mark.parametrize("mode", ["int8", "log8"])
+def test_kv_table_on_card_is_the_plain_decode(dev, mode):
+    """The cached decode table, built on the card, indexed by every code
+    and scaled: bit for bit ``kv_decode`` on the card."""
+    from repro_torch.core.quantization import kv_decode, kv_table
+    tab = kv_table(mode, dev)
+    assert kv_table(mode, "cuda") is tab and tab.device.type == "cuda"
+    codes = torch.arange(-128, 128, dtype=torch.int32, device=dev).to(
+        torch.int8).repeat(40, 1)
+    scale = torch.rand(40, device=dev) * 3 + 1e-3
+    assert torch.equal(tab[codes.long() + 128] * scale[:, None],
+                       kv_decode(codes, scale, mode))
+
+
+def test_paged_attention_code_pools_sentinel_is_never_read(dev):
+    """A page only a sentinel entry would alias, codes and scale row
+    poisoned (NaN scales): the mapped rows' outputs do not move."""
+    from repro_torch.nn.attention import _quantize_kv
+    rng = np.random.default_rng(8)
+    b, hq, hkv, p, nb, ps, d = 2, 4, 2, 6, 3, 5, 16
+    q = torch.tensor(rng.normal(size=(b, hq, 1, d)), dtype=torch.float32,
+                     device=dev)
+    kc, ks = _quantize_kv(torch.tensor(rng.normal(size=(p, hkv, ps, d)),
+                                       dtype=torch.float32, device=dev),
+                          "log8")
+    bt = torch.tensor([[3, 4, 5], [0, 1, p]], dtype=torch.int32, device=dev)
+    over = torch.tensor([nb * ps, nb * ps], dtype=torch.int32, device=dev)
+    o = paged_attention(q, kc, kc, bt, over, k_scale=ks, v_scale=ks,
+                        kv_quant="log8")
+    ks2 = ks.clone()
+    ks2[p - 1] = float("nan")
+    o2 = paged_attention(q, kc, kc, bt, over, k_scale=ks2, v_scale=ks2,
+                         kv_quant="log8")
+    assert torch.equal(o[1], o2[1])
+    assert not torch.allclose(o[0], o2[0])
+
+
+def test_paged_attention_fp_pools_unchanged_by_code_variant(dev):
+    """f32 and bf16 pools give the same bits before and after code-pool
+    launches, and no code path is taken for them."""
+    rng = np.random.default_rng(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _paged_case(rng, 8, 16, 2, 512, 64, 16, 128, 1, dtype, dev)
+        first = paged_attention(*args)
+        codes, kw = _code_pools([a.float() if a.is_floating_point() else a
+                                 for a in args], "log8")
+        paged_attention(*codes, **kw)
+        before = dict(paged_attention.pool_launches)
+        assert torch.equal(paged_attention(*args), first)
+        kind = str(dtype).split(".")[-1]
+        assert paged_attention.pool_launches[kind] == before[kind] + 1
+
+
+@pytest.mark.parametrize("mode", ["int8", "log8"])
+def test_quantized_engine_on_card_matches_cpu_plain_path(dev, mode):
+    """The reduced model with ``kv_quant`` on the card (kernel A's code
+    variant on every attention call) and on the CPU (plain versions):
+    the same greedy tokens, f32 activations."""
+    import dataclasses
+
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    rng = np.random.default_rng(3)
+    shared = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 8))
+    reqs = [Request(rid=i, tokens=shared + tuple(
+        int(t) for t in rng.integers(0, cfg.vocab_size, 1 + i)),
+        max_new_tokens=6, arrival=i) for i in range(5)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        eng = PagedServeEngine(cfg, from_jax(_np(params), device=where),
+                               max_slots=3, max_len=32, page_size=4,
+                               prefill_chunk=4, decode_block=2,
+                               kv_quant=mode, device=where)
+        before = paged_attention.pool_launches[mode]
+        out[where] = {c.rid: c.tokens for c in eng.run(reqs)}
+        launched = paged_attention.pool_launches[mode] - before
+        assert (launched > 0) == (where == "cuda")
+    assert out["cpu"] == out["cuda"]
+
+
 # Every tile variant of the crossbar family (csrc/xbar_tiles.cuh) and its
 # ragged edges: small (M <= 16), mid, large (M >= 128); N = 11001 and
 # K = 2047 are multiples of no tile width and unaligned to 16 bytes (the
