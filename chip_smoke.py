@@ -311,7 +311,8 @@ def profiled(torch, fn, label: str) -> dict:
         wall = time.perf_counter() - t0
     ka = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ka) / 1e6
-    # the port's kernels, each summed over its template instances (tiles)
+    # the port's kernels, each summed over its template instances (tiles;
+    # kernel A's decode and chunk instances and its split merge)
     port = {}
     for name in PORT_KERNELS:
         ms = sum(e.self_device_time_total for e in ka
@@ -497,7 +498,7 @@ def paged_case(torch, timer, inputs: dict, q, kp, vp, qkw: dict, pool: str,
     against the plain version, timed beside it, SDPA and the bound.
     ``qkw`` carries the scales and grid of a code pool."""
     from repro_torch.core.quantization import kv_decode
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention, plan
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     num_pages, hkv, ps, d = kp.shape
     bt = inputs["bt"].clone()
@@ -567,9 +568,14 @@ def paged_case(torch, timer, inputs: dict, q, kp, vp, qkw: dict, pool: str,
               + 2 * n_pages * hkv * ps * per_pos)
     flops = 4 * d * pairs * q.shape[1]
     bms, by = bound(nbytes, flops)
-    case = {"q_len": q_len, "pool": pool, "max_abs_err": err, "ms": ms,
-            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bms, "bound_by": by, **extra}
+    pl = plan(b, hkv, q.shape[1] // hkv * q_len, nb, ps, d,
+              2 if qkw else (0 if kp.dtype == torch.float32 else 1),
+              torch.cuda.get_device_properties(0).multi_processor_count)
+    case = {"q_len": q_len, "pool": pool, "instance": pl.instance,
+            "rows": pl.rows, "splits": pl.splits,
+            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, **extra}
     if launches is not None:
         case["launches"] = launches
     print("[kernel A] " + json.dumps(case))

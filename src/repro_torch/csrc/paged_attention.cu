@@ -9,43 +9,80 @@
 //   out[b, h*G+g, j] = softmax_p(q . k_p / sqrt(D)) @ v over the logical
 //   positions p < lengths[b] + j, position p stored in page bt[b, p / ps]
 //   at offset p % ps.  Block-table entries outside [0, P) are unmapped
-//   sentinels: their pages are never read and contribute nothing.  A row
-//   with no valid position gives 0.
+//   sentinels: their pages (and scale rows) are never read and contribute
+//   nothing.  A row with no valid position gives 0.  Positions at or past
+//   lengths[b] + Q - 1 are never read.
 //
-// What bounds it on an H100: bytes.  Each K/V page is read once per
-// (sequence, KV head, row tile) and feeds every row of the tile with
-// 2*ps*D FLOPs per row, far below the card's ~20 FLOPs-per-byte f32 ridge.
-// The design keeps that traffic down and the card busy:
-//   * one block per (sequence, KV head, tile of ROWS query rows); the
-//     GQA group's rows (g*Q + j) share each page it loads into shared
-//     memory, so decode (Q = 1) reads each page once for all G heads;
-//   * scores as a small register-tiled product: each thread computes a
-//     2 rows x 2 page slots micro-tile from float4 shared-memory loads (one
-//     load per FMA instead of two), over rows padded by four floats so a
-//     quarter-warp's loads hit distinct banks; the head dim is a template
-//     parameter, so the loops unroll;
-//   * P @ V with one thread per head-dim column and all of the tile's rows
-//     in registers: each V element loaded once feeds ROWS independent FMAs,
-//     and each row's probabilities come four at a time as one float4;
-//   * the online softmax runs four threads per row (shuffle reductions);
-//   * pages are read in the pool's own dtype and widened to f32 in shared
-//     memory; the pool is never upcast as a whole;
-//   * int8 code pools (a third pool kind) are decoded as each page is
-//     staged, as the TPU kernel decodes one page tile in VMEM: four codes
-//     per 4-byte load, each value table[code + 128] * scale, the 256-entry
-//     f32 table (core.quantization.kv_table: sign * exp(fma) for log8, the
-//     code for int8) copied to shared memory once per block.  The table is
-//     built with the plain version's own formula, so the kernel and the
-//     plain version decode to the same floats and differ only in sum order;
-//     an 8-bit pool moves a quarter of an f32 pool's bytes plus 4 B of
-//     scale per (page, head, position).  A sentinel page's codes and scale
-//     row are never read;
-//   * when B*Hkv*tiles is too small to fill 132 SMs (decode), the page
-//     axis is split over gridDim.z and a second kernel merges the partial
-//     (max, sum, acc) triples (flash-decoding);
-//   * pages past lengths[b] + Q - 1 and sentinel pages are skipped.
-// IEEE f32 arithmetic throughout: FMA dot products, expf, no TF32.
-// This first version uses no cp.async/TMA pipelining (a later PR).
+// The rows of one (sequence b, KV head h) are r = g*Q + j (G = Hq / Hkv):
+// they share every K/V position, so a block owns a tile of those rows and
+// streams the positions once for the whole tile.  The wrapper
+// (kernels/paged_attention/ops.py, `plan`) picks one of two instances from
+// G*Q, and the number of splits of the position axis:
+//
+// Decode instance (G*Q <= 16: a decode tick, G = 8, Q = 1, has 8 rows).
+//   Bound by bytes: each K/V element feeds 2 FLOPs per row, and 8 rows are
+//   far below the card's ridge.  The work per sequence is small, so what
+//   costs time is latency; the design keeps many copies in flight and no
+//   block barrier in the main loop.  Rows = G*Q rounded up to 8 (R = 8 or
+//   16), 128 threads = 4 warps, each warp an independent streamer: warp w
+//   takes the block's position chunks w, w + 4, ... (8 positions each)
+//   through its own cp.async ring (2 stages for f32 pools, 3 for bf16, 4
+//   for 8-bit codes), so each warp needs only __syncwarp.  Scores: the D
+//   dims are split over lanes (a float4 each; D/4 lanes per position), q
+//   sits in registers, and the R partial dot products are summed over the
+//   lanes by a transposing butterfly (each step halves the values a lane
+//   carries: R - 1 + log2(D/4 / R) shuffles per position, not R log2(D/4)).
+//   The online softmax runs one lane per row; P @ V keeps R float4
+//   accumulators per lane.  At the end the four warps' (max, sum, acc)
+//   merge through shared memory in warp order.
+//
+// Chunk instance (G*Q > 16: chunk prefill, 512 rows at G = 8, Q = 64).
+//   Bound by operations: at 128 rows every K/V float feeds 256 FLOPs.  A
+//   block owns 64 rows (G*Q <= 64) or 128 rows, 256 threads: thread
+//   (rg, pg) = (tid / 16, tid % 16) computes RM = 4 or 8 rows x 4
+//   positions of Q.K^T (positions pg + 16c) from float4 loads of q and k
+//   laid out d-quad major ([D/4][rows or positions][4]): per four dims,
+//   RM + 4 float4 loads feed 16 RM FMAs (2.7 FMAs per shared float at RM =
+//   8).  The same thread owns RM rows x D/16 dims of P @ V (8 x 8 at D =
+//   128: each shared float feeds 4 FMAs), so the rows' running max, sum
+//   and correction stay in registers (16-lane shuffles) and P goes through
+//   shared memory only between the two halves of one warp (__syncwarp).
+//   K/V stream through a 2-stage cp.async ring of 64 positions: f32 pools
+//   land straight in the compute layouts, so a stage costs one barrier;
+//   bf16 and code pools land raw and are widened/decoded into an f32 tile
+//   (a second barrier).  With 128-row tiles a (sequence, KV head)'s
+//   positions are staged ceil(G*Q / 128) times (4 at G = 8, Q = 64).
+//   1 block per SM (225 KB of shared memory at f32, D = 128).
+//
+// Both instances:
+//   * stage positions, not pages: a stage's positions may span pages (any
+//     page size); each position's K (or V) row is one contiguous run of
+//     D elements of the pool, copied as 16-byte cp.async.cg pieces (a
+//     code pool's 4-byte scales with 4-byte copies), zero-filled for a
+//     sentinel page or past the block's range; the next step's block-table
+//     entries are read, and its copies issued, while this step computes;
+//   * raw bytes land in shared memory; bf16 widens and an int8 code
+//     decodes as table[code + 128] * scale only after, from a 256-entry
+//     f32 table (core.quantization.kv_table, built with the plain
+//     version's formula).  The f32 and code instances run one schedule and
+//     one sum order on the same floats, so a code pool gives the bits of
+//     an f32 pool holding its decoded values;
+//   * splits of the position axis: decode cuts the block table's width
+//     into the grid's splits (known before the length, so the first
+//     block-table reads go out with the length's); chunk sizes them on the
+//     device from every sequence's length (the host knows only the
+//     table's width): the fewest stages per split for which all busy
+//     blocks fit one wave of the card, so a long sequence gets more SMs
+//     than a short one and every SM about one block.  A split with no
+//     position writes nothing; the first block of each sequence records
+//     how many splits are busy, and a second launch merges their (max,
+//     sum, acc) triples in split order, one block per (sequence, KV head,
+//     row) (flash-decoding).  Merging in the same launch instead (the last
+//     block of a row tile to take an atomic ticket merges every split) was
+//     measured slower on an H100 in both instances, since one block then
+//     merges a whole tile alone;
+//   * IEEE f32 arithmetic throughout: fmaf dot products, expf; no TF32, no
+//     tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,374 +93,931 @@
 
 namespace {
 
-constexpr int ROWS = 32;      // query rows per block
-constexpr int THREADS = 128;  // = 4 * ROWS; one thread per column in P@V
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int TABLE = 256;    // int8 decode table entries (code + 128)
+constexpr int TABLE = 256;         // int8 decode table entries (code + 128)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int DEC_THREADS = 128;   // decode instance: 4 independent warps
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_SW = 8;          // positions per warp step
+constexpr int DEC_STEP = DEC_SW * DEC_WARPS;   // positions per block step
+
+constexpr int CH_THREADS = 256;    // chunk instance
+constexpr int CH_S = 64;           // positions per stage
+constexpr int CH_STAGES = 2;
+
+// Decode ring depth by pool element size (the same shared bytes per stage
+// buy more positions in flight for narrower pools).
+template <typename T>
+constexpr int dec_stages() {
+  return sizeof(T) == 4 ? 2 : sizeof(T) == 2 ? 3 : 4;
 }
 
-// T = float or __nv_bfloat16: fp pools; T = int8_t: code pools, decoded
-// through table[code + 128] * scale as each page is staged.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const float* __restrict__ q,
-                       const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages,
-                       const float* __restrict__ k_scale,  // int8 pools
-                       const float* __restrict__ v_scale,  // int8 pools
-                       const float* __restrict__ table,    // int8 pools
-                       const int* __restrict__ bt,
-                       const int* __restrict__ lengths,
-                       float* __restrict__ out,       // splits == 1
-                       float* __restrict__ part_acc,  // splits > 1
-                       float* __restrict__ part_ml,   // splits > 1
-                       int Hq, int Hkv, int Q, int P, int ps, int NB,
-                       int pages_per_split, float scale) {
-  constexpr int DP = D + 4;             // padded, 16-byte aligned rows
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // ROWS * DP
-  float* k_s = q_s + ROWS * DP;         // ps * DP
-  float* v_s = k_s + ps * DP;           // ps * D
-  float* p_s = v_s + ps * D;            // ROWS * ps
-  float* m_s = p_s + ROWS * ps;         // ROWS running max
-  float* l_s = m_s + ROWS;              // ROWS running sum
-  float* c_s = l_s + ROWS;              // ROWS correction factor
-  float* t_s = c_s + ROWS;              // TABLE decode entries (int8 pools)
-  constexpr bool kCodes = std::is_same<T, int8_t>::value;
+struct Args {
+  const float* q;
+  const void* k;
+  const void* v;
+  const float* k_scale;   // code pools
+  const float* v_scale;
+  const float* table;
+  const int* bt;
+  const int* lengths;
+  float* out;
+  float* part_acc;        // splits > 1: (B*Hkv, splits, G*Q, D)
+  float* part_ml;         //             (B*Hkv, splits, G*Q, 2)
+  int* busy;              //             (B,): busy splits per sequence
+  int Hq, Hkv, Q, P, ps, NB;
+  int splits;             // grid splits of the position axis
+  int wave;               // chunk: blocks the card runs at once
+  float scale;
+};
 
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;            // b * Hkv + h
-  const int b = bh / Hkv;
-  const int h = bh % Hkv;
-  const int G = Hq / Hkv;
-  const int n_rows = G * Q;             // rows of this (b, h): r = g*Q + j
-  const int r0 = blockIdx.y * ROWS;
-  const int rows_here = min(ROWS, n_rows - r0);
+// ---- cp.async -------------------------------------------------------------
+
+// 16 bytes (or, with ok false, 16 zero bytes and no read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- pool rows --------------------------------------------------------------
+
+// The pool row (index of a D-element row, P*Hkv*ps < 2^31) of logical
+// position `pos` of (b, h) on block `blk` (row_of: read from the block
+// table), or -1 for a position past `limit`, past the block table, or on a
+// sentinel page.
+__device__ __forceinline__ int pool_row(const Args& a, int h, int pos,
+                                        int limit, int blk) {
+  return pos < limit && blk >= 0 && blk < a.P
+             ? (blk * a.Hkv + h) * a.ps + pos % a.ps
+             : -1;
+}
+
+__device__ __forceinline__ int row_of(const Args& a, int b, int h, int pos,
+                                      int limit) {
+  const int page = pos / a.ps;
+  return pool_row(a, h, pos, limit,
+                  page < a.NB ? __ldg(a.bt + (size_t)b * a.NB + page) : -1);
+}
+
+// Four consecutive elements (element e, a multiple of 4) of a raw row in
+// shared memory, widened to f32; a code row decodes through the table.
+template <typename T>
+__device__ __forceinline__ float4 load4(const unsigned char* row, int e,
+                                        const float* tab, float sc) {
+  if constexpr (std::is_same<T, float>::value) {
+    return *reinterpret_cast<const float4*>(row + 4 * e);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const uint2 u = *reinterpret_cast<const uint2*>(row + 2 * e);
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  } else {
+    const char4 c = *reinterpret_cast<const char4*>(row + e);
+    return make_float4(tab[c.x + 128] * sc, tab[c.y + 128] * sc,
+                       tab[c.z + 128] * sc, tab[c.w + 128] * sc);
+  }
+}
+
+// ---- partial triples --------------------------------------------------------
+
+// Element d of row `row` merged over the partials of the first `busy`
+// splits (those that hold positions), in split order; eight splits' loads
+// go out at once.
+__device__ __forceinline__ float merge_splits(const Args& a, int bh, int row,
+                                              int d, int D, int n_rows,
+                                              int busy) {
+  constexpr int U = 8;
+  const size_t p0 = (size_t)bh * a.splits * n_rows + row;
+  float m_all = -INFINITY;
+  for (int s0 = 0; s0 < busy; s0 += U) {
+    float m[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      m[u] = s0 + u < busy
+                 ? __ldcg(a.part_ml + (p0 + (size_t)(s0 + u) * n_rows) * 2)
+                 : -INFINITY;
+#pragma unroll
+    for (int u = 0; u < U; ++u) m_all = fmaxf(m_all, m[u]);
+  }
+  const float m_safe = isfinite(m_all) ? m_all : 0.0f;
+  float l_all = 0.0f, acc = 0.0f;
+  for (int s0 = 0; s0 < busy; s0 += U) {
+    float m[U], l[U], x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t pr = p0 + (size_t)(s0 + u) * n_rows;
+      const bool in = s0 + u < busy;
+      m[u] = in ? __ldcg(a.part_ml + pr * 2) : -INFINITY;
+      l[u] = in ? __ldcg(a.part_ml + pr * 2 + 1) : 0.0f;
+      x[u] = in ? __ldcg(a.part_acc + pr * D + d) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s0 + u < busy) {
+        const float e = isfinite(m[u]) ? expf(m[u] - m_safe) : 0.0f;
+        l_all = fmaf(l[u], e, l_all);
+        acc = fmaf(x[u], e, acc);
+      }
+    }
+  }
+  return acc / (l_all == 0.0f ? 1.0f : l_all);
+}
+
+// Decode: the splits that hold positions of a sequence of length `len`
+// (a split past the length does nothing and writes nothing).  The table's
+// width is cut into the grid's splits of whole block steps.
+__device__ __forceinline__ int decode_busy(const Args& a, int len) {
+  const int nuw = (a.NB * a.ps + DEC_STEP - 1) / DEC_STEP;
+  const int nc = (len + a.Q - 1 + DEC_SW - 1) / DEC_SW;   // warp chunks
+  int busy = 0;
+  while (busy < a.splits && busy * nuw / a.splits * DEC_WARPS < nc) ++busy;
+  return busy;
+}
+
+// Merge the busy splits' partials in a second launch: one block per
+// (b*Hkv + h, row); the first block of each sequence recorded its number
+// of busy splits.
+__global__ void paged_attention_kernel_combine(Args a, int D) {
+  const int bh = blockIdx.x, row = blockIdx.y;
+  const int b = bh / a.Hkv, h = bh % a.Hkv, G = a.Hq / a.Hkv;
+  const int n_rows = G * a.Q;
+  const int busy = __ldg(a.busy + b);
+  const size_t orow =
+      ((size_t)b * a.Hq + (size_t)h * G) * a.Q * D + (size_t)row * D;
+  for (int d = threadIdx.x; d < D; d += blockDim.x)
+    a.out[orow + d] = merge_splits(a, bh, row, d, D, n_rows, busy);
+}
+
+// ---- decode instance ------------------------------------------------------
+
+// Sum each of R values over the LD lanes of a lane group (lane bits below
+// LD), transposing as it goes: each step sends half of the values a lane
+// still carries to its partner and keeps the other half, so a lane ends
+// with max(1, R / LD) sums, of rows roff, roff + 1, ...  M is the step's
+// lane mask, N the number of values carried into it.
+template <int R, int M, int N>
+struct Butterfly {
+  static constexpr int NN = N > 1 ? N / 2 : 1;       // carried out
+  using Next = Butterfly<R, M / 2, NN>;
+  static constexpr int NL = Next::NL;
+  // lane bits summed without transposing: a lane writes its rows iff 0
+  static constexpr int PLAIN = (N > 1 ? 0 : M) | Next::PLAIN;
+  __device__ __forceinline__ static void run(float (&v)[R], int lane,
+                                             int& roff) {
+    if constexpr (M >= 1) {
+      if constexpr (N > 1) {
+        constexpr int H = N / 2;
+        const bool upper = (lane & M) != 0;
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+          const float send = upper ? v[i] : v[i + H];
+          const float keep = upper ? v[i + H] : v[i];
+          v[i] = keep + __shfl_xor_sync(FULL, send, M);
+        }
+        if (upper) roff += H;
+      } else {
+        v[0] += __shfl_xor_sync(FULL, v[0], M);
+      }
+      Next::run(v, lane, roff);
+    }
+  }
+};
+
+template <int R, int N>
+struct Butterfly<R, 0, N> {
+  static constexpr int NL = N;
+  static constexpr int PLAIN = 0;
+  __device__ __forceinline__ static void run(float (&)[R], int, int&) {}
+};
+
+template <typename T, int D, int R>
+struct DecodeLayout {
+  static constexpr int E = sizeof(T);
+  static constexpr bool kCodes = std::is_same<T, int8_t>::value;
+  static constexpr int NST = dec_stages<T>();
+  static constexpr int ROWB = D * E;                 // bytes per position
+  static constexpr int SLOT_K = 0;
+  static constexpr int SLOT_V = DEC_SW * ROWB;
+  static constexpr int SLOT_KS = 2 * DEC_SW * ROWB;  // code pools
+  static constexpr int SLOT_VS = SLOT_KS + DEC_SW * 4;
+  static constexpr int SLOT_OK = SLOT_KS + (kCodes ? 2 * DEC_SW * 4 : 0);
+  static constexpr int SLOT = SLOT_OK + DEC_SW * 4;
+  static constexpr int SC = NST * SLOT;              // scores [SW][R]
+  static constexpr int CR = SC + DEC_SW * R * 4;     // correction [R]
+  static constexpr int WARP = CR + R * 4;
+  static constexpr int TAB = kCodes ? TABLE * 4 : 0;
+  static constexpr int RING = TAB + DEC_WARPS * WARP;
+  static constexpr int MERGE = DEC_WARPS * R * (D + 2) * 4;
+  static constexpr int SMEM = RING > MERGE ? RING : MERGE;
+};
+
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(DEC_THREADS)
+paged_attention_kernel_decode(Args a) {
+  using L = DecodeLayout<T, D, R>;
+  constexpr int LD = D / 4;           // lanes per position (a float4 each)
+  constexpr int PL = 32 / LD;         // positions per warp step
+  constexpr int CPR = L::ROWB / 16;   // 16-byte pieces per position row
+  constexpr int NST = L::NST;
+  using BF = Butterfly<R, LD / 2, R>;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pl = lane / LD, ld = lane % LD;
+  const int bh = blockIdx.x, b = bh / a.Hkv, h = bh % a.Hkv;
+  const int G = a.Hq / a.Hkv, Q = a.Q, n_rows = G * Q;
+  // this split's block steps (4 warp chunks of 8 positions each) of the
+  // table's width: known before the length, so the first block-table
+  // reads go out with the length's
   const int split = blockIdx.z;
-  const int len = lengths[b];
-
-  // rows of (b, h) are contiguous in q/out: (b*Hq + h*G)*Q*D + r*D
-  const size_t row_base = ((size_t)b * Hq + (size_t)h * G) * Q * D;
-  for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-    const int r = idx / D;
-    const int d = idx % D;
-    q_s[r * DP + d] = (r < rows_here)
-                          ? q[row_base + (size_t)(r0 + r) * D + d] : 0.0f;
+  const int nuw = (a.NB * a.ps + DEC_STEP - 1) / DEC_STEP;
+  const int c0 = split * nuw / a.splits * DEC_WARPS;
+  const int c1w = (split + 1) * nuw / a.splits * DEC_WARPS;
+  int pre[NST - 1];                   // the first steps' block-table rows
+#pragma unroll
+  for (int n = 0; n < NST - 1; ++n) {
+    const int pos = (c0 + warp + DEC_WARPS * n) * DEC_SW + lane;
+    const int page = pos / a.ps;
+    pre[n] = lane < DEC_SW && page < a.NB
+                 ? __ldg(a.bt + (size_t)b * a.NB + page) : -1;
   }
-  for (int r = tid; r < ROWS; r += THREADS) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.0f;
-  }
-  if constexpr (kCodes) {
-    for (int i = tid; i < TABLE; i += THREADS) t_s[i] = table[i];
-  }
-  float acc[ROWS];
+  const int len = __ldg(a.lengths + b);
+  const int limit = len + Q - 1;      // no row attends at or past this
+  const int nc = (limit + DEC_SW - 1) / DEC_SW;       // warp chunks
+  if (split == 0 && h == 0 && tid == 0 && a.splits > 1)
+    a.busy[b] = decode_busy(a, len);
+  if (c0 >= nc) return;               // past the length: not a busy split
+  const int c1 = min(nc, c1w);
+  const int mine = c1 - c0 > warp ? (c1 - c0 - warp + DEC_WARPS - 1) /
+                                        DEC_WARPS : 0;
+
+  float* tab = reinterpret_cast<float*>(smem);
+  unsigned char* wbase = smem + L::TAB + warp * L::WARP;
+  float* sc = reinterpret_cast<float*>(wbase + L::SC);
+  float* cr = reinterpret_cast<float*>(wbase + L::CR);
+  const unsigned char* kpool = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vpool = static_cast<const unsigned char*>(a.v);
+
+  // warp-step n: positions (c0 + warp + 4n) * SW .. + SW into slot
+  // n % NST; lane p < SW looks up position p's row, the others take it by
+  // shuffle, so the step's block-table reads are in flight together
+  // (`blk`: this lane's block-table entry, read before the length came,
+  // or LOOKUP to read it now)
+  constexpr int PIECES = DEC_SW * CPR;
+  constexpr int LOOKUP = -2;
+  auto issue = [&](int n, int blk) {
+    if (n < mine) {
+      unsigned char* slot = wbase + (n % NST) * L::SLOT;
+      const int p0 = (c0 + warp + DEC_WARPS * n) * DEC_SW;
+      int mine_row = -1;
+      if (lane < DEC_SW)
+        mine_row = blk == LOOKUP ? row_of(a, b, h, p0 + lane, limit)
+                                 : pool_row(a, h, p0 + lane, limit, blk);
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-
-  const int i_begin = split * pages_per_split;
-  const int i_end = min(NB, i_begin + pages_per_split);
-  const int pos_limit = len + Q - 1;    // no row attends at or past this
-  const size_t page_stride = (size_t)Hkv * ps * D;
-  const int rh = (rows_here + 1) / 2;   // score micro-tile: row half
-  const int sh = (ps + 1) / 2;          // and slot half
-  __syncthreads();
-
-  for (int i = i_begin; i < i_end; ++i) {
-    if (i * ps >= pos_limit) break;     // past every row's length
-    const int blk = bt[(size_t)b * NB + i];
-    if (blk < 0 || blk >= P) continue;  // unmapped sentinel: never read
-    const size_t base = (size_t)blk * page_stride + (size_t)h * ps * D;
-    if constexpr (kCodes) {
-      // four codes per load (D % 4 == 0, so they share a position); the
-      // page's base is a multiple of D bytes, so the char4 loads align
-      const size_t srow = ((size_t)blk * Hkv + h) * ps;
-      const char4* kc = reinterpret_cast<const char4*>(k_pages + base);
-      const char4* vc = reinterpret_cast<const char4*>(v_pages + base);
-      for (int i4 = tid; i4 < ps * D / 4; i4 += THREADS) {
-        const int slot = (i4 * 4) / D;
-        const int col = (i4 * 4) % D;
-        const float ks = k_scale[srow + slot];
-        const float vs = v_scale[srow + slot];
-        const char4 kq = kc[i4];
-        const char4 vq = vc[i4];
-        *reinterpret_cast<float4*>(k_s + slot * DP + col) = make_float4(
-            t_s[kq.x + 128] * ks, t_s[kq.y + 128] * ks,
-            t_s[kq.z + 128] * ks, t_s[kq.w + 128] * ks);
-        *reinterpret_cast<float4*>(v_s + i4 * 4) = make_float4(
-            t_s[vq.x + 128] * vs, t_s[vq.y + 128] * vs,
-            t_s[vq.z + 128] * vs, t_s[vq.w + 128] * vs);
-      }
-    } else {
-      for (int idx = tid; idx < ps * D; idx += THREADS) {
-        k_s[(idx / D) * DP + idx % D] = to_f32(k_pages[base + idx]);
-        v_s[idx] = to_f32(v_pages[base + idx]);
-      }
-    }
-    __syncthreads();
-
-    // scores: thread t owns rows (ra, ra + rh) x slots (ja, ja + sh)
-    for (int t = tid; t < rh * sh; t += THREADS) {
-      const int ra = t / sh;
-      const int ja = t % sh;
-      const int rb = min(ra + rh, rows_here - 1);
-      const int jb = min(ja + sh, ps - 1);
-      const float4* qa = reinterpret_cast<const float4*>(q_s + ra * DP);
-      const float4* qb = reinterpret_cast<const float4*>(q_s + rb * DP);
-      const float4* ka = reinterpret_cast<const float4*>(k_s + ja * DP);
-      const float4* kb = reinterpret_cast<const float4*>(k_s + jb * DP);
-      float s00 = 0.0f, s01 = 0.0f, s10 = 0.0f, s11 = 0.0f;
-#pragma unroll 8
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 a = qa[d4], b = qb[d4], x = ka[d4], y = kb[d4];
-        s00 = fmaf(a.x, x.x, s00); s00 = fmaf(a.y, x.y, s00);
-        s00 = fmaf(a.z, x.z, s00); s00 = fmaf(a.w, x.w, s00);
-        s01 = fmaf(a.x, y.x, s01); s01 = fmaf(a.y, y.y, s01);
-        s01 = fmaf(a.z, y.z, s01); s01 = fmaf(a.w, y.w, s01);
-        s10 = fmaf(b.x, x.x, s10); s10 = fmaf(b.y, x.y, s10);
-        s10 = fmaf(b.z, x.z, s10); s10 = fmaf(b.w, x.w, s10);
-        s11 = fmaf(b.x, y.x, s11); s11 = fmaf(b.y, y.y, s11);
-        s11 = fmaf(b.z, y.z, s11); s11 = fmaf(b.w, y.w, s11);
-      }
-      const float sv[4] = {s00, s01, s10, s11};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = (u < 2) ? ra : ra + rh;
-        const int jj = (u & 1) ? ja + sh : ja;
-        if (r < rows_here && jj < ps) {
-          const int qoff = (r0 + r) % Q;
-          p_s[r * ps + jj] =
-              (i * ps + jj) < len + qoff ? sv[u] * scale : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online softmax: four threads per row, shuffle reductions
-    {
-      const int r = tid >> 2;
-      const int sub = tid & 3;
-      const bool live = r < rows_here;
-      float mx = -INFINITY;
-      if (live)
-        for (int jj = sub; jj < ps; jj += 4) mx = fmaxf(mx, p_s[r * ps + jj]);
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
-      float sum = 0.0f;
-      if (live) {
-        for (int jj = sub; jj < ps; jj += 4) {
-          const float p = expf(p_s[r * ps + jj] - m_safe);  // -inf -> 0
-          p_s[r * ps + jj] = p;
-          sum += p;
-        }
-      }
-      sum += __shfl_xor_sync(FULL, sum, 1);
-      sum += __shfl_xor_sync(FULL, sum, 2);
-      if (live && sub == 0) {
-        const float corr = isfinite(m_old) ? expf(m_old - m_safe) : 0.0f;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // P @ V: thread = head-dim column; each V element feeds every row
-    if (tid < D) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        if (r < rows_here) acc[r] *= c_s[r];
-      int jj = 0;
-      if ((ps & 3) == 0) {
-        for (; jj < ps; jj += 4) {
-          const float v0 = v_s[(jj + 0) * D + tid];
-          const float v1 = v_s[(jj + 1) * D + tid];
-          const float v2 = v_s[(jj + 2) * D + tid];
-          const float v3 = v_s[(jj + 3) * D + tid];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            if (r < rows_here) {
-              const float4 p =
-                  *reinterpret_cast<const float4*>(p_s + r * ps + jj);
-              float a = fmaf(p.x, v0, acc[r]);
-              a = fmaf(p.y, v1, a);
-              a = fmaf(p.z, v2, a);
-              acc[r] = fmaf(p.w, v3, a);
+      for (int k = 0; k < (PIECES + 31) / 32; ++k) {
+        const int i = lane + 32 * k;
+        const int p = min(i / CPR, DEC_SW - 1), piece = i % CPR;
+        const int row = __shfl_sync(FULL, mine_row, p);
+        if (i < PIECES) {
+          const bool ok = row >= 0;
+          const size_t off = ok ? (size_t)row * L::ROWB + piece * 16 : 0;
+          cp_async16(slot + L::SLOT_K + p * L::ROWB + piece * 16,
+                     kpool + off, ok);
+          cp_async16(slot + L::SLOT_V + p * L::ROWB + piece * 16,
+                     vpool + off, ok);
+          if (piece == 0) {
+            reinterpret_cast<int*>(slot + L::SLOT_OK)[p] = ok;
+            if constexpr (L::kCodes) {
+              cp_async4(slot + L::SLOT_KS + p * 4, a.k_scale + (ok ? row : 0),
+                        ok);
+              cp_async4(slot + L::SLOT_VS + p * 4, a.v_scale + (ok ? row : 0),
+                        ok);
             }
           }
         }
       }
-      for (; jj < ps; ++jj) {           // page sizes not a multiple of 4
-        const float v = v_s[jj * D + tid];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          if (r < rows_here) acc[r] = fmaf(p_s[r * ps + jj], v, acc[r]);
-      }
     }
-    __syncthreads();                    // k_s/v_s/p_s reused next page
+    cp_async_commit();                // one group per step, empty or not
+  };
+
+#pragma unroll
+  for (int n = 0; n < NST - 1; ++n) issue(n, pre[n]);
+  if constexpr (L::kCodes) {
+    for (int i = tid; i < TABLE; i += DEC_THREADS) tab[i] = a.table[i];
   }
 
-  if (part_acc == nullptr) {
-    if (tid < D) {
+  // q rows of (b, h) are contiguous: (b*Hq + h*G)*Q*D + r*D
+  const size_t row_base = ((size_t)b * a.Hq + (size_t)h * G) * Q * D;
+  float4 qv[R];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (r < rows_here) {
-          const float l = l_s[r];
-          out[row_base + (size_t)(r0 + r) * D + tid] =
-              acc[r] / (l == 0.0f ? 1.0f : l);
+  for (int r = 0; r < R; ++r)
+    qv[r] = r < n_rows ? *reinterpret_cast<const float4*>(
+                             a.q + row_base + (size_t)r * D + 4 * ld)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float m_run = -INFINITY, l_run = 0.0f;     // lane r < R: row r
+  if constexpr (L::kCodes) __syncthreads();  // the table
+
+  for (int n = 0; n < mine; ++n) {
+    issue(n + NST - 1, LOOKUP);
+    cp_async_wait<NST - 1>();
+    __syncwarp();
+    const unsigned char* slot = wbase + (n % NST) * L::SLOT;
+    const int* okp = reinterpret_cast<const int*>(slot + L::SLOT_OK);
+    const float* ksc = reinterpret_cast<const float*>(slot + L::SLOT_KS);
+    const float* vsc = reinterpret_cast<const float*>(slot + L::SLOT_VS);
+    const int p0 = (c0 + warp + DEC_WARPS * n) * DEC_SW;
+
+    // scores: lane group pl takes position it*PL + pl
+#pragma unroll
+    for (int it = 0; it < DEC_SW / PL; ++it) {
+      const int p = it * PL + pl;
+      const float4 k4 = load4<T>(slot + L::SLOT_K + p * L::ROWB, 4 * ld, tab,
+                                 L::kCodes ? ksc[p] : 1.0f);
+      float part[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        part[r] = fmaf(qv[r].w, k4.w,
+                       fmaf(qv[r].z, k4.z, fmaf(qv[r].y, k4.y,
+                                                qv[r].x * k4.x)));
+      int roff = 0;
+      BF::run(part, ld, roff);
+      if ((ld & BF::PLAIN) == 0) {
+        const bool ok = okp[p] != 0;
+#pragma unroll
+        for (int i = 0; i < BF::NL; ++i) {
+          const int r = roff + i;
+          const bool live = ok && r < n_rows && p0 + p < len + r % Q;
+          sc[p * R + r] = live ? part[i] * a.scale : -INFINITY;
         }
       }
     }
-    return;
-  }
-  // partial triple of this split: acc (un-normalized), m, l
-  const int splits = gridDim.z;
-  const size_t prow = ((size_t)bh * splits + split) * n_rows;
-  if (tid < D) {
+    __syncwarp();
+
+    // online softmax: lane r owns row r
+    if (lane < R) {
+      float mx = -INFINITY;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      if (r < rows_here) part_acc[(prow + r0 + r) * D + tid] = acc[r];
-  }
-  for (int r = tid; r < rows_here; r += THREADS) {
-    part_ml[(prow + r0 + r) * 2 + 0] = m_s[r];
-    part_ml[(prow + r0 + r) * 2 + 1] = l_s[r];
-  }
-}
-
-// Merge the per-split partials: one block per (b*Hkv + h, row).
-__global__ void paged_attention_combine(const float* __restrict__ part_acc,
-                                        const float* __restrict__ part_ml,
-                                        float* __restrict__ out, int Hq,
-                                        int Hkv, int Q, int D, int splits) {
-  const int bh = blockIdx.x;
-  const int row = blockIdx.y;
-  const int b = bh / Hkv;
-  const int h = bh % Hkv;
-  const int G = Hq / Hkv;
-  const int n_rows = G * Q;
-  float m_all = -INFINITY;
-  for (int s = 0; s < splits; ++s)
-    m_all = fmaxf(m_all, part_ml[(((size_t)bh * splits + s) * n_rows + row) * 2]);
-  const float m_safe = isfinite(m_all) ? m_all : 0.0f;
-  float l_all = 0.0f;
-  for (int s = 0; s < splits; ++s) {
-    const size_t pr = ((size_t)bh * splits + s) * n_rows + row;
-    const float m = part_ml[pr * 2];
-    if (isfinite(m)) l_all += part_ml[pr * 2 + 1] * expf(m - m_safe);
-  }
-  const float denom = l_all == 0.0f ? 1.0f : l_all;
-  const size_t orow = ((size_t)b * Hq + (size_t)h * G) * Q * D + (size_t)row * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.0f;
-    for (int s = 0; s < splits; ++s) {
-      const size_t pr = ((size_t)bh * splits + s) * n_rows + row;
-      const float m = part_ml[pr * 2];
-      if (isfinite(m)) a = fmaf(part_acc[pr * D + d], expf(m - m_safe), a);
+      for (int p = 0; p < DEC_SW; ++p) mx = fmaxf(mx, sc[p * R + lane]);
+      const float m_new = fmaxf(m_run, mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
+      float sum = 0.0f;
+#pragma unroll
+      for (int p = 0; p < DEC_SW; ++p) {
+        const float e = expf(sc[p * R + lane] - m_safe);   // -inf -> 0
+        sc[p * R + lane] = e;
+        sum += e;
+      }
+      const float corr = isfinite(m_run) ? expf(m_run - m_safe) : 0.0f;
+      l_run = l_run * corr + sum;
+      m_run = m_new;
+      cr[lane] = corr;
     }
-    out[orow + d] = a / denom;
+    __syncwarp();
+
+    // P @ V: lane (pl, ld) accumulates dims 4ld.. over positions it*PL + pl
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float c = cr[r];
+      acc[r].x *= c; acc[r].y *= c; acc[r].z *= c; acc[r].w *= c;
+    }
+#pragma unroll
+    for (int it = 0; it < DEC_SW / PL; ++it) {
+      const int p = it * PL + pl;
+      const float4 v4 = load4<T>(slot + L::SLOT_V + p * L::ROWB, 4 * ld, tab,
+                                 L::kCodes ? vsc[p] : 1.0f);
+#pragma unroll
+      for (int r4 = 0; r4 < R / 4; ++r4) {
+        const float4 pr = *reinterpret_cast<const float4*>(sc + p * R + 4 * r4);
+        const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float4& o = acc[4 * r4 + u];
+          o.x = fmaf(pv[u], v4.x, o.x);
+          o.y = fmaf(pv[u], v4.y, o.y);
+          o.z = fmaf(pv[u], v4.z, o.z);
+          o.w = fmaf(pv[u], v4.w, o.w);
+        }
+      }
+    }
+    __syncwarp();                     // the slot is refilled next step
+  }
+  cp_async_wait<0>();
+
+  // sum the lane groups' accumulators (positions pl, pl + PL, ...)
+#pragma unroll
+  for (int m = LD; m < 32; m <<= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[r].x += __shfl_xor_sync(FULL, acc[r].x, m);
+      acc[r].y += __shfl_xor_sync(FULL, acc[r].y, m);
+      acc[r].z += __shfl_xor_sync(FULL, acc[r].z, m);
+      acc[r].w += __shfl_xor_sync(FULL, acc[r].w, m);
+    }
+  }
+
+  // merge the four warps' triples in warp order, through shared memory
+  __syncthreads();                    // every warp is done with its ring
+  float* wacc = reinterpret_cast<float*>(smem);   // [warps][R][D]
+  float* wml = wacc + DEC_WARPS * R * D;          // [warps][R][2]
+  if (pl == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      *reinterpret_cast<float4*>(wacc + (warp * R + r) * D + 4 * ld) = acc[r];
+  }
+  if (lane < R) {
+    wml[(warp * R + lane) * 2] = m_run;
+    wml[(warp * R + lane) * 2 + 1] = l_run;
+  }
+  __syncthreads();
+  const bool whole = a.splits == 1;
+  for (int i = tid; i < n_rows * D; i += DEC_THREADS) {
+    const int r = i / D, d = i % D;
+    float m_all = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w)
+      m_all = fmaxf(m_all, wml[(w * R + r) * 2]);
+    const float m_safe = isfinite(m_all) ? m_all : 0.0f;
+    float l_all = 0.0f, o = 0.0f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float m = wml[(w * R + r) * 2];
+      if (isfinite(m)) {
+        const float e = expf(m - m_safe);
+        l_all = fmaf(wml[(w * R + r) * 2 + 1], e, l_all);
+        o = fmaf(wacc[(w * R + r) * D + d], e, o);
+      }
+    }
+    if (whole) {
+      a.out[row_base + (size_t)r * D + d] = o / (l_all == 0.0f ? 1.0f : l_all);
+    } else {
+      const size_t pr = ((size_t)bh * a.splits + split) * n_rows + r;
+      a.part_acc[pr * D + d] = o;
+      if (d == 0) {
+        a.part_ml[pr * 2] = m_all;
+        a.part_ml[pr * 2 + 1] = l_all;
+      }
+    }
   }
 }
 
-size_t smem_bytes(int D, int ps, bool codes) {
-  return sizeof(float) *
-         ((size_t)ROWS * (D + 4) + (size_t)ps * (D + 4) + (size_t)ps * D +
-          (size_t)ROWS * ps + 3 * ROWS + (codes ? TABLE : 0));
+// ---- chunk instance ---------------------------------------------------------
+
+// Stages one chunk split may take: the fewest for which every (sequence,
+// KV head, row tile) together takes at most `a.wave` splits (one wave of
+// the card; each split is one block), from every sequence's length.  Lane
+// k tries k + 1 stages and a ballot picks the fewest that fit (past 32,
+// the stages that spread all of them over one wave); every warp computes
+// it alike, so the whole grid agrees without a barrier.
+__device__ int chunk_steps(const Args& a, int B, int tiles) {
+  const int per = (threadIdx.x & 31) + 1;
+  int blocks = 0, most = 0, total = 0;
+  for (int i = 0; i < B; ++i) {
+    const int n = (__ldg(a.lengths + i) + a.Q - 1 + CH_S - 1) / CH_S;
+    blocks += min(a.splits, (n + per - 1) / per);
+    most = max(most, n);
+    total += n;
+  }
+  const unsigned fits =
+      __ballot_sync(FULL, blocks * a.Hkv * tiles <= a.wave || per >= most);
+  if (fits) return __ffs(fits);
+  return max(33, (total * a.Hkv * tiles + a.wave - 1) / a.wave);
+}
+
+template <typename T, int D, int RM>
+struct ChunkLayout {
+  static constexpr int E = sizeof(T);
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr bool kCodes = std::is_same<T, int8_t>::value;
+  static constexpr int RT = 16 * RM;                 // rows per block
+  static constexpr int ROWB = D * E;
+  static constexpr int PT = RT + 4;                  // padded P row
+  // shared memory, bytes: Qc [D/4][RT][4] | ring | (Kc, Vc) | Pt | table
+  static constexpr int Q_OFF = 0;
+  static constexpr int RING_OFF = Q_OFF + RT * D * 4;
+  static constexpr int SLOT_K = 0;                   // f32: Kc layout
+  static constexpr int SLOT_V = CH_S * ROWB;
+  static constexpr int SLOT_KS = 2 * CH_S * ROWB;
+  static constexpr int SLOT_VS = SLOT_KS + CH_S * 4;
+  static constexpr int SLOT_OK = SLOT_KS + (kCodes ? 2 * CH_S * 4 : 0);
+  static constexpr int SLOT = SLOT_OK + CH_S * 4;
+  static constexpr int KC_OFF = RING_OFF + CH_STAGES * SLOT;
+  static constexpr int VC_OFF = KC_OFF + (kF32 ? 0 : CH_S * D * 4);
+  static constexpr int PT_OFF = VC_OFF + (kF32 ? 0 : CH_S * D * 4);
+  static constexpr int TAB_OFF = PT_OFF + CH_S * PT * 4;
+  static constexpr int SMEM = TAB_OFF + (kCodes ? TABLE * 4 : 0);
+};
+
+template <typename T, int D, int RM>
+__global__ void __launch_bounds__(CH_THREADS, 1)
+paged_attention_kernel_chunk(Args a) {
+  using L = ChunkLayout<T, D, RM>;
+  constexpr int RT = L::RT, DQ = D / 4, S = CH_S;
+  constexpr int CPR = L::ROWB / 16;
+  constexpr int VW = D / 16 >= 4 ? 4 : D / 16;  // P@V: dims per vector
+  constexpr int NV = D / (16 * VW);             // vectors per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, rg = tid >> 4, pg = tid & 15;
+  const int bh = blockIdx.x, b = bh / a.Hkv, h = bh % a.Hkv;
+  const int G = a.Hq / a.Hkv, Q = a.Q, n_rows = G * Q;
+  const int tile = blockIdx.y, r0 = tile * RT;
+  const int rows_here = min(RT, n_rows - r0);
+  const int split = blockIdx.z;
+  const int len = __ldg(a.lengths + b);
+  const int limit = len + Q - 1;
+  const int nst = (limit + S - 1) / S;
+  const int per = chunk_steps(a, gridDim.x / a.Hkv, gridDim.y);
+  const int nsp = min(a.splits, (nst + per - 1) / per);   // busy splits
+  if (split == 0 && h == 0 && tile == 0 && tid == 0 && a.splits > 1)
+    a.busy[b] = nsp;
+  if (split >= nsp) return;           // not a busy split
+  const size_t prow = ((size_t)bh * a.splits + split) * n_rows;
+  const int s0 = split * nst / nsp, s1 = (split + 1) * nst / nsp;
+
+  float* qc = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* pt = reinterpret_cast<float*>(smem + L::PT_OFF);
+  float* tab = reinterpret_cast<float*>(smem + L::TAB_OFF);
+  const unsigned char* kpool = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vpool = static_cast<const unsigned char*>(a.v);
+
+  // stage t: positions t*S .. t*S + S into ring slot `slot_i`; a thread
+  // looks up the rows of its pieces first (`lookup`, the block-table reads
+  // in flight together), and issues the copies later (`issue`)
+  constexpr int PIECES = S * CPR;
+  constexpr int ITERS = (PIECES + CH_THREADS - 1) / CH_THREADS;
+  int rows[ITERS];
+  auto lookup = [&](int t) {
+#pragma unroll
+    for (int k = 0; k < ITERS; ++k) {
+      const int i = tid + CH_THREADS * k;
+      rows[k] = i < PIECES ? row_of(a, b, h, t * S + i / CPR, limit) : -1;
+    }
+  };
+  auto issue = [&](int slot_i) {
+    unsigned char* slot = smem + L::RING_OFF + slot_i * L::SLOT;
+#pragma unroll
+    for (int k = 0; k < ITERS; ++k) {
+      const int i = tid + CH_THREADS * k;
+      if (i >= PIECES) continue;
+      const int p = i / CPR, piece = i % CPR;
+      const bool ok = rows[k] >= 0;
+      const size_t off = ok ? (size_t)rows[k] * L::ROWB + piece * 16 : 0;
+      // f32 K lands d-quad major ([D/4][S][4]); the rest as rows
+      const int kdst = L::kF32 ? (piece * S + p) * 16 : p * L::ROWB + piece * 16;
+      cp_async16(slot + L::SLOT_K + kdst, kpool + off, ok);
+      cp_async16(slot + L::SLOT_V + p * L::ROWB + piece * 16, vpool + off, ok);
+      if (piece == 0) {
+        reinterpret_cast<int*>(slot + L::SLOT_OK)[p] = ok;
+        if constexpr (L::kCodes) {
+          cp_async4(slot + L::SLOT_KS + p * 4, a.k_scale + (ok ? rows[k] : 0),
+                    ok);
+          cp_async4(slot + L::SLOT_VS + p * 4, a.v_scale + (ok ? rows[k] : 0),
+                    ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (s0 < s1) {
+    lookup(s0);
+    issue(0);
+  }
+  // the row tile's queries, d-quad major: qc[(dq * RT + r) * 4 ..]
+  const size_t row_base = ((size_t)b * a.Hq + (size_t)h * G) * Q * D;
+  for (int i = tid; i < RT * DQ; i += CH_THREADS) {
+    const int r = i / DQ, dq = i % DQ;
+    const float4 v = r < rows_here
+                         ? *reinterpret_cast<const float4*>(
+                               a.q + row_base + (size_t)(r0 + r) * D + 4 * dq)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float4*>(qc + (dq * RT + r) * 4) = v;
+  }
+  if constexpr (L::kCodes) {
+    for (int i = tid; i < TABLE; i += CH_THREADS) tab[i] = a.table[i];
+  }
+
+  int lim[RM];                        // row attends positions < lim
+  float m_run[RM], l_run[RM];
+  float acc[RM][NV * VW];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = r0 + rg * RM + i;
+    lim[i] = r < n_rows ? len + r % Q : 0;
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < NV * VW; ++e) acc[i][e] = 0.0f;
+  }
+
+  for (int t = s0; t < s1; ++t) {
+    const int slot_i = (t - s0) % CH_STAGES;
+    const bool next = t + 1 < s1;
+    cp_async_wait<0>();
+    __syncthreads();                  // stage t visible; stage t-1 done
+    if (next) lookup(t + 1);
+    const unsigned char* slot = smem + L::RING_OFF + slot_i * L::SLOT;
+    const int* okp = reinterpret_cast<const int*>(slot + L::SLOT_OK);
+    const float* kc;
+    const float* vc;
+    if constexpr (L::kF32) {
+      kc = reinterpret_cast<const float*>(slot + L::SLOT_K);
+      vc = reinterpret_cast<const float*>(slot + L::SLOT_V);
+    } else {
+      float* kw = reinterpret_cast<float*>(smem + L::KC_OFF);
+      float* vw = reinterpret_cast<float*>(smem + L::VC_OFF);
+      const float* ksc = reinterpret_cast<const float*>(slot + L::SLOT_KS);
+      const float* vsc = reinterpret_cast<const float*>(slot + L::SLOT_VS);
+      for (int i = tid; i < S * DQ; i += CH_THREADS) {
+        const int p = i / DQ, dq = i % DQ;
+        const unsigned char* kr = slot + L::SLOT_K + p * L::ROWB;
+        const unsigned char* vr = slot + L::SLOT_V + p * L::ROWB;
+        *reinterpret_cast<float4*>(kw + (dq * S + p) * 4) =
+            load4<T>(kr, 4 * dq, tab, L::kCodes ? ksc[p] : 1.0f);
+        *reinterpret_cast<float4*>(vw + p * D + 4 * dq) =
+            load4<T>(vr, 4 * dq, tab, L::kCodes ? vsc[p] : 1.0f);
+      }
+      __syncthreads();
+      kc = kw;
+      vc = vw;
+    }
+
+    // Q.K^T: rows rg*RM + i x positions pg + 16c
+    float s[RM][4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
+#pragma unroll 2
+    for (int dq = 0; dq < DQ; ++dq) {
+      float4 kf[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        kf[c] = *reinterpret_cast<const float4*>(kc + (dq * S + pg + 16 * c) * 4);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float4 qf =
+            *reinterpret_cast<const float4*>(qc + (dq * RT + rg * RM + i) * 4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(qf.x, kf[c].x, s[i][c]);
+          s[i][c] = fmaf(qf.y, kf[c].y, s[i][c]);
+          s[i][c] = fmaf(qf.z, kf[c].z, s[i][c]);
+          s[i][c] = fmaf(qf.w, kf[c].w, s[i][c]);
+        }
+      }
+    }
+
+    if (next) issue(slot_i ^ 1);      // lands while this stage finishes
+
+    // online softmax over the 16 lanes (pg) that share a row group
+    bool okc[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) okc[c] = okp[pg + 16 * c] != 0;
+    float corr[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = okc[c] && t * S + pg + 16 * c < lim[i]
+                      ? s[i][c] * a.scale : -INFINITY;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int m = 1; m < 16; m <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, m));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = expf(s[i][c] - m_safe);              // -inf -> 0
+        sum += s[i][c];
+      }
+#pragma unroll
+      for (int m = 1; m < 16; m <<= 1) sum += __shfl_xor_sync(FULL, sum, m);
+      corr[i] = isfinite(m_run[i]) ? expf(m_run[i] - m_safe) : 0.0f;
+      l_run[i] = l_run[i] * corr[i] + sum;
+      m_run[i] = m_new;
+    }
+    // P^T tile: pt[p * PT + row], written and read by this half-warp only
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int i4 = 0; i4 < RM / 4; ++i4)
+        *reinterpret_cast<float4*>(pt + (pg + 16 * c) * L::PT + rg * RM + 4 * i4) =
+            make_float4(s[4 * i4][c], s[4 * i4 + 1][c], s[4 * i4 + 2][c],
+                        s[4 * i4 + 3][c]);
+    }
+    __syncwarp();
+
+    // P @ V: rows rg*RM + i, dims n*16*VW + pg*VW + u
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int e = 0; e < NV * VW; ++e) acc[i][e] *= corr[i];
+#pragma unroll 4
+    for (int p = 0; p < S; ++p) {
+      float vv[NV * VW];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const float* src = vc + p * D + n * 16 * VW + pg * VW;
+        if constexpr (VW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(src);
+          vv[4 * n] = x.x; vv[4 * n + 1] = x.y;
+          vv[4 * n + 2] = x.z; vv[4 * n + 3] = x.w;
+        } else if constexpr (VW == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(src);
+          vv[2 * n] = x.x; vv[2 * n + 1] = x.y;
+        } else {
+          vv[n] = src[0];
+        }
+      }
+#pragma unroll
+      for (int i4 = 0; i4 < RM / 4; ++i4) {
+        const float4 pr =
+            *reinterpret_cast<const float4*>(pt + p * L::PT + rg * RM + 4 * i4);
+        const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < NV * VW; ++e)
+            acc[4 * i4 + u][e] = fmaf(pv[u], vv[e], acc[4 * i4 + u][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool whole = a.splits == 1;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int rl = rg * RM + i;
+    if (rl >= rows_here) continue;
+    const int r = r0 + rl;
+    const float l = l_run[i] == 0.0f ? 1.0f : l_run[i];
+    const size_t pr = prow + r;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+#pragma unroll
+      for (int u = 0; u < VW; ++u) {
+        const int d = n * 16 * VW + pg * VW + u;
+        if (whole)
+          a.out[row_base + (size_t)r * D + d] = acc[i][n * VW + u] / l;
+        else
+          a.part_acc[pr * D + d] = acc[i][n * VW + u];
+      }
+    }
+    if (!whole && pg == 0) {
+      a.part_ml[pr * 2] = m_run[i];
+      a.part_ml[pr * 2 + 1] = l_run[i];
+    }
+  }
+}
+
+// ---- launch -----------------------------------------------------------------
+
+// Launch one kernel instance, allowing it `smem` bytes of dynamic shared
+// memory first (once per instance: `done`).
+template <typename K>
+int launch_one(K kernel, dim3 grid, int threads, int smem, bool& done,
+               const Args& a, cudaStream_t stream) {
+  if (!done && smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+  }
+  done = true;
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(const float* q, const void* k_pages, const void* v_pages,
-           const float* k_scale, const float* v_scale, const float* table,
-           const int* bt, const int* lengths, float* out, float* part_acc,
-           float* part_ml, int B, int Hq, int Hkv, int Q, int P, int ps,
-           int NB, int splits, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, ps, std::is_same<T, int8_t>::value);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_rows = (Hq / Hkv) * Q;
-  const int pages_per_split = (NB + splits - 1) / splits;
-  dim3 grid(B * Hkv, (n_rows + ROWS - 1) / ROWS, splits);
-  const float scale = 1.0f / sqrtf((float)D);
-  paged_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      q, static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-      k_scale, v_scale, table, bt, lengths, out,
-      splits > 1 ? part_acc : nullptr,
-      splits > 1 ? part_ml : nullptr, Hq, Hkv, Q, P, ps, NB,
-      pages_per_split, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  paged_attention_combine<<<dim3(B * Hkv, n_rows), 128, 0, stream>>>(
-      part_acc, part_ml, out, Hq, Hkv, Q, D, splits);
+int launch_rows(const Args& a, int B, int rows, cudaStream_t stream) {
+  const int n_rows = (a.Hq / a.Hkv) * a.Q;
+  const dim3 grid(B * a.Hkv, (n_rows + rows - 1) / rows, a.splits);
+  static bool done[4] = {};           // rows 8, 16, 64, 128
+  int err;
+  switch (rows) {
+    case 8:
+      err = launch_one(paged_attention_kernel_decode<T, D, 8>, grid,
+                       DEC_THREADS, DecodeLayout<T, D, 8>::SMEM, done[0], a,
+                       stream);
+      break;
+    case 16:
+      err = launch_one(paged_attention_kernel_decode<T, D, 16>, grid,
+                       DEC_THREADS, DecodeLayout<T, D, 16>::SMEM, done[1], a,
+                       stream);
+      break;
+    case 64:
+      err = launch_one(paged_attention_kernel_chunk<T, D, 4>, grid,
+                       CH_THREADS, ChunkLayout<T, D, 4>::SMEM, done[2], a,
+                       stream);
+      break;
+    case 128:
+      err = launch_one(paged_attention_kernel_chunk<T, D, 8>, grid,
+                       CH_THREADS, ChunkLayout<T, D, 8>::SMEM, done[3], a,
+                       stream);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err || a.splits == 1) return err;
+  paged_attention_kernel_combine<<<dim3(B * a.Hkv, n_rows), 128, 0, stream>>>(
+      a, D);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const float* q, const void* k_pages, const void* v_pages,
-             const float* k_scale, const float* v_scale, const float* table,
-             const int* bt, const int* lengths, float* out, float* part_acc,
-             float* part_ml, int B, int Hq, int Hkv, int Q, int D, int P,
-             int ps, int NB, int splits, cudaStream_t stream) {
+int launch_d(const Args& a, int B, int D, int rows, cudaStream_t stream) {
   switch (D) {
-#define PAGED_D(DV)                                                       \
-  case DV:                                                                \
-    return launch<T, DV>(q, k_pages, v_pages, k_scale, v_scale, table, bt, \
-                         lengths, out, part_acc, part_ml, B, Hq, Hkv, Q, P, \
-                         ps, NB, splits, stream);
-    PAGED_D(16)
-    PAGED_D(32)
-    PAGED_D(64)
-    PAGED_D(128)
-#undef PAGED_D
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return launch_rows<T, 16>(a, B, rows, stream);
+    case 32: return launch_rows<T, 32>(a, B, rows, stream);
+    case 64: return launch_rows<T, 64>(a, B, rows, stream);
+    case 128: return launch_rows<T, 128>(a, B, rows, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+size_t smem_of(int rows, int D) {
+#define SMEM_D(DV)                                                         \
+  if (D == DV) {                                                           \
+    if (rows == 8) return DecodeLayout<T, DV, 8>::SMEM;                    \
+    if (rows == 16) return DecodeLayout<T, DV, 16>::SMEM;                  \
+    if (rows == 64) return ChunkLayout<T, DV, 4>::SMEM;                    \
+    if (rows == 128) return ChunkLayout<T, DV, 8>::SMEM;                   \
+  }
+  SMEM_D(16)
+  SMEM_D(32)
+  SMEM_D(64)
+  SMEM_D(128)
+#undef SMEM_D
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs; the wrapper checks it against the card.
-size_t paged_attention_smem_bytes(int D, int ps, int kv_kind) {
-  return smem_bytes(D, ps, kv_kind == 2);
+// Shared memory one block of the instance with `rows` query rows (8 or 16:
+// decode; 64 or 128: chunk) needs for head dim D and pool kind (0 f32,
+// 1 bf16, 2 int8 codes); 0 for a combination that does not exist.  The
+// wrapper's plan computes the same and checks it against the card.
+size_t paged_attention_smem_bytes(int rows, int D, int kv_kind) {
+  if (kv_kind == 2) return smem_of<int8_t>(rows, D);
+  if (kv_kind == 1) return smem_of<__nv_bfloat16>(rows, D);
+  return smem_of<float>(rows, D);
 }
-
-int paged_attention_rows_per_block() { return ROWS; }
 
 // kv_kind: 0 = float32 pools, 1 = bfloat16 pools, 2 = int8 code pools with
 // k_scale/v_scale (P, Hkv, ps) floats and the 256-entry decode table
-// (unused, and may be null, for fp pools); D in {16, 32, 64, 128}.
-// part_acc/part_ml are scratch of (B*Hkv, splits, G*Q, D) and
-// (B*Hkv, splits, G*Q, 2) floats, used only when splits > 1.  Returns the
-// cudaError_t of the launches.
+// (unused, and may be null, for fp pools); D in {16, 32, 64, 128}; rows
+// picks the instance (8 or 16: decode, 64 or 128: chunk); the grid has
+// `splits` splits of the position axis per (sequence, KV head, row tile),
+// and the chunk instance sizes its busy splits to one wave of `wave`
+// blocks; the pools' pointers are 16-byte aligned.  With splits > 1,
+// part_acc/part_ml/busy are scratch of (B*Hkv, splits, G*Q, D) and
+// (B*Hkv, splits, G*Q, 2) floats and (B,) ints, merged by a second launch.
+// Returns the cudaError_t of the launches.
 int paged_attention_launch(const float* q, const void* k_pages,
                            const void* v_pages, int kv_kind,
                            const float* k_scale, const float* v_scale,
                            const float* table, const int* bt,
                            const int* lengths, float* out, float* part_acc,
-                           float* part_ml, int B, int Hq, int Hkv, int Q,
-                           int D, int P, int ps, int NB, int splits,
-                           void* stream) {
+                           float* part_ml, int* busy, int B, int Hq,
+                           int Hkv, int Q, int D, int P, int ps, int NB,
+                           int rows, int splits, int wave, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_kind == 2)
-    return launch_d<int8_t>(q, k_pages, v_pages, k_scale, v_scale, table, bt,
-                            lengths, out, part_acc, part_ml, B, Hq, Hkv, Q, D,
-                            P, ps, NB, splits, s);
-  if (kv_kind == 1)
-    return launch_d<__nv_bfloat16>(q, k_pages, v_pages, k_scale, v_scale,
-                                   table, bt, lengths, out, part_acc, part_ml,
-                                   B, Hq, Hkv, Q, D, P, ps, NB, splits, s);
-  return launch_d<float>(q, k_pages, v_pages, k_scale, v_scale, table, bt,
-                         lengths, out, part_acc, part_ml, B, Hq, Hkv, Q, D, P,
-                         ps, NB, splits, s);
+  Args a{q, k_pages, v_pages, k_scale, v_scale, table, bt, lengths, out,
+         splits > 1 ? part_acc : nullptr, splits > 1 ? part_ml : nullptr,
+         splits > 1 ? busy : nullptr, Hq, Hkv, Q, P, ps, NB, splits, wave,
+         1.0f / sqrtf((float)D)};
+  if (kv_kind == 2) return launch_d<int8_t>(a, B, D, rows, s);
+  if (kv_kind == 1) return launch_d<__nv_bfloat16>(a, B, D, rows, s);
+  return launch_d<float>(a, B, D, rows, s);
 }
 
 }  // extern "C"

@@ -5,11 +5,15 @@ Port of ``repro.kernels.paged_attention.ops.paged_attention``.  Unlike
 ``repro``'s wrapper it never upcasts an fp pool: the kernel reads pages in
 the pool's dtype (float32 or bfloat16) and accumulates in f32.  Quantized
 pools (``kv_quant`` "int8"/"log8": int8 codes with (P, Hkv, ps) float32
-scales) stay int8 into the kernel, which decodes each page as it stages
-it, through the 256-entry table ``core.quantization.kv_table`` — so the
+scales) stay int8 into the kernel, which decodes the codes it has staged
+through the 256-entry table ``core.quantization.kv_table`` — so the
 kernel and the plain version decode to the same values.  Block tables
 pass through raw — entries outside ``[0, num_pages)`` are the unmapped
 sentinel, which the kernel never dereferences (nor its scale row).
+
+``plan`` (host only, so the CPU tests reach it) picks the kernel's
+instance from G*Q — decode for up to 16 rows, chunk above — with its row
+tile, ring depth, splits of the position axis and shared memory.
 
 ``paged_attention.launches`` counts every launch, and
 ``paged_attention.pool_launches`` counts them by pool kind ("float32",
@@ -18,6 +22,7 @@ sentinel, which the kernel never dereferences (nor its scale row).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -26,8 +31,92 @@ from .. import build
 from ...core.quantization import KV_QUANT_MODES, kv_table
 from .ref import paged_attention_ref
 
-_BLOCKS_PER_SM = 4  # 128-thread blocks: 16 warps per SM to hide latency
 _POOL_KINDS = {"float32": 0, "bfloat16": 1, "int8": 2, "log8": 2}
+_ELEM_BYTES = {0: 4, 1: 2, 2: 1}
+SMEM_LIMIT = 227 * 1024
+
+# The tile constants of csrc/paged_attention.cu.
+DEC_THREADS, DEC_SW = 128, 8     # decode: 4 warps, 8 positions a warp step
+CH_S, CH_STAGES = 64, 2          # chunk: 64 positions a stage, 2 stages
+DECODE_MAX_ROWS = 16             # G*Q above this takes the chunk instance
+TABLE_BYTES = 256 * 4            # int8 decode table
+
+# Splits of the position axis.  Decode cuts the table's width into splits
+# of _DEC_STEPS block steps (4 warps x 8 positions); chunk gives the grid
+# splits of _MIN_STEPS stages and sizes the busy ones on the device, to
+# one wave of _CH_BLOCKS_PER_SM blocks per SM.
+DEC_STEP = DEC_SW * DEC_THREADS // 32
+_DEC_STEPS = 2
+_MIN_STEPS = 2
+_CH_BLOCKS_PER_SM = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of kernel A: the instance ("decode" or "chunk"), its
+    query rows per block, the depth of its cp.async ring, the row tiles
+    and the grid's splits of the position axis per (sequence, KV head),
+    the blocks of one wave (chunk), and the shared memory a block
+    needs."""
+    instance: str
+    rows: int
+    stages: int
+    tiles: int
+    splits: int
+    wave: int
+    smem: int
+
+
+def decode_stages(kind: int) -> int:
+    """The decode instance's per-warp ring depth for pool kind ``kind``
+    (0 f32, 1 bf16, 2 int8 codes): 2, 3 and 4 stages."""
+    return {4: 2, 2: 3, 1: 4}[_ELEM_BYTES[kind]]
+
+
+def smem_bytes(rows: int, d: int, kind: int) -> int:
+    """Dynamic shared memory of one block (``DecodeLayout`` /
+    ``ChunkLayout`` of the CUDA source, byte for byte)."""
+    row_b = d * _ELEM_BYTES[kind]
+    codes = kind == 2
+    if rows <= DECODE_MAX_ROWS:
+        slot = 2 * DEC_SW * row_b + (2 * DEC_SW * 4 if codes else 0) \
+            + DEC_SW * 4
+        warp = decode_stages(kind) * slot + DEC_SW * rows * 4 + rows * 4
+        ring = (TABLE_BYTES if codes else 0) + (DEC_THREADS // 32) * warp
+        merge = (DEC_THREADS // 32) * rows * (d + 2) * 4
+        return max(ring, merge)
+    slot = 2 * CH_S * row_b + (2 * CH_S * 4 if codes else 0) + CH_S * 4
+    compute = 0 if kind == 0 else 2 * CH_S * d * 4
+    return (rows * d * 4 + CH_STAGES * slot + compute + CH_S * (rows + 4) * 4
+            + (TABLE_BYTES if codes else 0))
+
+
+def num_splits(units: int, steps: int) -> int:
+    """Splits of a block table of ``units`` steps into splits of at most
+    ``steps``."""
+    return max(1, -(-units // steps))
+
+
+def plan(b: int, hkv: int, n_rows: int, nb: int, ps: int, d: int,
+         kind: int, sms: int) -> Plan:
+    """Kernel A's launch for ``b`` sequences, ``hkv`` KV heads, ``n_rows``
+    = G*Q query rows per (sequence, KV head), a block table of ``nb``
+    pages of ``ps`` positions, head dim ``d`` and pool kind ``kind`` on a
+    card with ``sms`` SMs.  G*Q <= 16 takes the decode instance (rows
+    rounded up to 8), more the chunk instance (64 rows up to G*Q = 64,
+    else 128).  The host sees only the table's width, not the lengths, so
+    the grid's splits are sized from ``nb * ps``; the chunk kernel sizes
+    each sequence's share from the actual lengths."""
+    span = nb * ps
+    if n_rows <= DECODE_MAX_ROWS:
+        rows = 8 if n_rows <= 8 else 16
+        return Plan("decode", rows, decode_stages(kind), 1,
+                    num_splits(-(-span // DEC_STEP), _DEC_STEPS), 0,
+                    smem_bytes(rows, d, kind))
+    rows = 64 if n_rows <= 64 else 128
+    return Plan("chunk", rows, CH_STAGES, -(-n_rows // rows),
+                num_splits(-(-span // CH_S), _MIN_STEPS),
+                _CH_BLOCKS_PER_SM * sms, smem_bytes(rows, d, kind))
 
 
 def _lib():
@@ -35,12 +124,11 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = [vp, vp, vp, i, vp, vp, vp,
-                                               vp, vp, vp, vp, vp, i, i, i, i,
-                                               i, i, i, i, i, vp]
+                                               vp, vp, vp, vp, vp, vp, i, i,
+                                               i, i, i, i, i, i, i, i, i, vp]
         lib.paged_attention_launch.restype = i
         lib.paged_attention_smem_bytes.argtypes = [i, i, i]
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
-        lib.paged_attention_rows_per_block.restype = i
         lib._typed = True
     return lib
 
@@ -50,16 +138,51 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def num_splits(b: int, hkv: int, n_rows: int, nb: int, rows: int,
-               sms: int) -> int:
-    """Page-axis splits: enough (sequence, head, row tile) blocks to give
-    each of the card's ``sms`` SMs ``_BLOCKS_PER_SM``, never more splits
-    than pages."""
-    blocks = b * hkv * (-(-n_rows // rows))
-    target = _BLOCKS_PER_SM * sms
-    if blocks >= target:
-        return 1
-    return max(1, min(nb, -(-target // blocks)))
+def _launch(lib, q, k_pages, v_pages, block_tables, lengths, k_scale,
+            v_scale, kv_quant, kind_id: int, sms: int, stream) -> torch.Tensor:
+    """Plan and launch kernel A through ``lib`` on checked operands."""
+    b, hq, q_len, d = q.shape
+    num_pages, hkv, ps, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    g = hq // hkv
+    pl = plan(b, hkv, g * q_len, nb, ps, d, kind_id, sms)
+    if pl.smem > SMEM_LIMIT:
+        raise ValueError(f"paged_attention: {pl} needs {pl.smem} B of "
+                         f"shared memory per block (> 227 KB)")
+    q = q.float().contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention: pools must be 16-byte aligned")
+    if num_pages * hkv * ps >= 2 ** 31:
+        raise ValueError("paged_attention: the kernel indexes pool rows "
+                         "with 32-bit ints (P * Hkv * ps < 2^31)")
+    block_tables, lengths = block_tables.contiguous(), lengths.contiguous()
+    table = None
+    if kv_quant is not None:
+        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
+        table = kv_table(kv_quant, q.device)
+    out = torch.empty((b, hq, q_len, d), dtype=torch.float32, device=q.device)
+    part_acc = part_ml = busy = None
+    if pl.splits > 1:
+        part_acc = torch.empty((b * hkv, pl.splits, g * q_len, d),
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b * hkv, pl.splits, g * q_len, 2),
+                              dtype=torch.float32, device=q.device)
+        busy = torch.empty(b, dtype=torch.int32, device=q.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.paged_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), kind_id,
+        ptr(k_scale), ptr(v_scale), ptr(table), block_tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), ptr(part_acc), ptr(part_ml),
+        ptr(busy), b, hq, hkv, q_len, d, num_pages, ps, nb, pl.rows,
+        pl.splits, pl.wave, stream)
+    build.check(err, "paged_attention")
+    return out
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -120,40 +243,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                         "(B,) must be int32")
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_attention: all operands on one device")
-    lib = _lib()
-    smem = lib.paged_attention_smem_bytes(d, ps, _POOL_KINDS[kind])
-    if smem > 227 * 1024:
-        raise ValueError(f"paged_attention: page_size {ps} needs {smem} B "
-                         f"of shared memory per block (> 227 KB)")
-    q = q.float().contiguous()
-    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
-    block_tables, lengths = block_tables.contiguous(), lengths.contiguous()
-    table = None
-    if kv_quant is not None:
-        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
-        table = kv_table(kv_quant, q.device)
-    g = hq // hkv
-    rows = lib.paged_attention_rows_per_block()
-    splits = num_splits(b, hkv, g * q_len, nb, rows,
-                        _sm_count(q.device.index))
-    out = torch.empty((b, hq, q_len, d), dtype=torch.float32, device=q.device)
-    part_acc = part_ml = None
-    if splits > 1:
-        part_acc = torch.empty((b * hkv, splits, g * q_len, d),
-                               dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((b * hkv, splits, g * q_len, 2),
-                              dtype=torch.float32, device=q.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = lib.paged_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        _POOL_KINDS[kind], ptr(k_scale), ptr(v_scale), ptr(table),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        ptr(part_acc), ptr(part_ml), b, hq, hkv, q_len, d, num_pages, ps, nb,
-        splits, torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_attention")
+    out = _launch(_lib(), q, k_pages, v_pages, block_tables, lengths,
+                  k_scale, v_scale, kv_quant, _POOL_KINDS[kind],
+                  _sm_count(q.device.index),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention.launches += 1
     paged_attention.pool_launches[kind] += 1
     return out

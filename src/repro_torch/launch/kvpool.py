@@ -31,13 +31,21 @@ import numpy as np
 
 def nldpe_fingerprint(nldpe, kv_quant: str | None = None) -> tuple:
     """Stable, hashable fingerprint of the pool's byte semantics: the
-    NLDPEConfig flattened to sorted (name, value) tuples, and the KV storage
-    grid.  Two configs with the same fingerprint produce bit-identical
-    cached K/V for the same tokens, which is what radix prefix sharing
-    requires — so an fp pool and a quantized one (or "int8" and "log8"),
-    whose bytes mean different things, never share a root."""
-    return (("kv_quant", kv_quant),
-            ("nldpe", tuple(sorted(dataclasses.asdict(nldpe).items()))))
+    NLDPEConfig (nested dataclasses flattened recursively to sorted
+    (name, value) tuples, lists to tuples) and the KV storage grid.  Two
+    configs with the same fingerprint produce bit-identical cached K/V for
+    the same tokens, which is what radix prefix sharing requires — so an
+    fp pool and a quantized one (or "int8" and "log8"), whose bytes mean
+    different things, never share a root."""
+    def flat(x):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return tuple(sorted(
+                (f.name, flat(getattr(x, f.name)))
+                for f in dataclasses.fields(x)))
+        if isinstance(x, (list, tuple)):
+            return tuple(flat(v) for v in x)
+        return x
+    return (("kv_quant", kv_quant), ("nldpe", flat(nldpe)))
 
 
 class RadixNode:

@@ -182,6 +182,81 @@ def test_paged_attention_fp_pools_unchanged_by_code_variant(dev):
         assert paged_attention.pool_launches[kind] == before[kind] + 1
 
 
+def _boundary_lengths(q_len, ps, span):
+    """Base lengths whose last attended position (length + Q - 1) lands
+    on, and one either side of, a page (ps), a decode warp step (8), a
+    decode block step (32), a chunk stage (64) and the table's end."""
+    out = set()
+    for mark in (ps, 2 * ps, 3 * ps, 8, 32, 64, 128, span):
+        for delta in (-1, 0, 1):
+            out.add(min(max(mark + delta - q_len + 1, 1), span - q_len + 1))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("route", ["unsplit", "split"])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "log8"])
+@pytest.mark.parametrize("ps", [5, 16, 32])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("q_len", [1, 5, 9, 64, 65])
+def test_paged_attention_tile_boundaries(dev, monkeypatch, q_len, g, ps,
+                                         pool, route):
+    """Every tile boundary of both instances: G*Q from 1 to 520 (decode
+    rows 8 and 16; chunk tiles of 64 and 128 rows, ragged last tiles),
+    page sizes that do and do not divide a stage, lengths on and beside
+    page, warp-step, block-step and stage boundaries, sentinels mid-table
+    and at the end, with the position axis unsplit and split in 3 (chunk:
+    short sequences leave splits idle).  Within 1e-4 of the plain version;
+    a code pool gives the bits of an f32 pool holding its decoded
+    values."""
+    from repro_torch.core.quantization import kv_decode
+    from repro_torch.kernels.paged_attention import ops
+    monkeypatch.setattr(ops, "num_splits",
+                        lambda units, steps: 1 if route == "unsplit" else 3)
+    d = 128 if g == 8 else 64
+    nb = -(-160 // ps)
+    lengths = _boundary_lengths(q_len, ps, nb * ps)
+    b = len(lengths)
+    rng = np.random.default_rng(q_len * 7 + ps)
+    q = torch.tensor(rng.normal(size=(b, 2 * g, q_len, d)),
+                     dtype=torch.float32, device=dev)
+    kf, vf = (torch.tensor(rng.normal(size=(b * nb + 2, 2, ps, d)),
+                           dtype=torch.float32, device=dev)
+              for _ in range(2))
+    bt = torch.tensor(rng.permutation(b * nb + 2)[:b * nb].reshape(b, nb),
+                      dtype=torch.int32, device=dev)
+    bt[0, nb // 2] = b * nb + 2     # sentinel mid-table
+    bt[-1, -1] = -1                 # negative sentinel at the end
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = {}
+    if pool in ("int8", "log8"):
+        from repro_torch.nn.attention import _quantize_kv
+        (kp, ks), (vp, vs) = _quantize_kv(kf, pool), _quantize_kv(vf, pool)
+        kw = dict(k_scale=ks, v_scale=vs, kv_quant=pool)
+    else:
+        kp, vp = kf.to(getattr(torch, pool)), vf.to(getattr(torch, pool))
+    out = paged_attention(q, kp, vp, bt, lengths, **kw)
+    ref = paged_attention_ref(q, kp, vp, bt, lengths, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+    if kw:
+        fp = paged_attention(q, kv_decode(kp, ks, pool),
+                             kv_decode(vp, vs, pool), bt, lengths)
+        assert torch.equal(fp, out)
+
+
+def test_paged_attention_plan_matches_the_kernel_layout(dev):
+    """The wrapper's shared-memory formula is the CUDA source's, byte for
+    byte, for every instance, head dim and pool kind."""
+    from repro_torch.kernels.paged_attention import ops
+    lib = ops._lib()
+    for rows in (8, 16, 64, 128):
+        for d in (16, 32, 64, 128):
+            for kind in (0, 1, 2):
+                assert lib.paged_attention_smem_bytes(rows, d, kind) == \
+                    ops.smem_bytes(rows, d, kind)
+
+
 @pytest.mark.parametrize("mode", ["int8", "log8"])
 def test_quantized_engine_on_card_matches_cpu_plain_path(dev, mode):
     """The reduced model with ``kv_quant`` on the card (kernel A's code

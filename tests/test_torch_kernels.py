@@ -29,7 +29,10 @@ from repro_torch.kernels.dual_compute.ops import (fused_crossbar_acam,
                                                   logdomain_flash_attention,
                                                   program)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.paged_attention.ops import num_splits, paged_attention
+from repro_torch.kernels.paged_attention.ops import (num_splits,
+                                                     paged_attention,
+                                                     smem_bytes)
+from repro_torch.kernels.paged_attention.ops import plan as paged_plan
 
 torch.set_num_threads(1)
 
@@ -126,15 +129,67 @@ def test_cpu_tensors_never_launch():
     assert [w.launches for w in wrappers] == before
 
 
-@pytest.mark.parametrize("b,n_rows,nb,sms,want", [
-    (8, 8, 64, 132, 33),    # full-width decode on 132 SMs: 16 blocks -> split
-    (8, 8, 64, 114, 29),    # the same on a 114-SM card
-    (8, 512, 64, 132, 3),   # chunk prefill: 256 blocks -> 768
-    (8, 2048, 64, 132, 1),  # 1024 blocks already fill the card
-    (1, 8, 2, 132, 2),      # never more splits than pages
+@pytest.mark.parametrize("units,steps,want", [
+    (32, 2, 16),   # full-width decode: 1024 positions = 32 block steps
+    (16, 2, 8),    # chunk prefill: 1024 positions = 16 stages
+    (33, 2, 17),   # a ragged last split
+    (1, 2, 1),     # a short table: one split
+    (0, 2, 1),     # never no split
 ])
-def test_split_heuristic(b, n_rows, nb, sms, want):
-    assert num_splits(b, 2, n_rows, nb, 32, sms) == want
+def test_split_heuristic(units, steps, want):
+    """The grid's splits of a block table of ``units`` steps, at most
+    ``steps`` a split."""
+    assert num_splits(units, steps) == want
+
+
+@pytest.mark.parametrize("q_len,g,want", [
+    (1, 8, ("decode", 8, 1)),      # a decode tick of Qwen2.5-3B
+    (1, 1, ("decode", 8, 1)),
+    (2, 8, ("decode", 16, 1)),     # 16 rows: the largest decode tile
+    (9, 1, ("decode", 16, 1)),
+    (17, 1, ("chunk", 64, 1)),
+    (5, 8, ("chunk", 64, 1)),      # 40 rows
+    (64, 1, ("chunk", 64, 1)),
+    (65, 1, ("chunk", 128, 1)),
+    (64, 8, ("chunk", 128, 4)),    # chunk prefill: 512 rows, 4 tiles
+    (65, 8, ("chunk", 128, 5)),
+])
+def test_plan_instance_rows_and_tiles(q_len, g, want):
+    """G*Q <= 16 takes the decode instance (rows rounded up to 8), more
+    the chunk instance (64 rows up to 64, else 128-row tiles); K/V are
+    staged once per tile: ceil(G*Q / rows) times per (sequence, head)."""
+    pl = paged_plan(8, 2, g * q_len, 64, 16, 128, 0, 132)
+    assert (pl.instance, pl.rows, pl.tiles) == want
+
+
+def test_plan_stages_and_splits_at_full_width():
+    """Qwen2.5-3B's kernel-A calls (8 slots, 2 KV heads, 64 pages of 16):
+    the decode ring is 2, 3, 4 stages deep for f32, bf16 and code pools,
+    the chunk ring 2; decode cuts the table into 16 splits of 64
+    positions; chunk gives the grid 8 splits of 2 stages and a wave of
+    one block per SM, within which the kernel sizes the busy splits."""
+    for kind, stages in ((0, 2), (1, 3), (2, 4)):
+        dec = paged_plan(8, 2, 8, 64, 16, 128, kind, 132)
+        assert (dec.stages, dec.splits) == (stages, 16)
+        ch = paged_plan(8, 2, 512, 64, 16, 128, kind, 132)
+        assert (ch.stages, ch.splits, ch.wave) == (2, 8, 132)
+    # a short table keeps at least two steps a split
+    assert paged_plan(8, 2, 8, 4, 16, 128, 0, 132).splits == 1
+    assert paged_plan(1, 2, 512, 8, 16, 128, 0, 132).splits == 1
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["f32", "bf16", "codes"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_plan_shared_memory_fits_every_page_size(d, kind):
+    """Every instance fits the card's 227 KB of shared memory per block
+    for every page size up to 32 (a stage holds positions, not pages, so
+    the page size does not enter it); f32 chunk at D = 128 is the
+    largest, 230912 B of 232448."""
+    for ps in range(1, 33):
+        for n_rows in (1, 8, 9, 16, 17, 40, 64, 65, 512):
+            pl = paged_plan(8, 2, n_rows, -(-1024 // ps), ps, d, kind, 132)
+            assert 0 < pl.smem <= 227 * 1024
+    assert smem_bytes(128, 128, 0) == 230912
 
 
 def _fused_inputs(seed, m, k, n):
