@@ -31,7 +31,9 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    PyTorch library call beside the card's bound (the crossbar kernels B,
    E and G also name the tile they launched and the rates they reached;
    kernel A runs f32 and bf16 pools and, on the log8 engine's pools, int8
-   and log8 code pools);
+   and log8 code pools; kernels F and C run at 2048 keys too, and C's
+   quantize launch must give ``log_quantize``'s bits); the attention
+   kernels' bounds name the f32 FMA and the split-TF32 tensor-core bound;
 7. serves a small model on the card and on the CPU (plain versions): the
    paged engine's greedy tokens must agree, with fp, int8 and log8 pools,
    and the lockstep prefill's last logits within a stated tolerance;
@@ -63,6 +65,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 on the tensor cores
 A_TOL = 1e-4                    # paged attention: f32 sums in another order
 B_MAX_FLIP_FRACTION = 1e-4      # fused crossbar->ACAM: one-code flips
                                 # (measured 0 at M=8, 7.6e-6 at M=512)
@@ -72,8 +75,8 @@ C_TOL = 1.0 / 255               # log-domain flash: one exp-grid LSB, as in
                                 # tests/test_fused_dual_compute.py
 U32 = 2.0 ** -24                # float32 unit roundoff
 PORT_KERNELS = ("paged_attention", "fused_crossbar_acam", "logdomain_flash",
-                "flash_attention", "acam_activation", "crossbar_vmm",
-                "nldpe_qmatmul")
+                "log_quantize", "flash_attention", "acam_activation",
+                "crossbar_vmm", "nldpe_qmatmul")
 G_SHAPES = ((512, 128, 512),    # one head's QK^T in the lockstep prefill
             (512, 512, 128),    # P . V
             (4096, 2048, 2048))  # 8 x 512 tokens through a d_model product
@@ -141,6 +144,25 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def attn_bound(nbytes: float, flops: float, products: int,
+               fma_share: float = 0.0) -> dict:
+    """The bound of an attention call, with its two operation bounds named:
+    all ``flops`` as f32 FMAs (67 TFLOP/s), and all as split-TF32 products
+    on the tensor cores (``products`` TF32 products per f32 product: 3 for
+    f32 operands, 2 where one side is bf16, 495 TFLOP/s dense).  The
+    operations take the faster of the two, except ``fma_share`` of them,
+    which must be f32 FMAs (kernel C's scores: split TF32 moves their
+    grid codes).  ``bound_ms`` is the larger of that and the bytes."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fma = flops / F32_FLOPS_PER_S * 1e3
+    t_tc = products * flops / TF32_FLOPS_PER_S * 1e3
+    t_ops = fma_share * t_fma + (1 - fma_share) * min(t_fma, t_tc)
+    return {"bound_ms": max(t_b, t_ops),
+            "bound_by": "bytes" if t_b >= t_ops else "operations",
+            "bound_f32_fma_ms": t_fma, "bound_tf32_split_ms": t_tc,
+            "tf32_products": products, "bound_fma_share": fma_share}
 
 
 def achieved(nbytes: float, flops: float, ms: float) -> dict:
@@ -567,15 +589,14 @@ def paged_case(torch, timer, inputs: dict, q, kp, vp, qkw: dict, pool: str,
     nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + b * 4
               + 2 * n_pages * hkv * ps * per_pos)
     flops = 4 * d * pairs * q.shape[1]
-    bms, by = bound(nbytes, flops)
+    bd = attn_bound(nbytes, flops, 2 if kp.dtype == torch.bfloat16 else 3)
     pl = plan(b, hkv, q.shape[1] // hkv * q_len, nb, ps, d,
               2 if qkw else (0 if kp.dtype == torch.float32 else 1),
               torch.cuda.get_device_properties(0).multi_processor_count)
     case = {"q_len": q_len, "pool": pool, "instance": pl.instance,
             "rows": pl.rows, "splits": pl.splits,
             "max_abs_err": err, "ms": ms, "call_ms": call_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
-            "bound_by": by, **extra}
+            "plain_ms": plain_ms, "library_ms": lib_ms, **bd, **extra}
     if launches is not None:
         case["launches"] = launches
     print("[kernel A] " + json.dumps(case))
@@ -664,45 +685,51 @@ def attention_inputs(torch, shape, dtype, seed):
 
 def flash_phase(torch, timer, launches: dict) -> dict:
     """Kernel F at the lockstep OFF prefill's shapes, (8, 16, 512, 128)
-    queries over (8, 2, 512, 128) keys and values, f32 and bf16 inputs
-    (the wrapper computes in f32 either way)."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    queries over (8, 2, 512, 128) keys and values, and at (1, 16/2, 2048,
+    128); f32 and bf16 inputs, each read in its own dtype."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention, plan
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    shape = (8, 16, 2, 512, 512, 128)
-    b, hq, hkv, lq, lk, d = shape
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = attention_inputs(torch, shape, dtype, SEED + 3)
-        out = flash_attention(q, k, v)
-        ref = flash_attention_ref(q, k, v)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), "flash_attention: non-finite")
-        err = (out.float() - ref).abs()
-        # bf16 outputs round the same f32 result: one bf16 step allowed
-        slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
-        check(bool((err <= F_TOL + slack * ref.abs()).all()),
-              f"flash_attention {dtype}: max |kernel - plain| "
-              f"{err.max().item()} over {F_TOL} (+ bf16 rounding)")
+    for shape in ((8, 16, 2, 512, 512, 128), (1, 16, 2, 2048, 2048, 128)):
+        b, hq, hkv, lq, lk, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attention_inputs(torch, shape, dtype, SEED + 3)
+            out = flash_attention(q, k, v)
+            ref = flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()) and out.dtype == dtype,
+                  "flash_attention: non-finite or not in q's dtype")
+            err = (out.float() - ref).abs()
+            # bf16 outputs round the same f32 result: one bf16 step allowed
+            slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
+            check(bool((err <= F_TOL + slack * ref.abs()).all()),
+                  f"flash_attention {shape} {dtype}: max |kernel - plain| "
+                  f"{err.max().item()} over {F_TOL} (+ bf16 rounding)")
 
-        def lib():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)
+            def lib():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
 
-        lib_err = (lib().float() - ref).abs().max().item()
-        ms, call_ms = timer.ms(lambda: flash_attention(q, k, v), iters=10)
-        plain_ms, _ = timer.ms(lambda: flash_attention_ref(q, k, v), iters=3)
-        lib_ms, _ = timer.ms(lib, iters=10)
-        esz = q.element_size()
-        nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
-        flops = 4 * d * b * hq * causal_pairs(lq, lk)
-        bms, by = bound(nbytes, flops)
-        case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": err.max().item(), "ms": ms, "call_ms": call_ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
-                "library_max_abs_err": lib_err, "bound_ms": bms,
-                "bound_by": by}
-        print("[kernel F] " + json.dumps(case))
-        cases.append(case)
+            lib_err = (lib().float() - ref).abs().max().item()
+            ms, call_ms = timer.ms(lambda: flash_attention(q, k, v), iters=10)
+            plain_ms, _ = timer.ms(lambda: flash_attention_ref(q, k, v),
+                                   iters=3)
+            lib_ms, _ = timer.ms(lib, iters=10)
+            esz = q.element_size()
+            nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
+            flops = 4 * d * b * hq * causal_pairs(lq, lk)
+            pl = plan(dtype, d)
+            case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                    "instance": pl.instance, "keys_per_tile": pl.keys,
+                    "smem": pl.smem, "max_abs_err": err.max().item(),
+                    "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "library_max_abs_err": lib_err,
+                    **attn_bound(nbytes, flops,
+                                 2 if dtype == torch.bfloat16 else 3),
+                    **achieved(nbytes, flops, ms)}
+            print("[kernel F] " + json.dumps(case))
+            cases.append(case)
+            del q, k, v, out, ref
     top = cases[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -715,26 +742,39 @@ def flash_phase(torch, timer, launches: dict) -> dict:
             "library_ms": top["library_ms"],
             "library": "scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True), same dtype",
+            "scores": "split TF32 (mma.sync m16n8k8)",
             "timing": timer.source, "cases": cases}
 
 
 def logdomain_phase(torch, timer, launches: dict) -> dict:
     """Kernel C at the lockstep FUSED prefill's shape (4, 16, 256, 128),
-    with f32 inputs and with the bf16 activations that path gives it, and
-    at the OFF phase's (8, 16, 512, 128), against the materialized NL-DPE
-    attention on the same inputs."""
-    from repro_torch.kernels.dual_compute.ops import logdomain_flash_attention
+    with f32 inputs and with the bf16 activations that path gives it, at
+    the OFF phase's (8, 16, 512, 128) and at (1, 16/2, 2048, 128) (the
+    two-pass instance), against the materialized NL-DPE attention on the
+    same inputs; and its quantize launch, bit for bit ``log_quantize``."""
+    from repro_torch.core.logdomain import inv_sqrt, log_quantize
+    from repro_torch.kernels.dual_compute.ops import (
+        log_quantize_qkv, logdomain_flash_attention, logdomain_kernel,
+        logdomain_plan)
     from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
     cases = []
     for shape, dtype in (((4, 16, 2, 256, 256, 128), torch.float32),
                          ((4, 16, 2, 256, 256, 128), torch.bfloat16),
-                         ((8, 16, 2, 512, 512, 128), torch.float32)):
+                         ((8, 16, 2, 512, 512, 128), torch.float32),
+                         ((1, 16, 2, 2048, 2048, 128), torch.float32)):
         b, hq, hkv, lq, lk, d = shape
         q, k, v = attention_inputs(torch, shape, dtype, SEED + 4)
+        quantized = log_quantize_qkv(q, k, v)
+        f32 = torch.float32
+        plain_q = (log_quantize(q.to(f32) * inv_sqrt(d)),
+                   log_quantize(k.to(f32)), log_quantize(v.to(f32)))
+        check(all(torch.equal(x, y) for x, y in zip(quantized, plain_q)),
+              f"log_quantize_qkv {shape} {dtype}: not log_quantize's bits")
         out = logdomain_flash_attention(q, k, v)
         ref = logdomain_flash_ref(q, k, v)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), "logdomain_flash: non-finite")
+        check(bool(torch.isfinite(out).all()) and out.dtype == dtype,
+              "logdomain_flash: non-finite or not in q's dtype")
         err = (out.float() - ref).abs()
         # bf16 outputs round the same f32 result: one bf16 step allowed
         slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
@@ -744,17 +784,24 @@ def logdomain_phase(torch, timer, launches: dict) -> dict:
         err = err.max().item()
         ms, call_ms = timer.ms(lambda: logdomain_flash_attention(q, k, v),
                                iters=10)
+        quant_ms, _ = timer.ms(lambda: log_quantize_qkv(q, k, v), iters=10)
+        kern_ms, _ = timer.ms(lambda: logdomain_kernel(*quantized, dtype),
+                              iters=10)
         plain_ms, _ = timer.ms(lambda: logdomain_flash_ref(q, k, v), iters=3)
         esz = q.element_size()
         nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
         flops = 4 * d * b * hq * causal_pairs(lq, lk)
-        bms, by = bound(nbytes, flops)
+        pl = logdomain_plan(lk, d)
         case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": err, "ms": ms,
-                "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": bms, "bound_by": by}
+                "instance": pl.instance, "rows": pl.rows, "smem": pl.smem,
+                "max_abs_err": err, "quantize_bitwise": True, "ms": ms,
+                "call_ms": call_ms, "quantize_ms": quant_ms,
+                "attention_kernel_ms": kern_ms, "plain_ms": plain_ms,
+                "library_ms": None, **attn_bound(nbytes, flops, 3, 0.5),
+                **achieved(nbytes, flops, ms)}
         print("[kernel C] " + json.dumps(case))
         cases.append(case)
+        del q, k, v, out, ref, quantized, plain_q
     top = cases[0]
     return {"name": "logdomain_flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/logdomain_flash.cu",
@@ -766,6 +813,8 @@ def logdomain_phase(torch, timer, launches: dict) -> dict:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None,
             "library": "none: no single PyTorch call computes it",
+            "scores": "f32 FMA in d order (the plain version's bits); "
+                      "P.V split TF32",
             "timing": timer.source, "cases": cases}
 
 
@@ -1137,13 +1186,13 @@ def counters() -> list:
     from repro_torch.kernels.acam_activation.ops import acam_apply
     from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm
     from repro_torch.kernels.dual_compute.ops import (
-        fused_crossbar_acam, logdomain_flash_attention)
+        fused_crossbar_acam, log_quantize_qkv, logdomain_flash_attention)
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.nldpe_qmatmul.ops import nldpe_qmatmul
     from repro_torch.kernels.paged_attention.ops import paged_attention
     return [paged_attention, fused_crossbar_acam, flash_attention,
-            logdomain_flash_attention, acam_apply, crossbar_vmm,
-            nldpe_qmatmul]
+            logdomain_flash_attention, log_quantize_qkv, acam_apply,
+            crossbar_vmm, nldpe_qmatmul]
 
 
 def main() -> None:
@@ -1158,7 +1207,7 @@ def main() -> None:
     from repro_torch.core.engine import FUSED, OFF
     from repro_torch.kernels import build
     from repro_torch.kernels.dual_compute.ops import (
-        fused_crossbar_acam, logdomain_flash_attention)
+        fused_crossbar_acam, log_quantize_qkv, logdomain_flash_attention)
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.launch.engine import PagedServeEngine, ServeEngine
@@ -1233,7 +1282,8 @@ def main() -> None:
     t0 = time.perf_counter()
     lock_fused = lockstep(torch, cfg, params, FUSED, batch=4, prompt_len=256,
                           gen_len=8, counters_on_path=[
-                              logdomain_flash_attention, fused_crossbar_acam],
+                              logdomain_flash_attention, log_quantize_qkv,
+                              fused_crossbar_acam],
                           label="serve lockstep FUSED", compare_loop=False)
     print(f"[serve lockstep FUSED] phase {time.perf_counter() - t0:.1f} s")
 

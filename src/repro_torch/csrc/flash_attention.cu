@@ -1,27 +1,40 @@
-// Causal GQA flash attention: online softmax over streamed K/V tiles.
+// Causal GQA flash attention: online softmax over streamed K/V tiles, both
+// products on the tensor cores in split TF32.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 //   flash_attention_kernel (pallas_call at :87; body _flash_kernel at :30);
 //   in serving, the lax twin repro/nn/attention.py blockwise_attention,
 //   which the OFF whole-prompt prefill runs.
 //
-// Computes, for q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D), all f32, G = Hq/Hkv:
+// Computes, for q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D), all float32 or all
+// bfloat16 (read as they are; strided over batch, head and position, D
+// contiguous), G = Hq/Hkv:
 //   out[b, h*G+g, i] = softmax_j(q_i . k_j * scale) @ v over the keys
 //   j <= i + Lk - Lq (causal; queries sit at the end of the KV axis) or
-//   all keys (not causal), K/V read at head h.  A row with no visible key
-//   gives 0.  `scale` is 1/sqrt(D) as the caller rounds it; q is scaled
-//   before the dot products, as the reference scales it.
+//   all keys (not causal), K/V read at head h, written contiguous in q's
+//   dtype.  A row with no visible key gives 0.  `scale` is 1/sqrt(D) as
+//   the caller rounds it; q is scaled (rounded, never fused) before the
+//   dot products, as the reference scales it.
 //
-// What bounds it on an H100: operations.  Each (row, key) pair costs
-// 4*D FLOPs against 16*D bytes of K/V that serve a whole row tile, so at
-// the serve path's shapes the f32 FLOPs (67 TFLOP/s outside the tensor
-// cores) set the floor.  The tiling (attn_tiles.cuh, shared with kernel
-// C): one block per (sequence, KV head, tile of 64 rows), K/V tiles of 32
-// keys in shared memory serving the whole GQA group, causal tiles past
-// the row tile's last position never loaded (they would add exactly
-// nothing to the online softmax).  This file adds the online softmax, four
-// threads per row with shuffle reductions, in f32 with expf (no fast
-// math).  No tensor cores and no cp.async/TMA pipelining yet.
+// What bounds it on an H100: operations.  Each (row, key) pair costs 4*D
+// FLOPs against K/V bytes that serve a whole row tile.  In f32 FMAs (67
+// TFLOP/s) that is 0.128 ms at the lockstep prefill's (8, 16/2, 512, 128);
+// in split TF32 on the tensor cores (495 TFLOP/s dense, three products
+// for f32 operands, two where K/V are bf16) 0.052 ms (bf16: 0.035).  The
+// design (attn_tiles.cuh, shared with kernel C): one block of eight warps
+// per (sequence, KV head, 128 rows); each warp keeps its 16 rows' scaled
+// queries in shared memory and its scores, softmax state and P @ V
+// accumulators in mma fragments, so the online softmax is quad shuffles
+// and P feeds P @ V from registers; K/V tiles (32 keys in f32, 64 in
+// bf16) stream through a two-stage cp.async ring, one barrier a tile;
+// causal tiles past a warp's last position are skipped (they would add
+// exactly nothing).  f32 softmax with expf (no fast math).  Measured on an
+// H100 (tools/compare_attn_kernels.py and variants of this source with a
+// part cut out): the time follows the count of mma.sync TF32 products —
+// f32 operands take 1.7x the bf16 time for 1.5x the products — and moves
+// by under 4% with the ring's depth, the key tile's depth or four warps in
+// place of eight; mma.sync issues m16n8k8 TF32 at well under the 495
+// TFLOP/s that wgmma reaches, the lever left.
 
 #include "attn_tiles.cuh"
 
@@ -29,93 +42,231 @@ namespace {
 
 using namespace attn_tiles;
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       float* __restrict__ out, int Hq, int Hkv, int Lq,
-                       int Lk, int causal, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem<D> s(smem);
-  float* m_s = s.stat[0];                   // running max
-  float* l_s = s.stat[1];                   // running sum
-  float* c_s = s.stat[2];                   // correction factor
-  const Tile t(Hq, Hkv, Lq, Lk, causal);
-  const int tid = threadIdx.x;
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = WARP_ROWS * WARPS;
 
-  load_q<D>(q, s, t, scale);
-  for (int r = tid; r < ROWS; r += THREADS) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.0f;
-  }
-  float acc[PV<D>::RPT];
+template <typename T, int D>
+struct Layout {
+  static constexpr int BK = sizeof(T) == 4 ? 32 : 64;   // keys a tile
+  static constexpr int PK = Pitch<T, D>::K;
+  static constexpr int PV = Pitch<T, D>::V;
+  static constexpr int QP = D + 2;          // q rows: float2 reads, no conflicts
+  static constexpr size_t K_BYTES = (size_t)BK * PK * sizeof(T);
+  static constexpr size_t STAGE = K_BYTES + (size_t)BK * PV * sizeof(T);
+  static constexpr size_t Q_BYTES = (size_t)ROWS * QP * sizeof(float);
+  static constexpr size_t BYTES = STAGES * STAGE + Q_BYTES;
+};
+
+template <typename T>
+struct Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  void* out;
+  Strides sq, sk, sv;
+  int Hq, Hkv, Lq, Lk, causal;
+  float scale;
+};
+
+// The warp's 16 rows of q, times `scale` (rounded), into its shared-memory
+// rows; rows past the tile's end are 0.
+template <typename T, int D>
+__device__ __forceinline__ void load_q(float* qs, const Args<T>& a,
+                                       const Tile& t, int warp, int lane) {
+  constexpr int QP = Layout<T, D>::QP;
+  constexpr int EPC = 16 / sizeof(T);
+  constexpr int CH = D / EPC;
+  for (int idx = lane; idx < WARP_ROWS * CH; idx += 32) {
+    const int r = idx / CH;
+    const int c = idx % CH;
+    const int row = warp * WARP_ROWS + r;
+    float x[EPC];
+    if (row < t.rows_here) {
+      load_vec<T, EPC>(x, a.q + t.q_offset(row, a.sq) + c * EPC);
+    } else {
 #pragma unroll
-  for (int u = 0; u < PV<D>::RPT; ++u) acc[u] = 0.0f;
-  __syncthreads();
+      for (int e = 0; e < EPC; ++e) x[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < EPC; e += 2)
+      *reinterpret_cast<float2*>(qs + r * QP + c * EPC + e) =
+          make_float2(__fmul_rn(x[e], a.scale), __fmul_rn(x[e + 1], a.scale));
+  }
+}
 
-  for (int j0 = 0; j0 < t.n_keys; j0 += BK) {
-    load_kv<D>(k, v, s, t, j0, true);
-    __syncthreads();
-    score_tile<D>(s, t, j0);
-    __syncthreads();
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const Args<T> a) {
+  using L = Layout<T, D>;
+  using Gr = Groups<D>;
+  constexpr int NB = L::BK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tile t(a.Hq, a.Hkv, a.Lq, a.Lk, a.causal, ROWS);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const T* kb = a.k + t.b * a.sk.b + t.h * a.sk.h;
+  const T* vb = a.v + t.b * a.sv.b + t.h * a.sv.h;
+  const int n_tiles = (t.n_keys + L::BK - 1) / L::BK;
 
-    {  // online softmax: four threads per row
-      const int r = tid >> 2;
-      const int sub = tid & 3;
-      float* row = s.p_s + r * BK;
+  auto issue = [&](int it) {
+    T* st = reinterpret_cast<T*>(smem + (it & 1) * L::STAGE);
+    issue_rows<T, D>(st, L::PK, kb, a.sk.l, it * L::BK, L::BK, t.Lk);
+    issue_rows<T, D>(st + L::K_BYTES / sizeof(T), L::PV, vb, a.sv.l,
+                     it * L::BK, L::BK, t.Lk);
+  };
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
+
+  float* qs = reinterpret_cast<float*>(smem + STAGES * L::STAGE) +
+              warp * WARP_ROWS * L::QP;
+  load_q<T, D>(qs, a, t, warp, lane);
+  __syncwarp();
+  auto qfrag = [&](int ks, float (&f)[4]) {
+    const int d = Gr::GW * (ks / Gr::KPG) + Gr::PER * tq + 2 * (ks % Gr::KPG);
+    const float2 x = *reinterpret_cast<const float2*>(qs + g * L::QP + d);
+    const float2 y = *reinterpret_cast<const float2*>(qs + (g + 8) * L::QP + d);
+    f[0] = x.x;
+    f[1] = y.x;
+    f[2] = x.y;
+    f[3] = y.y;
+  };
+
+  const WarpRows w(t, warp, g);
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();                        // tile it landed; it-1 consumed
+    if (it + 1 < n_tiles) issue(it + 1);
+    cp_async_commit();
+    const int j0 = it * L::BK;
+    if (j0 >= w.n_keys) continue;           // nothing of it visible here
+    const T* st = reinterpret_cast<const T*>(smem + (it & 1) * L::STAGE);
+
+    float s[NB][4];
+    score_tile<T, D, NB>(s, st, qfrag, g, tq);
+    mask_tile<NB>(s, t, w, j0, tq);
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {           // online softmax, rows g, g+8
       float mx = -INFINITY;
-      for (int jj = sub; jj < BK; jj += 4) mx = fmaxf(mx, row[jj]);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        mx = fmaxf(mx, fmaxf(s[nb][2 * i], s[nb][2 * i + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
+      const float m_new = fmaxf(m[i], mx);
       const float m_safe = isfinite(m_new) ? m_new : 0.0f;
       float sum = 0.0f;
-      for (int jj = sub; jj < BK; jj += 4) {
-        const float p = expf(row[jj] - m_safe);   // -inf -> 0
-        row[jj] = p;
-        sum += p;
-      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(s[nb][2 * i + e] - m_safe);   // -inf -> 0
+          s[nb][2 * i + e] = p;
+          sum += p;
+        }
       sum += __shfl_xor_sync(FULL, sum, 1);
       sum += __shfl_xor_sync(FULL, sum, 2);
-      if (sub == 0) {
-        const float corr = isfinite(m_old) ? expf(m_old - m_safe) : 0.0f;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
+      const float corr = isfinite(m[i]) ? expf(m[i] - m_safe) : 0.0f;
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][2 * i] *= corr;
+        o[n][2 * i + 1] *= corr;
       }
     }
-    __syncthreads();
 
+    const T* vs = st + L::K_BYTES / sizeof(T);
 #pragma unroll
-    for (int u = 0; u < PV<D>::RPT; ++u) acc[u] *= c_s[PV<D>::row() + u];
-    pv_accumulate<D>(s, acc);
-    __syncthreads();                        // k_s/v_s/p_s reused next tile
+    for (int ks = 0; ks < NB; ++ks) {       // P @ V, P from the fragments
+      const FragA p = split_a(s[ks][0], s[ks][2], s[ks][1], s[ks][3]);
+      pv_step<T, D>(o, p, vs + (ks * 8 + 2 * tq) * L::PV, g);
+    }
   }
+  cp_async_wait_all();
 
+  const bool bf16 = !std::is_same<T, float>::value;
 #pragma unroll
-  for (int u = 0; u < PV<D>::RPT; ++u) {
-    const float l = l_s[PV<D>::row() + u];
-    acc[u] = acc[u] / (l == 0.0f ? 1.0f : l);
-  }
-  store_rows<D>(out, t, acc);
+  for (int i = 0; i < 2; ++i)
+    if (w.ok[i])
+      store_row<D>(a.out, bf16, t.out_offset(w.row[i], D), o, i,
+                   1.0f / (l[i] == 0.0f ? 1.0f : l[i]), tq);
+}
+
+template <typename T, int D>
+int launch(const Args<T>& a, int B, cudaStream_t stream) {
+  const size_t smem = Layout<T, D>::BYTES;
+  auto kernel = flash_attention_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_rows = (a.Hq / a.Hkv) * a.Lq;
+  dim3 grid(B * a.Hkv, (n_rows + ROWS - 1) / ROWS);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_typed(const void* q, const void* k, const void* v, void* out,
+                 int B, int Hq, int Hkv, int Lq, int Lk, int D, int causal,
+                 float scale, const long long* strides, cudaStream_t st) {
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.out = out;
+  a.sq = {strides[0], strides[1], strides[2]};
+  a.sk = {strides[3], strides[4], strides[5]};
+  a.sv = {strides[6], strides[7], strides[8]};
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.causal = causal;
+  a.scale = scale;
+  return dispatch_head_dim(D, [&](auto dim) {
+    return launch<T, decltype(dim)::value>(a, B, st);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D), out (B, Hq, Lq, D): contiguous
-// f32; D in {16, 32, 64, 128}.  Returns the cudaError_t of the launch.
-int flash_attention_launch(const float* q, const float* k, const float* v,
-                           float* out, int B, int Hq, int Hkv, int Lq, int Lk,
-                           int D, int causal, float scale, void* stream) {
+// q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D): all float32 (bf16 = 0) or all
+// bfloat16 (bf16 = 1), D contiguous, strides (batch, head, position) in
+// elements in `strides` (q, k, v: 9 values), every row 16-byte aligned;
+// out (B, Hq, Lq, D) contiguous in the same dtype; D in {16, 32, 64, 128}.
+// Returns the cudaError_t of the launch.
+int flash_attention_launch(const void* q, const void* k, const void* v,
+                           void* out, int bf16, int B, int Hq, int Hkv,
+                           int Lq, int Lk, int D, int causal, float scale,
+                           const long long* strides, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch_head_dim(D, [&](auto dim) {
+  if (bf16)
+    return launch_typed<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Lq, Lk, D,
+                                       causal, scale, strides, st);
+  return launch_typed<float>(q, k, v, out, B, Hq, Hkv, Lq, Lk, D, causal,
+                             scale, strides, st);
+}
+
+// Dynamic shared memory of one block for element size `elem_bytes` (4 or
+// 2) and head dim D; 0 for a D the kernel does not take.
+size_t flash_attention_smem_bytes(int elem_bytes, int D) {
+  if (D != 16 && D != 32 && D != 64 && D != 128) return 0;
+  return (size_t)dispatch_head_dim(D, [&](auto dim) {
     constexpr int kD = decltype(dim)::value;
-    return launch<kD>(flash_attention_kernel<kD>, B, Hq, Hkv, Lq, st, q, k,
-                      v, out, Hq, Hkv, Lq, Lk, causal, scale);
+    return (int)(elem_bytes == 2 ? Layout<__nv_bfloat16, kD>::BYTES
+                                 : Layout<float, kD>::BYTES);
   });
 }
 

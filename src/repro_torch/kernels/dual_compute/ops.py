@@ -12,16 +12,20 @@
   ``FUSED``.
 * ``logdomain_flash_attention`` — NL-DPE causal attention streamed in KV
   tiles: q scaled by 1/sqrt(d), q/k/v log-quantized (the crossbars'
-  fused log-ACAM outputs), then the CUDA kernel ``csrc/logdomain_flash.cu``
-  for CUDA tensors; the materialized plain version for CPU tensors.  This
-  is what ``NLDPEConfig.attention`` dispatches maskless attention to
-  under ``FUSED``.
+  fused log-ACAM outputs; ``log_quantize_qkv``, one launch), then the CUDA
+  kernel ``csrc/logdomain_flash.cu`` for CUDA tensors, its instance from
+  ``logdomain_plan`` and its exps from ``logdomain_tables``; the
+  materialized plain version for CPU tensors.  This is what
+  ``NLDPEConfig.attention`` dispatches maskless attention to under
+  ``FUSED``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ...core.acam import (AcamMap, compile_thresholds, get_table,
@@ -32,6 +36,7 @@ from ...core.noise import DEFAULT
 from ...core.quantization import QuantSpec, recip
 from ...core.slicing import RESIDUAL_GAIN, plan_asl
 from .. import build
+from ..flash_attention.ops import rows_aligned, strides
 from .ref import fused_crossbar_acam_ref, logdomain_flash_ref
 
 
@@ -54,8 +59,18 @@ def _ld_lib():
     lib = build.load("logdomain_flash")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.logdomain_flash_launch.argtypes = [vp] * 4 + [i] * 7 + [vp, vp]
+        fp = ctypes.POINTER(ctypes.c_float)
+        lib.logdomain_quantize_launch.argtypes = [vp] * 6 + [i] * 9 + [
+            ctypes.POINTER(ctypes.c_longlong), fp, vp, i, vp]
+        lib.logdomain_quantize_launch.restype = i
+        sz = ctypes.c_size_t
+        lib.logdomain_flash_launch.argtypes = [vp] * 4 + [i] * 9 + [
+            fp, vp, vp, sz, vp]
         lib.logdomain_flash_launch.restype = i
+        lib.logdomain_flash_smem_bytes.argtypes = [i] * 3
+        lib.logdomain_flash_smem_bytes.restype = sz
+        lib.logdomain_flash_scratch_bytes.argtypes = [i] * 5
+        lib.logdomain_flash_scratch_bytes.restype = sz
         lib._typed = True
     return lib
 
@@ -152,16 +167,203 @@ def fused_linear_acam(x: torch.Tensor, w: torch.Tensor, act: str,
 
 
 def logdomain_grids(cfg: LogDomainConfig, lk: int) -> list[float]:
-    """(lo, step, 1/step) of the four 8-bit grids the kernel crosses — the
-    max-shifted scores, the exp ACAM's output, log of the row sum (its top
-    is log(lk + 1)) and the log-softmax — rounded as ``QuantSpec`` rounds
-    them."""
+    """(lo, step, 1/step) of the three 8-bit grids kernel C crosses by
+    arithmetic — the max-shifted scores, log of the row sum (its top is
+    log(lk + 1)) and the log-softmax — rounded as ``QuantSpec`` rounds
+    them.  (The exp ACAM's grid is crossed inside ``logdomain_tables``.)"""
+    score, _, logsum, logp = _grid_specs(cfg, lk)
+    return [x for sp in (score, logsum, logp)
+            for x in (sp.lo, sp.step, recip(sp.step))]
+
+
+def _grid_specs(cfg: LogDomainConfig, lk: int) -> tuple[QuantSpec, ...]:
+    """The score, exp-output, log-sum and log-softmax grids for lk keys."""
     r = cfg.score_range
-    specs = (QuantSpec(lo=-r, hi=0.0, bits=cfg.bits),
-             QuantSpec(lo=0.0, hi=1.0, bits=cfg.bits),
-             QuantSpec(lo=-r, hi=float(math.log(lk + 1)), bits=cfg.bits),
-             QuantSpec(lo=-2 * r, hi=0.0, bits=cfg.bits))
-    return [x for sp in specs for x in (sp.lo, sp.step, recip(sp.step))]
+    return (QuantSpec(lo=-r, hi=0.0, bits=cfg.bits),
+            QuantSpec(lo=0.0, hi=1.0, bits=cfg.bits),
+            QuantSpec(lo=-r, hi=float(math.log(lk + 1)), bits=cfg.bits),
+            QuantSpec(lo=-2 * r, hi=0.0, bits=cfg.bits))
+
+
+def logdomain_tables(cfg: LogDomainConfig, device) -> torch.Tensor:
+    """The four 256-entry float32 tables kernel C reads, as rows of a
+    (4, 256) tensor on ``device``, built there once per (grid, device) with
+    the plain version's own ops and cached:
+
+    0. the score grid's values ``yq`` of each code (``QuantSpec.dequantize``);
+    1. the exp ACAM's output of each score code, ``q8(exp(yq))`` on [0, 1];
+    2. exp of each log-softmax code's value (``nldpe_matmul_loga``'s
+       ``exp(la_spec.apply(.))``);
+    3. the DMMul grid's magnitudes ``exp(code * step + log_lo)``
+       (``log_quantize``'s decode), for the quantize launch.
+
+    So every exp the kernels use is torch's exp on that device, bit for bit.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (cfg, device)
+    if key not in _LD_TABLES:
+        score, expo, _, logp = _grid_specs(cfg, 1)
+        codes = torch.arange(1 << cfg.bits, dtype=torch.int32, device=device)
+        yq = score.dequantize(codes)
+        _LD_TABLES[key] = torch.stack([
+            yq, expo.apply(torch.exp(yq)), torch.exp(logp.dequantize(codes)),
+            cfg.mag_spec.decode(codes, torch.ones_like(yq))])
+    return _LD_TABLES[key]
+
+
+_LD_TABLES: dict[tuple, torch.Tensor] = {}
+
+# The tile constants of csrc/logdomain_flash.cu, and its instances in the
+# order of its enum.
+LD_ROWS, LD_KEYS, LD_STAGES, LD_TABLE_BYTES = 64, 32, 2, 3 * 256 * 4
+LD_INSTANCES = ("two_pass", "resident")
+SMEM_LIMIT = 227 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class LdPlan:
+    """One launch of kernel C: the instance ("resident": one score pass
+    with the row tile's f32 scores in shared memory; "two_pass": the row
+    max, then the codes as bytes in a device scratch), query rows per
+    block, keys per K/V tile, ring depth and dynamic shared memory."""
+    instance: str
+    rows: int
+    keys: int
+    stages: int
+    smem: int
+
+
+def _ld_pitch(lk: int) -> int:
+    """A row's pitch of scores or codes: the keys rounded up to a tile,
+    plus 8."""
+    return -(-lk // LD_KEYS) * LD_KEYS + 8
+
+
+def logdomain_plan(lk: int, d: int, instance: str | None = None) -> LdPlan:
+    """Kernel C's instance for ``lk`` keys and head dim ``d``
+    (``layout_bytes`` of the CUDA source, byte for byte: the ring, the
+    tables, a float per row, the 64 rows of q padded to d + 4 floats, then
+    the resident instance's scores): resident where its scores fit, else
+    two-pass, which fits any length; or ``instance`` where one is asked
+    for (it must fit)."""
+    if d not in (16, 32, 64, 128):
+        raise ValueError(f"logdomain_flash_attention: head_dim {d} not in "
+                         f"(16, 32, 64, 128)")
+    if instance is not None and instance not in LD_INSTANCES:
+        raise ValueError(f"logdomain_flash_attention: no instance "
+                         f"{instance!r}")
+    sp = _ld_pitch(lk)
+    base = (LD_STAGES * LD_KEYS * (d + 4) * 4 + LD_TABLE_BYTES
+            + LD_ROWS * 4 + LD_ROWS * (d + 4) * 4)
+    smem = {"resident": base + LD_ROWS * sp * 4, "two_pass": base}
+    if instance is None:
+        instance = ("resident" if smem["resident"] <= SMEM_LIMIT
+                    else "two_pass")
+    elif smem[instance] > SMEM_LIMIT:
+        raise ValueError(f"logdomain_flash_attention: the {instance} "
+                         f"instance does not fit {lk} keys")
+    return LdPlan(instance, LD_ROWS, LD_KEYS, LD_STAGES, smem[instance])
+
+
+def logdomain_scratch_bytes(pl: LdPlan, b: int, hq: int, hkv: int, lq: int,
+                            lk: int) -> int:
+    """Device scratch a launch of ``pl`` needs: for two-pass, one byte per
+    (row, key) of every block's row tile (the keys padded to the pitch);
+    none for resident."""
+    if pl.instance != "two_pass":
+        return 0
+    tiles = -(-(hq // hkv * lq) // pl.rows)
+    return b * hkv * tiles * pl.rows * _ld_pitch(lk)
+
+
+def _quantize_consts(cfg: LogDomainConfig, d: int):
+    """q's scale, then ``log_quantize``'s float32 constants: log_lo,
+    1/step (``scalar_div``), the flush threshold ``exp(log_lo)`` (compared
+    in float32) and the log's floor ``exp(float32(log_lo))``."""
+    spec = cfg.mag_spec
+    vals = (inv_sqrt(d), spec.log_lo, recip(spec.step),
+            math.exp(spec.log_lo), float(np.exp(np.float32(spec.log_lo))))
+    return (ctypes.c_float * 5)(*vals)
+
+
+def log_quantize_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: LogDomainConfig = DEFAULT_CFG):
+    """(log_quantize(q * 1/sqrt(d)), log_quantize(k), log_quantize(v)) as
+    contiguous float32, every operand upcast first, as the plain version
+    upcasts.  CPU tensors take ``log_quantize``; CUDA tensors one launch of
+    the quantize kernel, whose values are ``log_quantize``'s on the card bit
+    for bit: it reads float32 and bfloat16 as they are, and an operand of
+    another floating dtype after one upcast on the card."""
+    d = q.shape[-1]
+    if q.device.type == "cpu":
+        f32 = torch.float32
+        return (log_quantize(q.to(f32) * inv_sqrt(d), cfg),
+                log_quantize(k.to(f32), cfg), log_quantize(v.to(f32), cfg))
+    if cfg.bits != 8:
+        raise ValueError(f"log_quantize_qkv: {cfg.bits}-bit grid")
+    if any(not t.is_floating_point() for t in (q, k, v)):
+        raise TypeError("log_quantize_qkv: operands must be floating point")
+    q, k, v = (t if t.dtype in (torch.float32, torch.bfloat16)
+               else t.to(torch.float32) for t in (q, k, v))
+    if d not in (16, 32, 64, 128) or k.shape[-1] != d or v.shape != k.shape:
+        raise ValueError(f"log_quantize_qkv: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if max(q.numel(), k.numel()) // d >= 1 << 31:
+        raise ValueError("log_quantize_qkv: 2^31 rows or more")
+    q, k, v = (rows_aligned(t) for t in (q, k, v))
+    outs = [torch.empty(t.shape, dtype=torch.float32, device=q.device)
+            for t in (q, k, v)]
+    b, hq, lq, _ = q.shape
+    _, hkv, lk, _ = k.shape
+    dec = logdomain_tables(cfg, q.device)[3]
+    err = _ld_lib().logdomain_quantize_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *(t.data_ptr() for t in outs),
+        *(int(t.dtype == torch.bfloat16) for t in (q, k, v)),
+        b, hq, hkv, lq, lk, d, strides(q, k, v), _quantize_consts(cfg, d),
+        dec.data_ptr(),
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "log_quantize_qkv")
+    log_quantize_qkv.launches += 1
+    return tuple(outs)
+
+
+log_quantize_qkv.launches = 0
+
+
+def logdomain_kernel(q_l: torch.Tensor, k_l: torch.Tensor,
+                     v_l: torch.Tensor, out_dtype: torch.dtype,
+                     cfg: LogDomainConfig = DEFAULT_CFG,
+                     causal: bool = True,
+                     plan: LdPlan | None = None) -> torch.Tensor:
+    """Kernel C's attention launch over log-quantized operands (the
+    outputs of ``log_quantize_qkv``): (B, H, Lq, D) in ``out_dtype``, the
+    kernel writing float32 or bfloat16 (another dtype is cast from its
+    float32 output); the instance ``plan``, by default
+    ``logdomain_plan``'s.  Counts one launch of
+    ``logdomain_flash_attention``."""
+    b, hq, lq, d = q_l.shape
+    _, hkv, lk, _ = k_l.shape
+    pl = plan or logdomain_plan(lk, d)
+    direct = out_dtype in (torch.float32, torch.bfloat16)
+    out = torch.empty((b, hq, lq, d), device=q_l.device,
+                      dtype=out_dtype if direct else torch.float32)
+    nscratch = logdomain_scratch_bytes(pl, b, hq, hkv, lq, lk)
+    scratch = torch.empty(nscratch, dtype=torch.uint8, device=q_l.device)
+    grids = (ctypes.c_float * 9)(*logdomain_grids(cfg, lk))
+    err = _ld_lib().logdomain_flash_launch(
+        q_l.data_ptr(), k_l.data_ptr(), v_l.data_ptr(), out.data_ptr(),
+        int(out.dtype == torch.bfloat16), b, hq, hkv, lq, lk, d, int(causal),
+        LD_INSTANCES.index(pl.instance), grids,
+        logdomain_tables(cfg, q_l.device).data_ptr(),
+        scratch.data_ptr() if nscratch else None, nscratch,
+        torch.cuda.current_stream(q_l.device).cuda_stream)
+    build.check(err, "logdomain_flash_attention")
+    logdomain_flash_attention.launches += 1
+    return out if direct else out.to(out_dtype)
 
 
 def logdomain_flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -174,7 +376,8 @@ def logdomain_flash_attention(q: torch.Tensor, k: torch.Tensor,
     tiles.
 
     CPU tensors take the plain (materialized) version; CUDA tensors launch
-    the kernel (or raise — there is no fallback)."""
+    the quantize kernel and then the attention kernel (or raise — there is
+    no fallback), the output in q's dtype."""
     if q.device.type == "cpu":
         return logdomain_flash_ref(q, k, v, cfg, causal).to(q.dtype)
     b, hq, lq, d = q.shape
@@ -191,19 +394,8 @@ def logdomain_flash_attention(q: torch.Tensor, k: torch.Tensor,
                          "device")
     if min(b, hq, lq, lk) < 1:
         raise ValueError("logdomain_flash_attention: empty operand")
-    q_l = log_quantize(q.to(torch.float32) * inv_sqrt(d), cfg).contiguous()
-    k_l = log_quantize(k.to(torch.float32), cfg).contiguous()
-    v_l = log_quantize(v.to(torch.float32), cfg).contiguous()
-    grids = (ctypes.c_float * 12)(*logdomain_grids(cfg, lk))
-    out = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
-    err = _ld_lib().logdomain_flash_launch(
-        q_l.data_ptr(), k_l.data_ptr(), v_l.data_ptr(), out.data_ptr(),
-        b, hq, hkv, lq, lk, d, int(causal), ctypes.cast(grids,
-                                                        ctypes.c_void_p),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "logdomain_flash_attention")
-    logdomain_flash_attention.launches += 1
-    return out.to(q.dtype)
+    return logdomain_kernel(*log_quantize_qkv(q, k, v, cfg), q.dtype, cfg,
+                            causal)
 
 
 logdomain_flash_attention.launches = 0

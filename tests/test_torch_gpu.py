@@ -388,15 +388,17 @@ def _attn_case(rng, b, hq, hkv, lq, lk, d, dtype, dev):
 
 
 ATTN_CASES = [(2, 4, 2, 37, 53, 16), (1, 8, 1, 70, 70, 64),
-              (8, 16, 2, 512, 512, 128)]
+              (8, 16, 2, 512, 512, 128), (1, 16, 2, 2048, 2048, 128)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ATTN_CASES, ids=["odd", "g8", "qwen3b"])
+@pytest.mark.parametrize("shape", ATTN_CASES,
+                         ids=["odd", "g8", "qwen3b", "long2048"])
 def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
-    """Kernel F against its plain version on the same (upcast) inputs:
-    1e-4 absolute — the same f32 math summed in another order."""
+    """Kernel F against its plain version on the same inputs (bf16 read as
+    bf16, the plain version upcasting): 1e-4 absolute — the same f32 math
+    in split-TF32 products, summed in another order."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     q, k, v = _attn_case(np.random.default_rng(2), *shape, dtype, dev)
@@ -422,14 +424,40 @@ def test_flash_attention_rows_without_keys_are_zero(dev):
     assert (out - flash_attention_ref(q, k, v)).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("shape", ATTN_CASES[:2] + [(4, 16, 2, 256, 256,
-                                                      128)],
-                         ids=["odd", "g8", "qwen3b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_strided_operands(dev, dtype):
+    """q, k, v as transposed views of (B, L, H, D) projections (the head
+    dim contiguous): the kernel reads them in place, and gives what it
+    gives on contiguous copies, bit for bit."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.tensor(rng.normal(size=(2, n, h, 64)),
+                            dtype=torch.float32).to(dtype).to(dev)
+               .transpose(1, 2) for n, h in ((40, 8), (45, 2), (45, 2)))
+    assert not q.is_contiguous()
+    out = flash_attention(q, k, v)
+    assert torch.equal(out, flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous()))
+
+
+def test_flash_attention_plan_matches_the_kernel_layout(dev):
+    """The wrapper's shared-memory formula is the CUDA source's, byte for
+    byte, for both operand dtypes and every head dim."""
+    from repro_torch.kernels.flash_attention import ops
+    for d in ops.HEAD_DIMS:
+        for dtype, esz in ((torch.float32, 4), (torch.bfloat16, 2)):
+            assert ops._lib().flash_attention_smem_bytes(esz, d) == \
+                ops.plan(dtype, d).smem
+
+
+@pytest.mark.parametrize("shape", ATTN_CASES[:2] + [
+    (4, 16, 2, 256, 256, 128), (1, 16, 2, 2048, 2048, 128)],
+                         ids=["odd", "g8", "qwen3b", "long2048"])
 def test_logdomain_flash_kernel_matches_plain(dev, shape):
     """Kernel C against the materialized NL-DPE attention on the card:
     within one exp-grid LSB, 1/255 (``repro``'s own tolerance between its
-    kernel and the oracle; row sums and dot products in another order can
-    move a log-grid code)."""
+    kernel and the oracle; row sums in another order can move a log-grid
+    code).  At 2048 keys it runs the two-pass instance."""
     from repro_torch.kernels.dual_compute.ops import logdomain_flash_attention
     from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
     q, k, v = _attn_case(np.random.default_rng(4), *shape, torch.float32,
@@ -441,6 +469,148 @@ def test_logdomain_flash_kernel_matches_plain(dev, shape):
     ref = logdomain_flash_ref(q, k, v)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 1.0 / 255
+
+
+@pytest.mark.parametrize("lk", [40, 700, 3100, 12288],
+                         ids=["resident", "two_pass700", "two_pass3100",
+                              "two_pass12288"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_logdomain_flash_instances_match_plain(dev, lk, causal):
+    """Each instance of kernel C the plan picks (resident; two-pass, its
+    codes in the device scratch, up to 12288 keys, past what a row tile's
+    codes in shared memory could hold) against the plain version, 37
+    queries at the end of the key axis, within 1/255."""
+    from repro_torch.kernels.dual_compute.ops import (
+        logdomain_flash_attention, logdomain_plan)
+    from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
+    assert logdomain_plan(lk, 128).instance == (
+        "resident" if lk == 40 else "two_pass")
+    q, k, v = _attn_case(np.random.default_rng(7), 1, 4, 2, 37, lk, 128,
+                         torch.float32, dev)
+    out = logdomain_flash_attention(q, k, v, causal=causal)
+    ref = logdomain_flash_ref(q, k, v, causal=causal)
+    assert (out - ref).abs().max().item() <= 1.0 / 255
+
+
+def test_logdomain_flash_every_instance_at_one_shape(dev):
+    """Both instances asked for at one shape that each fits (odd lengths,
+    GQA 4): each within 1/255 of the plain version."""
+    from repro_torch.kernels.dual_compute import ops
+    from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
+    q, k, v = _attn_case(np.random.default_rng(9), 2, 8, 2, 45, 300, 64,
+                         torch.float32, dev)
+    quantized = ops.log_quantize_qkv(q, k, v)
+    ref = logdomain_flash_ref(q, k, v)
+    outs = {name: ops.logdomain_kernel(
+        *quantized, torch.float32, plan=ops.logdomain_plan(300, 64, name))
+        for name in ops.LD_INSTANCES}
+    for out in outs.values():
+        assert (out - ref).abs().max().item() <= 1.0 / 255
+
+
+def test_logdomain_kernel_counts_its_launch(dev):
+    """A direct call of the attention launch counts one launch of kernel
+    C, as the full wrapper's call does (the quantize launch counts its
+    own)."""
+    from repro_torch.kernels.dual_compute import ops
+    q, k, v = _attn_case(np.random.default_rng(10), 1, 4, 2, 20, 20, 32,
+                         torch.float32, dev)
+    quantized = ops.log_quantize_qkv(q, k, v)
+    before = ops.logdomain_flash_attention.launches
+    ops.logdomain_kernel(*quantized, torch.float32)
+    assert ops.logdomain_flash_attention.launches == before + 1
+    quant_before = ops.log_quantize_qkv.launches
+    ops.logdomain_flash_attention(q, k, v)
+    assert ops.logdomain_flash_attention.launches == before + 2
+    assert ops.log_quantize_qkv.launches == quant_before + 1
+
+
+def test_logdomain_flash_plan_matches_the_kernel_layout(dev):
+    """The wrapper's shared-memory and scratch formulas are the CUDA
+    source's, byte for byte, for every head dim and instance."""
+    from repro_torch.kernels.dual_compute import ops
+    lib = ops._ld_lib()
+    for d in (16, 32, 64, 128):
+        for lk in (1, 256, 512, 608, 640, 2048, 3100, 6100, 11000, 40000):
+            for i, name in enumerate(ops.LD_INSTANCES):
+                try:
+                    pl = ops.logdomain_plan(lk, d, name)
+                except ValueError:
+                    continue
+                assert lib.logdomain_flash_smem_bytes(i, d, lk) == pl.smem
+            pl = ops.logdomain_plan(lk, d, "two_pass")
+            for shape in ((1, 16, 2, 37, lk), (3, 8, 8, 100, lk)):
+                assert lib.logdomain_flash_scratch_bytes(*shape) == \
+                    ops.logdomain_scratch_bytes(pl, *shape)
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float16,) * 3, (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16, torch.float16)],
+                         ids=["f16", "bf16_q", "mixed"])
+def test_attention_kernels_take_other_dtypes_upcast(dev, dtypes):
+    """float16 or mixed operands: kernels F and C launch their float32
+    instances on upcast copies, and give their plain versions' results (F
+    within 1e-4, C within 1/255, plus one output step of q's dtype), in q's
+    dtype; the quantize launch is ``log_quantize`` of the upcasts bit for
+    bit."""
+    from repro_torch.core.logdomain import inv_sqrt, log_quantize
+    from repro_torch.kernels.dual_compute.ops import (
+        log_quantize_qkv, logdomain_flash_attention)
+    from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = (t.to(dt) for t, dt in zip(_attn_case(
+        np.random.default_rng(11), 2, 8, 2, 40, 60, 64, torch.float32, dev),
+        dtypes))
+    step = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}[q.dtype]
+    f32 = [t.float() for t in (q, k, v)]
+    for fn, ref_fn, tol in ((flash_attention, flash_attention_ref, 1e-4),
+                            (logdomain_flash_attention, logdomain_flash_ref,
+                             1.0 / 255)):
+        before = fn.launches
+        out = fn(q, k, v)
+        assert fn.launches == before + 1 and out.dtype == q.dtype
+        ref = ref_fn(*f32)
+        assert bool(((out.float() - ref).abs()
+                     <= tol + step * ref.abs()).all())
+    got = log_quantize_qkv(q, k, v)
+    want = (log_quantize(f32[0] * inv_sqrt(64)), log_quantize(f32[1]),
+            log_quantize(f32[2]))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True])
+def test_log_quantize_launch_is_log_quantize_bitwise(dev, dtype, strided):
+    """Kernel C's quantize launch gives ``log_quantize``'s values on the
+    card bit for bit: q scaled by 1/sqrt(d) first, bf16 upcast first, the
+    flush threshold, the log floor and both rounding edges included (inputs
+    spread over the whole grid and beyond it, exact zeros, tiny values);
+    strided views read in place."""
+    from repro_torch.core.logdomain import inv_sqrt, log_quantize
+    from repro_torch.kernels.dual_compute.ops import log_quantize_qkv
+    rng = np.random.default_rng(8)
+
+    def operand(b, h, n, d):
+        x = np.exp(rng.uniform(np.log(1e-6), np.log(40.0), (b, n, h, d)))
+        x *= rng.choice([-1.0, 1.0], x.shape)
+        x[..., 0] = 0.0
+        t = torch.tensor(x, dtype=torch.float32).to(dtype).to(dev)
+        t = t.transpose(1, 2)
+        return t if strided else t.contiguous()
+
+    q, k, v = operand(2, 8, 33, 128), operand(2, 2, 50, 128), \
+        operand(2, 2, 50, 128)
+    before = log_quantize_qkv.launches
+    got = log_quantize_qkv(q, k, v)
+    assert log_quantize_qkv.launches == before + 1
+    want = (log_quantize(q.float() * inv_sqrt(128)), log_quantize(k.float()),
+            log_quantize(v.float()))
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and g.dtype == torch.float32
+        assert torch.equal(g, w)
 
 
 def test_logdomain_flash_kernel_bf16_matches_plain(dev):
