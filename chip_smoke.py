@@ -26,11 +26,21 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    ``FUSED`` numerics — 4 prompts of 256, 8 new tokens, the prefill
    through the log-domain flash kernel (C) and kernel B;
 5. serves the paged phase's 8 requests through the slotted ``ServeEngine``;
+   then ``[serve spec]``: the paged OFF engine and trace with speculative
+   decoding, spec_k 4 and the weights-only drafter (kernel A's decode
+   instance for the drafts, its chunk instance for the verify at q_len 5),
+   and ``[serve spec analog]``: the first 4 requests, 16 new tokens,
+   spec_k 1 with the ``ON`` drafter (NL-DPE attention over the cache;
+   the verify through kernel A at q_len 2) — every request must complete
+   with the paged OFF phase's tokens (near-tie guarded on the card's
+   logits), and kernel A must carry the verify (and the weights-only
+   drafts);
 6. holds each kernel against its plain PyTorch version on the card at the
    shapes the serve paths launch, and times kernel, plain version and a
    PyTorch library call beside the card's bound (the crossbar kernels B,
    E and G also name the tile they launched and the rates they reached;
-   kernel A runs f32 and bf16 pools and, on the log8 engine's pools, int8
+   kernel A runs f32 and bf16 pools at Q = 1, 2, 5 and 64 (decode, the
+   two verify shapes, chunk prefill) and, on the log8 engine's pools, int8
    and log8 code pools; kernels F and C run at 2048 keys too, and C's
    quantize launch must give ``log_quantize``'s bits); the attention
    kernels' bounds name the f32 FMA and the split-TF32 tensor-core bound;
@@ -191,15 +201,41 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
     trace through ``engine.run`` and check the completions.  ``counter`` is
     the kernel wrapper the path must launch (None for the slotted OFF
     path, which launches none of the port's kernels); a paged engine must
-    also hit its radix cache."""
+    also hit its radix cache.  The result carries each request's tokens
+    (not printed) and kernel A's launches by (q_len, instance)."""
     from repro_torch.launch.engine import Request
+    from repro_torch.nn import attention
     engine.run([Request(rid=-1, tokens=(1, 2, 3), max_new_tokens=2,
                         arrival=engine.tick)])
     base = engine.tick
     reqs = [dataclasses.replace(r, arrival=base + r.arrival) for r in reqs]
+    by_shape: dict = {}
+    plain_a = attention.paged_attention
+
+    def tallied(q, k_pages, v_pages, bt, lengths, **kw):
+        from repro_torch.kernels.paged_attention.ops import (
+            paged_attention, plan)
+        before = paged_attention.launches
+        out = plain_a(q, k_pages, v_pages, bt, lengths, **kw)
+        kind = (2 if kw.get("kv_quant") else
+                0 if k_pages.dtype == torch.float32 else 1)
+        inst = plan(q.shape[0], k_pages.shape[1],
+                    q.shape[1] // k_pages.shape[1] * q.shape[2],
+                    bt.shape[1], k_pages.shape[2], q.shape[3], kind,
+                    torch.cuda.get_device_properties(0)
+                    .multi_processor_count).instance
+        key = f"q_len={q.shape[2]} {inst}"
+        by_shape[key] = (by_shape.get(key, 0) + paged_attention.launches
+                         - before)
+        return out
+
+    attention.paged_attention = tallied
     zero_counts()
     engine.prefill_seconds = engine.decode_seconds = 0.0
     engine.decode_ticks = 0
+    if getattr(engine, "spec_k", 0):
+        engine.reset_window()           # the trace's spec counters alone
+        engine.spec_draft_seconds = 0.0
     # the path's launches inside each prefill chunk and each decode tick
     split = {"prefill_chunk": [0, 0], "decode_tick": [0, 0]}
 
@@ -217,7 +253,10 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    comps = engine.run(reqs)
+    try:
+        comps = engine.run(reqs)
+    finally:
+        attention.paged_attention = plain_a
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     del engine._chunk, engine.step
@@ -264,8 +303,10 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
            "launches_per_prefill_chunk": split["prefill_chunk"][1]
            / max(split["prefill_chunk"][0], 1),
            "launches_per_decode_tick": split["decode_tick"][1]
-           / max(split["decode_tick"][0], 1)}
+           / max(split["decode_tick"][0], 1),
+           "paged_attention_by_shape": by_shape}
     print(f"[{label}] " + json.dumps(out))
+    out["tokens"] = {c.rid: c.tokens for c in comps}
     return out
 
 
@@ -311,6 +352,141 @@ def serve_log8(torch, engine, f32_pool_bytes: int, reqs) -> dict:
            "pool_bytes_ratio": qb / fb}
     print("[serve OFF log8] " + json.dumps(out))
     return {**res, **out}
+
+
+def serve_spec(torch, engine, reqs, off: dict, label: str) -> dict:
+    """``[serve spec]`` / ``[serve spec analog]``: the paged OFF trace (or
+    its head) through a speculative engine.  Every request completes with
+    the paged OFF phase's tokens up to near-ties (``spec_tokens_agree``,
+    against twice the routes' logit deviation that
+    ``verify_route_deviation`` measures on the same weights); kernel A carries
+    the verify chunk of every tick (36 launches at q_len spec_k + 1, the
+    chunk instance above G*Q = 16) and, with the weights-only drafter, the
+    36 x spec_k draft decode steps (q_len 1, decode instance); the ``ON``
+    drafter attends through NL-DPE attention and launches none."""
+    from repro_torch.kernels.paged_attention.ops import (DECODE_MAX_ROWS,
+                                                         paged_attention)
+    k, n_layers = engine.spec_k, engine.cfg.n_layers
+    res = serve(torch, engine, reqs, paged_attention, label)
+    st = engine.spec_stats["window"]
+    drafts_via_a = not engine.spec_draft.enabled
+    per_tick = n_layers * (1 + (k if drafts_via_a else 0))
+    check(res["launches_per_decode_tick"] == per_tick,
+          f"{label}: {res['launches_per_decode_tick']} kernel A launches "
+          f"per tick, expected {per_tick}")
+    ticks = res["decode_ticks"]
+    group = engine.cfg.n_heads // engine.cfg.n_kv_heads
+    verify = "decode" if group * (k + 1) <= DECODE_MAX_ROWS else "chunk"
+    want = {f"q_len={k + 1} {verify}": n_layers * ticks}
+    if drafts_via_a:
+        want["q_len=1 decode"] = n_layers * k * ticks
+    shapes = {key: v for key, v in res["paged_attention_by_shape"].items()
+              if not key.startswith(f"q_len={engine.prefill_chunk} ")}
+    check(shapes == want, f"{label}: kernel A's decode-tick launches by "
+          f"shape {shapes}, expected {want}")
+    dev = verify_route_deviation(torch, engine, [
+        reqs[i % len(reqs)] for i in range(engine.max_slots)])
+    ties = spec_tokens_agree(torch, engine, reqs, res["tokens"],
+                             off["tokens"], 2 * dev, label)
+    draft_s = engine.spec_draft_seconds
+    check(st["ticks"] == ticks, f"{label}: {st['ticks']} spec steps in "
+          f"{ticks} decode ticks")
+    out = {"spec_k": k, "drafter": "ON" if not drafts_via_a
+           else "weights-only (log grid)",
+           "acceptance_rate": st["acceptance_rate"],
+           "drafted": st["drafted"], "accepted": st["accepted"],
+           "spec_steps": st["ticks"],
+           "tokens_per_s": res["tokens_per_s"],
+           "ms_per_tick": res["decode_ms_per_tick"],
+           "draft_seconds": draft_s,
+           "draft_share_of_wall": draft_s / res["wall_s"],
+           "draft_share_of_decode": draft_s
+           / max(engine.decode_seconds, 1e-9),
+           "max_memory_allocated_gb": res["max_memory_allocated_gb"],
+           "verify_route_logit_deviation": dev,
+           "tie_bound": 2 * dev,
+           "paged_attention_per_tick_by_shape": {
+               key: v / max(ticks, 1) for key, v in shapes.items()},
+           "near_ties": ties}
+    print(f"[{label} summary] " + json.dumps(out))
+    return {**res, **out}
+
+
+def verify_route_deviation(torch, engine, reqs) -> float:
+    """Max |logit| difference between the two routes a spec engine takes
+    to the same logits at full width: ``spec_k + 1`` decode steps (kernel
+    A's decode instance, GEMMs of height 8) against one verify chunk of
+    ``spec_k + 1`` queries (the chunk instance where G*Q > 16, GEMMs of
+    height 8 (spec_k + 1)), over the engine's own serving weights and the
+    prompts of ``reqs``, one per slot of the engine (each prompt's tail is
+    the chunk, its head prefilled in 64-token chunks into a fresh paged
+    cache)."""
+    from repro_torch.models import lm
+    cfg, k = engine.cfg, engine.spec_k
+    b, ps, n_blocks = len(reqs), engine.page_size, engine.n_blocks
+    cache = lm.init_model_cache(cfg, b, engine.max_len,
+                                paged=(b * n_blocks, ps), device="cuda")
+    cache["bt"].copy_(torch.arange(b * n_blocks, dtype=torch.int32,
+                                   device="cuda").reshape(b, n_blocks))
+    head = [len(r.tokens) - (k + 1) for r in reqs]
+    c = engine.prefill_chunk
+    n = -(-max(head) // c) * c
+    toks = torch.zeros((b, n + k + 1), dtype=torch.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.tokens)] = torch.tensor(r.tokens)
+    toks = toks.cuda()
+    ones = torch.ones((b,), dtype=torch.bool, device="cuda")
+    ar = torch.arange(c, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        for s0 in range(0, n, c):           # pads past a head are rewritten
+            lm.forward(engine.params, toks[:, s0:s0 + c], cfg, cache=cache,
+                       positions=(s0 + ar).expand(b, c), write_mask=ones)
+        m = torch.tensor(head, dtype=torch.int32, device="cuda")
+        tail = torch.stack([toks[i, h:h + k + 1]
+                            for i, h in enumerate(head)])
+        other = {n_: t.clone() for n_, t in cache.items()}
+        step = torch.stack([lm.decode_step(engine.params, cfg, tail[:, j],
+                                           m + j, cache, write_mask=ones)
+                            for j in range(k + 1)], dim=1)
+        chunk = lm.forward(engine.params, tail, cfg, cache=other,
+                           positions=m[:, None] + ar[:k + 1],
+                           write_mask=ones)
+    return (step - chunk).abs().max().item()
+
+
+def spec_tokens_agree(torch, engine, reqs, got: dict, want: dict,
+                      bound: float, label: str) -> list:
+    """Greedy spec tokens against the non-spec phase's for the same
+    requests (``want`` may run longer: compare its head).  The verify
+    chunk and the decode steps it stands for sum in other orders (kernel
+    A's chunk and decode instances, bf16 GEMMs of other heights), so their
+    logits differ by up to D (``verify_route_deviation``), and two tokens
+    whose logits are within 2D can swap.  So where a request's tokens
+    diverge, the card's top-2 logit margin at that position (a
+    whole-prompt forward of the non-spec tokens before it, on the
+    engine's verify weights) must be below ``bound`` = 2D; the rest of
+    that request is then not comparable.  Returns the ties with their
+    margins."""
+    from repro_torch.models import lm
+    ties = []
+    for r in reqs:
+        a, b = got[r.rid], want[r.rid][:r.max_new_tokens]
+        if a == b:
+            continue
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        ctx = torch.tensor([r.tokens + tuple(b[:i])], dtype=torch.int32,
+                           device="cuda")
+        with torch.no_grad():
+            top = torch.topk(lm.forward(engine.params, ctx, engine.cfg,
+                                        mode="prefill")[0, -1].float(),
+                             2).values
+        margin = (top[0] - top[1]).item()
+        ties.append({"rid": r.rid, "token": i, "margin": margin})
+        check(margin < bound, f"{label}: rid {r.rid} diverges from the "
+              f"non-spec tokens at token {i} with a top-2 margin of "
+              f"{margin}, not below twice the routes' deviation, {bound}")
+    return ties
 
 
 def path_launches(res: dict, name: str) -> dict:
@@ -464,13 +640,15 @@ def kernel_a_inputs(engine) -> dict:
 
 
 def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
-                          q_in: dict, qlaunches: dict) -> dict:
+                          q_in: dict, qlaunches: dict,
+                          spec_launches: dict) -> dict:
     """Kernel A on the OFF engine's own layer-0 pools and block tables
-    (``kernel_a_inputs``): decode (Q=1) and chunk prefill (Q=64), f32 and
-    bf16 pools; then on the log8 engine's own layer-0 code and scale pools
-    and block tables, the log8 pools as served and the same K/V re-encoded
-    on the int8 grid.  Sentinel entries are written into each block
-    table."""
+    (``kernel_a_inputs``): decode (Q=1), the spec verify (Q=2, the analog
+    phase's; Q=5, spec_k 4's) and chunk prefill (Q=64), f32 and bf16
+    pools; then on the log8 engine's own layer-0 code and scale pools and
+    block tables (Q=1, 64), the log8 pools as served and the same K/V
+    re-encoded on the int8 grid.  Sentinel entries are written into each
+    block table.  ``spec_launches`` are the spec phases' counts."""
     from repro_torch.core.quantization import kv_decode
     from repro_torch.nn.attention import _quantize_kv
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -483,13 +661,15 @@ def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
     pools["int8"] = (kc, vc, ks, vs)
     del kf, vf
     cases = []
-    for q_len in (1, 64):
+    for q_len in (1, 2, 5, 64):
         q = torch.randn((fp_in["bt"].shape[0], fp_in["n_heads"], q_len,
                          k0.shape[-1]), generator=gen, device="cuda")
         for pool_dtype in (torch.float32, torch.bfloat16):
             cases.append(paged_case(
                 torch, timer, fp_in, q, k0.to(pool_dtype),
                 v0.to(pool_dtype), {}, str(pool_dtype).split(".")[-1]))
+        if q_len in (2, 5):                 # the verify shapes: fp pools
+            continue
         for mode in ("int8", "log8"):
             kc, vc, ks, vs = pools[mode]
             cases.append(paged_case(
@@ -503,6 +683,7 @@ def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
             **launches,
             "launches_serve_off_log8":
                 qlaunches["launches"]["paged_attention"],
+            **spec_launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tolerance": A_TOL, "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -1204,7 +1385,7 @@ def main() -> None:
              f"(src/repro_torch missing)")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.core.engine import FUSED, OFF, ON, NLDPEConfig
     from repro_torch.kernels import build
     from repro_torch.kernels.dual_compute.ops import (
         fused_crossbar_acam, log_quantize_qkv, logdomain_flash_attention)
@@ -1239,9 +1420,9 @@ def main() -> None:
           f"(float32) in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    off = PagedServeEngine(cfg, params, max_slots=8, max_len=1024,
-                           nldpe=OFF, page_size=16, prefill_chunk=64,
-                           decode_block=4)
+    paged_kw = dict(max_slots=8, max_len=1024, nldpe=OFF, page_size=16,
+                    prefill_chunk=64, decode_block=4)
+    off = PagedServeEngine(cfg, params, **paged_kw)
     off_res = serve(torch, off, make_trace(cfg, 8, 32, 0), paged_attention,
                     "serve OFF")
     profile_window(torch, off, make_trace(cfg, 4, 32, 0), "serve OFF")
@@ -1299,6 +1480,28 @@ def main() -> None:
     print(f"[serve slotted OFF] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    spec = PagedServeEngine(cfg, params, spec_k=4,
+                            spec_draft=NLDPEConfig(enabled=False),
+                            **paged_kw)
+    spec_res = serve_spec(torch, spec, make_trace(cfg, 8, 32, 0), off_res,
+                          "serve spec")
+    profile_window(torch, spec, make_trace(cfg, 4, 16, 0), "serve spec")
+    del spec
+    torch.cuda.empty_cache()
+    print(f"[serve spec] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    analog = PagedServeEngine(cfg, params, spec_k=1, spec_draft=ON,
+                              **paged_kw)
+    analog_res = serve_spec(torch, analog, make_trace(cfg, 4, 16, 0),
+                            off_res, "serve spec analog")
+    profile_window(torch, analog, make_trace(cfg, 2, 16, 0),
+                   "serve spec analog")
+    del analog
+    torch.cuda.empty_cache()
+    print(f"[serve spec analog] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     lib = library_phase(torch, params)
     library_checks(torch, lib)
     print(f"[library] phase {time.perf_counter() - t0:.1f} s")
@@ -1306,9 +1509,17 @@ def main() -> None:
     t0 = time.perf_counter()
     timer = Timer(torch)
     kernels = [
-        paged_attention_phase(torch, timer, off_in,
-                              path_launches(off_res, "paged_attention"),
-                              log8_in, log8_res),
+        paged_attention_phase(
+            torch, timer, off_in, path_launches(off_res, "paged_attention"),
+            log8_in, log8_res, {
+                "launches_serve_spec": spec_res["launches"][
+                    "paged_attention"],
+                "launches_serve_spec_per_tick": spec_res[
+                    "paged_attention_per_tick_by_shape"],
+                "launches_serve_spec_analog": analog_res["launches"][
+                    "paged_attention"],
+                "launches_serve_spec_analog_per_tick": analog_res[
+                    "paged_attention_per_tick_by_shape"]}),
         fused_acam_phase(torch, timer, params,
                          path_launches(fused_res, "fused_crossbar_acam")),
         logdomain_phase(torch, timer, lock_fused["per_kernel"][

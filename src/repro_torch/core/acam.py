@@ -202,23 +202,30 @@ _TABLE_CACHE: dict[tuple, ACAMTable] = {}
 _PW_CACHE: dict[tuple, PiecewiseFn] = {}
 
 
-def get_table(name: str, bits: int = 8) -> ACAMTable:
-    """The Gray-coded table of ``name`` over its reference domain."""
-    key = (name, bits)
+def get_table(name: str, bits: int = 8, encoding: str = "gray",
+              in_domain: tuple[float, float] | None = None) -> ACAMTable:
+    """The table of ``name`` over ``in_domain`` (default: the function's
+    reference domain), built once per (name, bits, encoding, domain)."""
+    key = (name, bits, encoding, in_domain)
     if key not in _TABLE_CACHE:
-        _TABLE_CACHE[key] = build_table(name, bits=bits, encoding="gray")
+        _TABLE_CACHE[key] = build_table(name, bits=bits, encoding=encoding,
+                                        in_domain=in_domain)
     return _TABLE_CACHE[key]
 
 
-def get_piecewise(name: str, bits: int = 8) -> PiecewiseFn:
-    key = (name, bits)
+def get_piecewise(name: str, bits: int = 8,
+                  in_domain: tuple[float, float] | None = None
+                  ) -> PiecewiseFn:
+    key = (name, bits, in_domain)
     if key not in _PW_CACHE:
-        _PW_CACHE[key] = compile_piecewise(get_table(name, bits))
+        _PW_CACHE[key] = compile_piecewise(
+            get_table(name, bits, "gray", in_domain))
     return _PW_CACHE[key]
 
 
-def acam_activation(x: torch.Tensor, name: str,
-                    bits: int = 8) -> torch.Tensor:
+def acam_activation(x: torch.Tensor, name: str, bits: int = 8,
+                    in_domain: tuple[float, float] | None = None
+                    ) -> torch.Tensor:
     """Model-level op: the ACAM-computed activation (piecewise fast path)."""
-    bp, vals = get_piecewise(name, bits).on(x.device)
+    bp, vals = get_piecewise(name, bits, in_domain).on(x.device)
     return eval_piecewise(bp, vals, x).to(x.dtype)

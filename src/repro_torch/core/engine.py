@@ -2,8 +2,9 @@
 ``repro.core.engine``).
 
 Model code calls the dispatchers here (``activation``,
-``linear_activation``, ``elementwise_mul``, ``attention``), which pick the
-NL-DPE path or the float reference according to the config:
+``linear_activation``, ``softmax``, ``dmmul``, ``elementwise_mul``,
+``attention``), which pick the NL-DPE path or the float reference
+according to the config:
 
 * ``OFF``   — float reference numerics;
 * ``ON``    — ACAM activations (piecewise fast path), log-domain DMMul and
@@ -11,6 +12,13 @@ NL-DPE path or the float reference according to the config:
 * ``FUSED`` — ``ON`` with every Linear+activation pair in one crossbar->ACAM
               pass: the hand-written kernel of ``kernels/dual_compute`` on
               the GPU (the paper's ADC-free dataflow).
+
+The ablation switches pick which op classes run on the analog engine:
+``acam_activations`` (activations and the fused Linear+activation),
+``logdomain_dmmul`` (DMMul, element-wise products and NL-DPE attention)
+and ``acam_softmax`` (the standalone softmax).  ``bits`` is the ACAM
+resolution of every activation table, ``logdomain`` the grids of the
+DMMul/softmax pipeline.
 
 ``attention`` sends maskless causal attention (whole-prompt lockstep
 prefill) under ``FUSED`` through the streamed log-domain flash attention of
@@ -27,51 +35,68 @@ import torch
 from .acam import acam_activation
 from .attention import nldpe_attention, reference_attention
 from .functions import TORCH_FUNCTIONS
-from .logdomain import DEFAULT_CFG, nldpe_mul
-
-
-BITS = 8    # ACAM resolution of every activation table
+from .logdomain import (DEFAULT_CFG, LogDomainConfig, nldpe_matmul,
+                        nldpe_mul, nldpe_softmax)
 
 
 @dataclasses.dataclass(frozen=True)
 class NLDPEConfig:
     enabled: bool = False
+    bits: int = 8
+    logdomain: LogDomainConfig = DEFAULT_CFG
+    # which op classes run on the analog engine (ablation switches)
+    acam_activations: bool = True
+    logdomain_dmmul: bool = True
+    acam_softmax: bool = True
+    # crossbar->ACAM and attention as single passes (the ADC-free
+    # dataflow); off = the two-kernel path with the same numerics
     fused_dual_compute: bool = False
 
     def activation(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        if self.enabled:
-            return acam_activation(x, name, bits=BITS)
+        if self.enabled and self.acam_activations:
+            return acam_activation(x, name, bits=self.bits)
         return TORCH_FUNCTIONS[name](x)
 
     def linear_activation(self, x: torch.Tensor, w: torch.Tensor,
                           name: str) -> torch.Tensor:
         """act(x @ w) — one fused crossbar->ACAM pass when configured
         (``w`` must then be the float32 master weight)."""
-        if self.enabled and self.fused_dual_compute:
+        if self.enabled and self.acam_activations and self.fused_dual_compute:
             from ..kernels.dual_compute.ops import fused_linear_acam
-            return fused_linear_acam(x, w, name, bits=BITS).to(x.dtype)
+            return fused_linear_acam(x, w, name, bits=self.bits).to(x.dtype)
         return self.activation(x @ w.to(x.dtype), name)
+
+    def softmax(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        if self.enabled and self.acam_softmax:
+            return nldpe_softmax(x, self.logdomain, axis=axis)
+        return torch.softmax(x, dim=axis)
+
+    def dmmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if self.enabled and self.logdomain_dmmul:
+            return nldpe_matmul(a, b, self.logdomain, mode="fused")
+        return torch.matmul(a, b)
 
     def elementwise_mul(self, a: torch.Tensor,
                         b: torch.Tensor) -> torch.Tensor:
-        if self.enabled:
-            return nldpe_mul(a, b, DEFAULT_CFG)
+        if self.enabled and self.logdomain_dmmul:
+            return nldpe_mul(a, b, self.logdomain, mode="fused")
         return a * b
 
     def attention(self, q, k, v, causal: bool = True,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
         """k/v may carry fewer (grouped) heads than q: the fused kernel
         takes them as they are, the materialized paths repeat them."""
-        if self.enabled and self.fused_dual_compute and mask is None:
+        if (self.enabled and self.logdomain_dmmul and self.fused_dual_compute
+                and mask is None):
             from ..kernels.dual_compute.ops import logdomain_flash_attention
-            return logdomain_flash_attention(q, k, v, DEFAULT_CFG,
+            return logdomain_flash_attention(q, k, v, self.logdomain,
                                              causal=causal)
         if k.shape[1] != q.shape[1]:
             group = q.shape[1] // k.shape[1]
             k = torch.repeat_interleave(k, group, dim=1)
             v = torch.repeat_interleave(v, group, dim=1)
-        if self.enabled:
-            return nldpe_attention(q, k, v, DEFAULT_CFG, causal=causal,
+        if self.enabled and self.logdomain_dmmul:
+            return nldpe_attention(q, k, v, self.logdomain, causal=causal,
                                    mask=mask)
         return reference_attention(q, k, v, causal=causal, mask=mask)
 

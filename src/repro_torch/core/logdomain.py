@@ -136,6 +136,16 @@ def nldpe_log_softmax(y: torch.Tensor, cfg: LogDomainConfig = DEFAULT_CFG,
     return out
 
 
+def nldpe_softmax(y: torch.Tensor, cfg: LogDomainConfig = DEFAULT_CFG,
+                  axis: int = -1) -> torch.Tensor:
+    """Full Fig 6b: steps 1-4, then step 5's exp ACAM back to the linear
+    scale on the [0, 1] 8-bit grid."""
+    logp = nldpe_log_softmax(y.movedim(axis, -1), cfg).movedim(-1, axis)
+    out_spec = QuantSpec(lo=0.0, hi=1.0, bits=cfg.bits)
+    p_spec_in = QuantSpec(lo=-2 * cfg.score_range, hi=0.0, bits=cfg.bits)
+    return out_spec.apply(torch.exp(p_spec_in.apply(logp)))   # step 5
+
+
 def nldpe_matmul_loga(log_a: torch.Tensor, b: torch.Tensor,
                       cfg: LogDomainConfig = DEFAULT_CFG,
                       mask: torch.Tensor | None = None) -> torch.Tensor:

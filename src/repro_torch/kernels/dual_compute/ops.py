@@ -149,13 +149,17 @@ def program(w: torch.Tensor):
 
 
 def fused_linear_acam(x: torch.Tensor, w: torch.Tensor, act: str,
-                      bits: int = 8) -> torch.Tensor:
+                      bits: int = 8,
+                      in_domain: tuple[float, float] | None = None
+                      ) -> torch.Tensor:
     """act(x @ w) through an ideally programmed A-SL crossbar, fused.
-    x (..., K) any leading shape, w (K, N) float32 -> (..., N) float32.
-    Programming happens per call: four (K, N) float32 cell matrices are
-    transient (caching the plan is later work).  The table's compiled map
-    is cached per device (``table_map``), not compiled per call."""
-    table = get_table(act, bits)
+    x (..., K) any leading shape, w (K, N) float32 -> (..., N) float32;
+    the ACAM table of ``act`` at ``bits`` over ``in_domain`` (default: the
+    function's reference domain).  Programming happens per call: four
+    (K, N) float32 cell matrices are transient (caching the plan is later
+    work).  The table's compiled map is cached per table and device
+    (``table_map``), not compiled per call."""
+    table = get_table(act, bits, "gray", in_domain)
     cells, inv = program(w)
     lo, hi = table_thresholds(table, x.device)
     shape = x.shape

@@ -29,10 +29,14 @@ publication).
   ``kv_cache_dtype`` names the grid) stores 8-bit codes with per-(position,
   head) scales (DESIGN.md §11); the paged engine keys its radix root on the
   grid.
+* **Speculative decoding** — ``PagedServeEngine(spec_k=K)``: each tick
+  drafts K tokens per slot through the NL-DPE drafter and verifies them in
+  one exact chunk (``launch/spec_decode.py``, DESIGN.md §8).
 
-Not ported yet (``ROADMAP.md`` queue A): speculative decoding,
-drift/fidelity, telemetry, the host spill tier and preemption, meshes, AOT
-prefill buckets and the async engine.
+Not ported yet (``ROADMAP.md`` queue A): drift/fidelity, telemetry, the
+host spill tier and preemption, meshes, AOT prefill buckets and the async
+engine.  The paged engine raises ``NotImplementedError`` when asked for
+any of them.
 
 Where ``repro`` donates device buffers to its jitted steps, these engines
 update the cache and the decode state in place.
@@ -52,6 +56,15 @@ from ..core.engine import NLDPEConfig, OFF
 from ..models import lm
 from .kvpool import PagePool, nldpe_fingerprint
 from .sampling import TOP_K_CAP, request_key, sample_tokens, step_keys
+from .spec_decode import (build_draft_scan_fn, build_verify_fn,
+                          clip_positions, emits_tick_major,
+                          quantize_draft_params)
+
+# PagedServeEngine options of repro's that the port does not have yet
+# (ROADMAP.md A.3), with the value that leaves each off
+_NOT_PORTED = {"drift": None, "fidelity": None, "telemetry": None,
+               "host_cache_pages": 0, "mesh": None, "rules": None,
+               "prefill_buckets": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,24 +168,19 @@ class ServeEngine:
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def _clip_pos(self, mask: torch.Tensor, bound: torch.Tensor) -> None:
-        """On masked slots, make every position >= bound never-valid."""
-        pos = self.cache["pos"]
-        pos.masked_fill_(mask[:, None] & (pos >= bound[:, None]), -1)
-
     def _chunk(self, tokens, base_pos, mask, limit) -> torch.Tensor:
         """One (max_slots, prefill_chunk) suffix-prefill chunk at per-slot
         base positions.  Pre-clear: stale entries >= base on writing slots
         become never-valid before the chunk attends; post-clip: entries
         >= limit (= min(prompt length, chunk end)) trim the padded tail."""
         c = self.prefill_chunk
-        self._clip_pos(mask, base_pos)
+        clip_positions(self.cache, mask, base_pos)
         positions = base_pos[:, None] + torch.arange(
             c, dtype=torch.int32, device=self.device)
         logits = lm.forward(self.params, tokens, self.cfg,
                             cache=self.cache, positions=positions,
                             nldpe=self.nldpe, write_mask=mask)
-        self._clip_pos(mask, limit)
+        clip_positions(self.cache, mask, limit)
         return logits
 
     def _merge_state(self, sel: np.ndarray, tok, pos, gen, temp, topk,
@@ -383,8 +391,9 @@ class ServeEngine:
         """One decode tick; returns the requests that finished in it."""
         t0 = time.perf_counter()
         emits, active = self._dispatch_tick()
-        emits = emits.cpu().numpy()        # the tick's one host sync
-        active = active.cpu().numpy()
+        # the tick's host sync (a spec tick hands over host arrays already)
+        emits, active = (x.cpu().numpy() if torch.is_tensor(x) else x
+                         for x in (emits, active))
         self.decode_seconds += time.perf_counter() - t0
         self.decode_ticks += 1
         return self._harvest(emits, active)
@@ -448,12 +457,40 @@ class PagedServeEngine(ServeEngine):
     """Continuous batching over a paged KV cache with radix prefix sharing:
     ``ServeEngine``'s scheduler over a page pool of ``num_pages`` pages of
     ``page_size`` tokens (default ``max_slots * ceil(max_len /
-    page_size)``)."""
+    page_size)``).
+
+    **Speculative decoding** (``spec_k > 0``): each decode tick drafts
+    ``spec_k`` tokens per slot through the drafter — ``spec_draft``
+    numerics (default ``NLDPEConfig(enabled=True)``, as in ``repro``) over
+    the float32 weights put through the 8-bit log grid — and verifies all
+    ``spec_k + 1`` positions in one exact chunk with rejection sampling,
+    emitting 1 to ``spec_k + 1`` tokens per active slot.  Greedy tokens
+    are the non-speculative engine's up to near-ties: kernel A's decode
+    and chunk instances sum in different orders (ROADMAP.md C).  Each
+    request's pages carry ``spec_k`` positions of slack for the drafts,
+    and only committed positions reach the radix index.  ``spec_stats``
+    holds the acceptance counters, the analog-fidelity signal.
+    """
 
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
-                 page_size: int = 16, num_pages: int | None = None, **kw):
+                 page_size: int = 16, num_pages: int | None = None,
+                 spec_k: int = 0, spec_draft: NLDPEConfig | None = None,
+                 **kw):
+        asked = [n for n, off in _NOT_PORTED.items()
+                 if kw.pop(n, off) not in (off, False)]
+        if asked:
+            raise NotImplementedError(
+                f"PagedServeEngine: {', '.join(asked)} not ported yet "
+                f"(ROADMAP.md A.3)")
         if page_size < 1:
             raise ValueError("page_size >= 1")
+        if spec_k < 0:
+            raise ValueError("spec_k >= 0 (0 disables speculation)")
+        self.spec_k = int(spec_k)
+        # full analog drafter by default; enabled=False keeps only the
+        # log-grid weights
+        self.spec_draft = (spec_draft if spec_draft is not None
+                           else NLDPEConfig(enabled=True))
         self.page_size = page_size
         self.n_blocks = -(-max_len // page_size)
         self.num_pages = (max_slots * self.n_blocks if num_pages is None
@@ -464,6 +501,27 @@ class PagedServeEngine(ServeEngine):
                          **kw)
         # the root is keyed on the numerics and the effective storage grid
         self._fp = nldpe_fingerprint(self.nldpe, self.kv_quant)
+        if self.spec_k:
+            # the drafter's weights: the float32 master through the log
+            # grid, then cast as any serving copy is (the float32
+            # intermediate is freed on return)
+            self._draft_params = lm.serving_params(
+                quantize_draft_params(params), self.cfg, self.spec_draft)
+            self._draft_fn = build_draft_scan_fn(
+                self.cfg, spec_k=self.spec_k, nldpe=self.spec_draft)
+            self._verify_fn = build_verify_fn(
+                self.cfg, self.params, spec_k=self.spec_k, nldpe=self.nldpe,
+                eos_id=self.eos_id)
+            self._spec_steps = 0
+            self._drafted = np.zeros((max_slots,), np.int64)
+            self._accepted = np.zeros((max_slots,), np.int64)
+            self.spec_draft_seconds = 0.0
+            # counters since the last reset_window(), and a per-tick EWMA:
+            # lifetime totals cannot show a drafter degrading
+            self._win_drafted = np.zeros((max_slots,), np.int64)
+            self._win_accepted = np.zeros((max_slots,), np.int64)
+            self._win_ticks = 0
+            self.ewma_acceptance: float | None = None
 
     def _init_cache(self) -> dict:
         return lm.init_model_cache(
@@ -475,6 +533,79 @@ class PagedServeEngine(ServeEngine):
     def stats(self) -> dict:
         """Pool + prefix-sharing counters (see kvpool.PagePool.stats)."""
         return dict(self.pool.stats)
+
+    @property
+    def spec_stats(self) -> dict:
+        """Speculative counters: drafted and accepted tokens per slot and
+        in all, the acceptance rate (how often the drafter agrees with the
+        exact path), its per-tick EWMA, the draft phase's wall seconds, and
+        the same counters since the last :meth:`reset_window`."""
+        if not self.spec_k:
+            return {"spec_k": 0}
+        drafted = int(self._drafted.sum())
+        accepted = int(self._accepted.sum())
+        wd = int(self._win_drafted.sum())
+        wa = int(self._win_accepted.sum())
+        return {"spec_k": self.spec_k, "spec_steps": self._spec_steps,
+                "drafted": drafted, "accepted": accepted,
+                "acceptance_rate": accepted / max(drafted, 1),
+                "ewma_acceptance": self.ewma_acceptance,
+                "draft_seconds": self.spec_draft_seconds,
+                "drafted_by_slot": self._drafted.tolist(),
+                "accepted_by_slot": self._accepted.tolist(),
+                "window": {"ticks": self._win_ticks,
+                           "drafted": wd, "accepted": wa,
+                           "acceptance_rate": wa / max(wd, 1),
+                           "drafted_by_slot": self._win_drafted.tolist(),
+                           "accepted_by_slot": self._win_accepted.tolist()}}
+
+    def reset_window(self) -> None:
+        """Zero the windowed counters of ``spec_stats["window"]``; the
+        lifetime totals and the EWMA keep running."""
+        if not self.spec_k:
+            return
+        self._win_drafted[:] = 0
+        self._win_accepted[:] = 0
+        self._win_ticks = 0
+
+    def _dispatch_tick(self):
+        """One decode tick.  Without ``spec_k`` the base class's
+        ``decode_block`` plain steps; with it ONE speculative step — the
+        draft phase (its wall time metered behind a device sync), then the
+        exact verify — emitting 1 to ``spec_k + 1`` tokens per active slot.
+        A spec tick returns host arrays: its acceptance counters need the
+        verify's results on the host."""
+        if not self.spec_k:
+            return super()._dispatch_tick()
+        pre_active = self._active.cpu().numpy()
+        t0 = time.perf_counter()
+        drafts, q_probs = self._draft_fn(
+            self._draft_params, self.cache, self._tok, self._pos,
+            self._active, self._temp, self._topk, self._keys)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # meter the draft alone
+        self.spec_draft_seconds += time.perf_counter() - t0
+        (self._tok, self._pos, self._active, self._gen_left, emits,
+         accepted) = self._verify_fn(
+            self.cache, self._tok, self._pos, self._active, self._gen_left,
+            self._temp, self._topk, self._keys, drafts, q_probs)
+        self.tick += 1
+        self._spec_steps += 1
+        drafted_now = np.where(pre_active, self.spec_k, 0).astype(np.int64)
+        accepted_now = np.where(pre_active, accepted.cpu().numpy(),
+                                0).astype(np.int64)
+        self._drafted += drafted_now
+        self._accepted += accepted_now
+        self._win_drafted += drafted_now
+        self._win_accepted += accepted_now
+        self._win_ticks += 1
+        d, a = int(drafted_now.sum()), int(accepted_now.sum())
+        if d:
+            alpha = 0.25
+            self.ewma_acceptance = (
+                a / d if self.ewma_acceptance is None
+                else alpha * a / d + (1 - alpha) * self.ewma_acceptance)
+        return emits_tick_major(emits), self._active.cpu().numpy()
 
     def _setup(self, admit: np.ndarray, reuse: np.ndarray,
                new_bt: np.ndarray) -> None:
@@ -515,7 +646,11 @@ class PagedServeEngine(ServeEngine):
             reuse = plen - 1
         else:
             reuse = len(hit) * ps
-        footprint = min(plen + req.max_new_tokens - 1, self.max_len)
+        # spec_k positions of slack: a spec step writes drafted K/V up to
+        # spec_k positions past the committed tip, into pages the slot owns
+        # (capped at max_len: the position track drops anything beyond)
+        footprint = min(plen + req.max_new_tokens - 1 + self.spec_k,
+                        self.max_len)
         nb_need = -(-footprint // ps)
         plan = {"hit": hit, "fork_src": fork_src, "reuse": reuse,
                 "nb_need": nb_need, "n_fresh": nb_need - len(hit)}
@@ -551,7 +686,9 @@ class PagedServeEngine(ServeEngine):
     def _release_slot(self, sl: int, seq: tuple | None = None) -> None:
         """A slot's request finished: publish its committed sequence (the
         prompt plus every generated token whose K/V was written) as prefix
-        cache, then drop the slot's page references."""
+        cache — only pages every position of which is committed, so draft
+        K/V and the spec slack never enter the index — then drop the
+        slot's page references."""
         pages = self._slot_pages[sl]
         if pages is not None:
             if seq is not None:

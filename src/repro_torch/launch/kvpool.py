@@ -222,11 +222,24 @@ class PagePool:
             child.last_use = self._clock
             node = child
 
-    def publish_committed(self, fingerprint: tuple, tokens, pages) -> None:
-        """Publish a finished request's committed sequence (prompt plus
-        generated tokens whose K/V was written) as reusable prefix cache."""
+    def publish_committed(self, fingerprint: tuple, tokens, pages,
+                          committed_len: int | None = None) -> None:
+        """Publish a finished request's committed sequence as reusable
+        prefix cache (the provisional-length publish of speculative
+        decoding).  ``tokens``/``pages`` may run past ``committed_len``
+        (default ``len(tokens)``): a speculating slot's pages also hold
+        drafted-but-unverified K/V.  Only pages whose every position lies
+        below the committed length enter the radix index; the rest stay
+        private to the slot and return to the free list on release."""
+        if committed_len is None:
+            committed_len = len(tokens)
+        if committed_len < 0 or committed_len > len(tokens):
+            raise ValueError(
+                f"committed_len={committed_len} outside [0, {len(tokens)}]")
+        n_full = committed_len // self.page_size
         before = self.stats["published"]
-        self.publish(fingerprint, tokens, pages)
+        self.publish(fingerprint, tokens[:n_full * self.page_size],
+                     pages[:n_full])
         self.stats["gen_published"] += self.stats["published"] - before
 
     # -- LRU eviction -----------------------------------------------------------

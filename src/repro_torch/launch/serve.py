@@ -13,12 +13,14 @@ tokens.
     python -m repro_torch.launch.serve --continuous [--nldpe | --fused]
     python -m repro_torch.launch.serve --paged [--nldpe | --fused]
                                        [--kv-quant {log8,int8}]
+                                       [--spec K [--spec-full-analog]]
 
 The default branch prefills ``--batch`` prompts of ``--prompt-len`` tokens
 and decodes ``--gen-len`` steps in lockstep; ``--continuous`` serves a
 staggered trace through the slotted ``ServeEngine``, ``--paged`` a
 shared-system-prompt trace through ``PagedServeEngine`` (``--kv-quant``
-stores its pages as 8-bit codes).  A config whose ``kv_cache_dtype`` names
+stores its pages as 8-bit codes; ``--spec K`` adds analog-draft
+speculative decoding with K drafts per verify).  A config whose ``kv_cache_dtype`` names
 a grid gives every path quantized caches.  The model is the
 reduced config of ``--arch`` (as the JAX CLI runs it) with seeded random
 weights, on the GPU unless ``--device cpu``.
@@ -114,7 +116,7 @@ def _validate_args(p: argparse.ArgumentParser, args) -> None:
         p.error("--continuous and --paged are mutually exclusive "
                 "(pick one engine demo)")
     bad = [n for n in ("page_size", "num_pages", "system_prompt_len",
-                       "kv_quant") if moved(n)]
+                       "spec", "spec_full_analog", "kv_quant") if moved(n)]
     if bad and not args.paged:
         p.error(f"--{bad[0].replace('_', '-')} requires --paged "
                 f"(the lockstep/--continuous paths ignore it)")
@@ -155,6 +157,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=None)
     p.add_argument("--system-prompt-len", type=int, default=24)
+    p.add_argument("--spec", type=int, default=0, metavar="K",
+                   help="speculative decode for --paged: K analog drafts "
+                        "(NL-DPE log-quant numerics) per exact batched "
+                        "verify pass (0 = off)")
+    p.add_argument("--spec-full-analog", action="store_true",
+                   help="draft with the full analog numerics (ACAM "
+                        "activations, log-domain DMMul and softmax) instead "
+                        "of the log-grid weights only; slower to simulate, "
+                        "the same greedy tokens")
     p.add_argument("--kv-quant", choices=("log8", "int8"), default=None,
                    help="store KV pages as 8-bit codes + per-(page, head, "
                         "position) scales for --paged: 'log8' = the "
@@ -205,17 +216,30 @@ def run(argv=None):
                                max_len=max_len, nldpe=nldpe,
                                page_size=args.page_size,
                                num_pages=args.num_pages,
+                               spec_k=args.spec,
+                               spec_draft=NLDPEConfig(
+                                   enabled=args.spec_full_analog),
                                kv_quant=args.kv_quant, device=device)
         t0 = time.perf_counter()
         comps = eng.run(reqs)
         dt = time.perf_counter() - t0
         st = eng.stats
-        quant = f", kv_quant={args.kv_quant}" if args.kv_quant else ""
+        mode = f", spec_k={args.spec}" if args.spec else ""
+        if args.kv_quant:
+            mode += f", kv_quant={args.kv_quant}"
         _report("paged", eng, comps, dt, f", {eng.pool.num_pages} pages x "
-                f"{args.page_size} tok{quant}")
+                f"{args.page_size} tok{mode}")
         print(f"  prefix hits {st['hits']}/{st['lookups']}, prefill tokens "
               f"saved {st['prefill_tokens_saved']}, cow forks "
               f"{st['cow_forks']}, evicted {st['evicted']}")
+        if args.spec:
+            sp = eng.spec_stats
+            n_tok = sum(len(c.tokens) for c in comps)
+            print(f"  speculative: {sp['spec_steps']} steps, accepted "
+                  f"{sp['accepted']}/{sp['drafted']} drafts "
+                  f"({sp['acceptance_rate']:.1%} — the analog-fidelity "
+                  f"signal), {n_tok / max(sp['spec_steps'], 1):.2f} "
+                  f"tokens/verify pass")
     elif args.continuous:
         reqs = [Request(rid=i,
                         tokens=tuple(int(t) for t in rng.integers(

@@ -112,7 +112,8 @@ def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
     which the crossbar->ACAM kernel programs from the float32 master."""
     act = cfg.activation_dtype
     blk = params["groups"]["b0"]
-    fused = nldpe.enabled and nldpe.fused_dual_compute
+    fused = (nldpe.enabled and nldpe.acam_activations
+             and nldpe.fused_dual_compute)
     ffn = {k: (v if k == "gate" and fused else v.to(act))
            for k, v in blk["ffn"].items()}
     out = dict(params)

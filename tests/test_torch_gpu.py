@@ -43,7 +43,7 @@ def _paged_case(rng, b, hq, hkv, p, nb, ps, d, q_len, dtype, dev):
     return [t.to(dev) for t in (q, kp.to(dtype), vp.to(dtype), bt, lengths)]
 
 
-@pytest.mark.parametrize("q_len", [1, 5, 64])
+@pytest.mark.parametrize("q_len", [1, 2, 3, 5, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 4, 2, 48, 20, 5, 16),
                                    (8, 16, 2, 512, 64, 16, 128)],
@@ -101,7 +101,7 @@ def _code_pools(args, mode):
                                           kv_quant=mode)
 
 
-@pytest.mark.parametrize("q_len", [1, 5, 64])
+@pytest.mark.parametrize("q_len", [1, 2, 3, 5, 64])
 @pytest.mark.parametrize("mode", ["int8", "log8"])
 @pytest.mark.parametrize("shape", [(2, 4, 2, 48, 20, 5, 16),
                                    (8, 16, 2, 512, 64, 16, 128)],
@@ -347,6 +347,59 @@ def test_engine_on_card_matches_cpu_plain_path(dev):
                                prefill_chunk=4, decode_block=2, device=where)
         out[where] = {c.rid: c.tokens for c in eng.run(reqs)}
     assert out["cpu"] == out["cuda"]
+
+
+@pytest.mark.parametrize("spec_k,full_analog", [(1, False), (4, False),
+                                                (2, True)])
+def test_spec_engine_on_card_matches_cpu_plain_path(dev, spec_k,
+                                                    full_analog):
+    """The speculative paged engine on the card (kernel A at the verify's
+    q_len = spec_k + 1 and the weights-only drafter's decode steps, or the
+    ``ON`` drafter) and on the CPU (plain versions), f32 activations:
+    the same greedy tokens, up to one near-tie (where two diverge, the CPU
+    model's top-2 logit margin there is below 1e-3, ten times the 1e-4
+    card-vs-CPU logit tolerance of ``chip_smoke.py``); every page
+    returns to the pool."""
+    import dataclasses
+
+    from repro_torch.core.engine import NLDPEConfig
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(4),
+                            device="cpu")
+    rng = np.random.default_rng(5)
+    shared = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 8))
+    reqs = [Request(rid=i, tokens=shared + tuple(
+        int(t) for t in rng.integers(0, cfg.vocab_size, 1 + i)),
+        max_new_tokens=8, arrival=i) for i in range(5)]
+    out, stats = {}, {}
+    for where in ("cpu", "cuda"):
+        eng = PagedServeEngine(cfg, from_jax(_np(params), device=where),
+                               max_slots=3, max_len=32, page_size=4,
+                               prefill_chunk=4, decode_block=2,
+                               spec_k=spec_k,
+                               spec_draft=NLDPEConfig(enabled=full_analog),
+                               device=where)
+        out[where] = {c.rid: c.tokens for c in eng.run(reqs)}
+        stats[where] = eng.spec_stats
+        eng.pool.check()
+        assert eng.pool.available() == eng.pool.num_pages
+    assert stats["cuda"]["drafted"] > 0
+    ties = 0
+    for r in reqs:
+        a, b = out["cpu"][r.rid], out["cuda"][r.rid]
+        if a == b:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        logits = lm.forward(lm.serving_params(params, cfg), torch.tensor(
+            [r.tokens + tuple(a[:i])], dtype=torch.int32), cfg,
+            mode="prefill")[0, -1]
+        top = torch.topk(logits, 2).values
+        assert (top[0] - top[1]).item() < 1e-3, (r.rid, a, b)
+        ties += 1
+    assert ties <= 1
 
 
 def test_slotted_engine_on_card_matches_cpu_plain_path(dev):

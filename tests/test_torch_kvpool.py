@@ -6,6 +6,7 @@ import dataclasses
 
 import pytest
 
+from repro.core.engine import NLDPEConfig as JNLDPEConfig
 from repro.launch.kvpool import nldpe_fingerprint as j_fingerprint
 
 from repro_torch.core.engine import FUSED, OFF
@@ -48,11 +49,21 @@ def test_nested_config_fingerprint_is_hashable_and_keys_a_root():
 @pytest.mark.parametrize("cfg", [OFF, FUSED], ids=["OFF", "FUSED"])
 def test_fingerprint_matches_repro_structure(cfg, kv_quant):
     """The port's key for its own configs is ``repro``'s function on the
-    same field values, and distinct per grid and per config."""
+    same field values — and, now that the configs carry the same fields
+    (the nested ``logdomain`` grids flattened too), ``repro``'s key for
+    its own config — and distinct per grid and per config."""
+    def flat(x):
+        if dataclasses.is_dataclass(x):
+            return tuple(sorted((f.name, flat(getattr(x, f.name)))
+                                for f in dataclasses.fields(x)))
+        return x
+
     fp = nldpe_fingerprint(cfg, kv_quant)
     assert fp == j_fingerprint(cfg, kv_quant)
-    assert fp == (("kv_quant", kv_quant), ("nldpe", tuple(sorted(
-        (f.name, getattr(cfg, f.name)) for f in dataclasses.fields(cfg)))))
+    j_cfg = JNLDPEConfig(enabled=cfg.enabled,
+                         fused_dual_compute=cfg.fused_dual_compute)
+    assert fp == j_fingerprint(j_cfg, kv_quant)
+    assert fp == (("kv_quant", kv_quant), ("nldpe", flat(cfg)))
     others = {nldpe_fingerprint(c, k) for c in (OFF, FUSED)
               for k in (None, "int8", "log8")}
     assert len(others) == 6
