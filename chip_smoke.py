@@ -34,13 +34,24 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    the verify through kernel A at q_len 2) — every request must complete
    with the paged OFF phase's tokens (near-tie guarded on the card's
    logits), and kernel A must carry the verify (and the weights-only
-   drafts);
+   drafts); ``[serve telemetry]``: the paged OFF engine and trace with
+   telemetry on — its tokens must be paged OFF's bit for bit, its event
+   trace (flushed to ``build/serve_telemetry.jsonl``) must follow the
+   committed schema, and it reports TTFT, TPOT and queue-wait percentiles,
+   phase walls and its tokens/s beside paged OFF's; ``[serve spec
+   drift]``: the ``[serve spec]`` engine with 64 new tokens per request,
+   its drafter's cells drifting and sticking on a virtual clock under the
+   fidelity ladder (telemetry on) — the ladder must back off and
+   reprogram, kernel A must carry the verify at every live depth, the
+   tokens must be paged OFF's up to near-ties of the routes the phase
+   runs, and it reports the drift state's bytes, the programming and
+   reprogramming seconds and the per-tick read time;
 6. holds each kernel against its plain PyTorch version on the card at the
    shapes the serve paths launch, and times kernel, plain version and a
    PyTorch library call beside the card's bound (the crossbar kernels B,
    E and G also name the tile they launched and the rates they reached;
-   kernel A runs f32 and bf16 pools at Q = 1, 2, 5 and 64 (decode, the
-   two verify shapes, chunk prefill) and, on the log8 engine's pools, int8
+   kernel A runs f32 and bf16 pools at Q = 1, 2, 3, 5 and 64 (decode, the
+   three verify shapes, chunk prefill) and, on the log8 engine's pools, int8
    and log8 code pools; kernels F and C run at 2048 keys too, and C's
    quantize launch must give ``log_quantize``'s bits); the attention
    kernels' bounds name the f32 FMA and the split-TF32 tensor-core bound;
@@ -84,6 +95,31 @@ F_TOL = 1e-4                    # flash attention: f32 sums in another order
 C_TOL = 1.0 / 255               # log-domain flash: one exp-grid LSB, as in
                                 # tests/test_fused_dual_compute.py
 U32 = 2.0 ** -24                # float32 unit roundoff
+# [serve spec drift]: the [serve spec] drafter (full width, 3.09 B cells)
+# aging on a virtual clock of DRIFT_DT seconds per spec tick; the values
+# and why are printed with the phase (``drift_settings``)
+DRIFT_DT = 1.0
+DRIFT_NU = 2.0
+DRIFT_T0 = 500.0
+DRIFT_FAULT_RATE = 1e-10        # per cell and virtual second
+DRIFT_REPROGRAM_S = 4 * DRIFT_DT
+DRIFT_POLICY = dict(window=4, ewma_alpha=0.5, soft_threshold=0.65,
+                    hard_threshold=0.45, recover_threshold=0.7,
+                    reprogram_patience=1, max_reprograms=6)
+DRIFT_WHY = ("benchmarks/serve_bench.py's FID_POLICY thresholds around the "
+             "healthy full-width acceptance (0.724 at spec_k 4): soft 0.65 "
+             "and recover 0.70 bracket it, hard 0.45 sits where the drifted "
+             "drafter has lost most of its accepts; nu 2 as FID_NU; at full "
+             "width acceptance falls steeply between drift factors 0.98 and "
+             "0.93 (tools/drift_acceptance_curve.py), so t0 = 500 spec "
+             "ticks puts factor 0.98 at tick 5 and 0.95 at tick 13: a "
+             "backoff, then a reprogram inside the run's ~45 ticks. "
+             "Faults: a cell's arrival is -log1p(-u) / rate for a float32 "
+             "uniform u on a 2^-23 grid, so 2^-23 of the cells (368 of "
+             "3.09 B) draw u = 0 and are stuck from birth, as in the "
+             "reference, and the next arrivals come at 2^-23 / rate = 1192 "
+             "virtual s, past the run: it serves with those stuck cells, "
+             "which reprogramming keeps")
 PORT_KERNELS = ("paged_attention", "fused_crossbar_acam", "logdomain_flash",
                 "log_quantize", "flash_attention", "acam_activation",
                 "crossbar_vmm", "nldpe_qmatmul")
@@ -231,6 +267,8 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
 
     attention.paged_attention = tallied
     zero_counts()
+    if getattr(engine, "telemetry", None) is not None:
+        engine.telemetry.reset()        # the trace's events alone
     engine.prefill_seconds = engine.decode_seconds = 0.0
     engine.decode_ticks = 0
     if getattr(engine, "spec_k", 0):
@@ -412,17 +450,19 @@ def serve_spec(torch, engine, reqs, off: dict, label: str) -> dict:
     return {**res, **out}
 
 
-def verify_route_deviation(torch, engine, reqs) -> float:
+def verify_route_deviation(torch, engine, reqs, k: int | None = None
+                           ) -> float:
     """Max |logit| difference between the two routes a spec engine takes
-    to the same logits at full width: ``spec_k + 1`` decode steps (kernel
-    A's decode instance, GEMMs of height 8) against one verify chunk of
-    ``spec_k + 1`` queries (the chunk instance where G*Q > 16, GEMMs of
-    height 8 (spec_k + 1)), over the engine's own serving weights and the
-    prompts of ``reqs``, one per slot of the engine (each prompt's tail is
-    the chunk, its head prefilled in 64-token chunks into a fresh paged
-    cache)."""
+    to the same logits at full width: ``k + 1`` decode steps (kernel A's
+    decode instance, GEMMs of height 8) against one verify chunk of
+    ``k + 1`` queries (the chunk instance where G*Q > 16, GEMMs of height
+    8 (k + 1)), ``k`` the engine's ``spec_k`` unless given, over the
+    engine's own serving weights and the prompts of ``reqs``, one per slot
+    of the engine (each prompt's tail is the chunk, its head prefilled in
+    64-token chunks into a fresh paged cache)."""
     from repro_torch.models import lm
-    cfg, k = engine.cfg, engine.spec_k
+    cfg = engine.cfg
+    k = engine.spec_k if k is None else k
     b, ps, n_blocks = len(reqs), engine.page_size, engine.n_blocks
     cache = lm.init_model_cache(cfg, b, engine.max_len,
                                 paged=(b * n_blocks, ps), device="cuda")
@@ -487,6 +527,188 @@ def spec_tokens_agree(torch, engine, reqs, got: dict, want: dict,
               f"non-spec tokens at token {i} with a top-2 margin of "
               f"{margin}, not below twice the routes' deviation, {bound}")
     return ties
+
+
+def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
+    """``[serve telemetry]``: the paged OFF trace through the paged OFF
+    engine with telemetry on.  Observation only: the tokens must be the
+    paged OFF phase's bit for bit.  The event trace is flushed to JSONL and
+    every line checked against the committed schema; prints the events by
+    kind, TTFT, TPOT and queue wait at p50/p90/p99, the phase walls, the
+    Prometheus text's length, and tokens/s beside paged OFF's (host
+    overhead, not a gate)."""
+    from collections import Counter
+
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.obs import EVENT_SCHEMA, SCHEMA_VERSION
+    from repro_torch.obs.telemetry import BASE_FIELDS
+    res = serve(torch, engine, reqs, paged_attention, label)
+    check(res["tokens"] == off["tokens"], f"{label}: tokens differ from "
+          f"the paged OFF phase's (telemetry must only observe)")
+    tel = engine.telemetry
+    path = ROOT / "build" / "serve_telemetry.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    n = tel.flush_jsonl(path)
+    lines = [json.loads(x) for x in path.read_text().splitlines()]
+    check(lines[0] == {"ev": "meta", "schema_version": SCHEMA_VERSION,
+                       "events": n, "dropped": 0} and len(lines) == n + 1,
+          f"{label}: bad JSONL meta line {lines[0]}")
+    seqs = []
+    for e in lines[1:]:
+        check(e["ev"] in EVENT_SCHEMA and set(e) == set(BASE_FIELDS)
+              | set(EVENT_SCHEMA[e["ev"]]), f"{label}: event {e} does "
+              f"not follow the schema")
+        seqs.append(e["seq"])
+    check(seqs == list(range(n)), f"{label}: sequence numbers not 0..n-1")
+    kinds = Counter(e["ev"] for e in lines[1:])
+    for ev in ("enqueue", "admit", "first_token", "finish"):
+        check(kinds[ev] == len(reqs), f"{label}: {kinds[ev]} {ev} events "
+              f"for {len(reqs)} requests")
+    check(kinds["decode_block"] == res["decode_ticks"], f"{label}: "
+          f"{kinds['decode_block']} decode_block events in "
+          f"{res['decode_ticks']} ticks")
+    s = tel.summary()
+    prom = engine.metrics.prometheus_text()
+    # host overhead in turns on this engine: telemetry off, on, on, off
+    # (the call sites read engine.telemetry at each tick).  Each turn
+    # serves the trace's shapes with fresh suffixes, so every turn hits the
+    # cached system prompt alone, as the first run did (a full-prompt hit
+    # takes other kernel-A routes, whose tokens may differ at a near-tie)
+    turns: dict = {"off": [], "on": []}
+    vocab, n_sys = engine.cfg.vocab_size, 256
+    for j, turn in enumerate(("off", "on", "on", "off")):
+        engine.telemetry = tel if turn == "on" else None
+        base = engine.tick
+        fresh = [dataclasses.replace(
+            r, rid=1000 * (j + 1) + r.rid, arrival=base + r.arrival,
+            tokens=r.tokens[:n_sys] + tuple(
+                (t + 7919 * (j + 1)) % vocab for t in r.tokens[n_sys:]))
+            for r in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = engine.run(fresh)
+        torch.cuda.synchronize()
+        turns[turn].append(sum(len(c.tokens) for c in comps)
+                           / (time.perf_counter() - t0))
+    engine.telemetry = tel
+
+    def pct(d):
+        return {q: d[q] for q in ("p50", "p90", "p99")}
+
+    out = {"events": n, "by_kind": dict(kinds), "jsonl": str(path),
+           "ttft_s": pct(s["ttft_s"]), "tpot_s": pct(s["tpot_s"]),
+           "queue_wait_s": pct(s["queue_wait_s"]), "phases": s["phases"],
+           "prometheus_lines": len(prom.splitlines()),
+           "tokens_per_s": res["tokens_per_s"],
+           "paged_off_tokens_per_s": off["tokens_per_s"],
+           "tokens_per_s_ratio": res["tokens_per_s"] / off["tokens_per_s"],
+           "in_turns_tokens_per_s": turns,
+           "in_turns_on_over_off": float(np.mean(turns["on"])
+                                         / np.mean(turns["off"])),
+           "tokens_equal_paged_off": True}
+    print(f"[{label} summary] " + json.dumps(out))
+    return {**res, **out}
+
+
+def drift_settings() -> dict:
+    """The ``[serve spec drift]`` plant and policy, with why."""
+    return {
+        "model": {"nu": DRIFT_NU, "t0": DRIFT_T0,
+                  "fault_rate": DRIFT_FAULT_RATE},
+        "dt_step": DRIFT_DT, "reprogram_s": DRIFT_REPROGRAM_S,
+        "policy": DRIFT_POLICY, "seed": SEED,
+        "why": DRIFT_WHY}
+
+
+def serve_spec_drift(torch, engine, reqs, want: dict, label: str) -> dict:
+    """``[serve spec drift]``: the spec_k 4 weights-only engine with a
+    drift plant, the fidelity ladder and telemetry on the paged OFF trace
+    with 64 new tokens.  The ladder must back off and reprogram; kernel A
+    must carry every tick's launches at its live depth (drafts at q_len 1,
+    the verify at q_len k + 1, a disabled tick's decode at q_len 1); the
+    tokens must equal ``want`` (the non-spec paged OFF engine's) up to
+    near-ties within twice the largest verify-vs-decode deviation among
+    the live depths.  Reports the ladder, acceptance per window, spec_k
+    per tick, the drift state's bytes, the programming, reprogramming and
+    per-tick read times, ms per tick, tokens/s and peak memory."""
+    from repro_torch.core import drift as drift_lib
+    from repro_torch.kernels.paged_attention.ops import (DECODE_MAX_ROWS,
+                                                         paged_attention)
+    cfg, n_layers = engine.cfg, engine.cfg.n_layers
+    reads0, read_s0 = engine.drift_reads, engine.drift_read_seconds
+    res = serve(torch, engine, reqs, paged_attention, label)
+    events = list(engine.telemetry.trace)
+    ks = [e["k"] if e["ev"] == "spec_verify" else 0 for e in events
+          if e["ev"] in ("spec_verify", "decode_block")]
+    check(len(ks) == res["decode_ticks"], f"{label}: {len(ks)} tick events "
+          f"in {res['decode_ticks']} ticks")
+    group = cfg.n_heads // cfg.n_kv_heads
+    want_a: dict = {}
+
+    def add(key, n):
+        want_a[key] = want_a.get(key, 0) + n
+
+    for k in ks:
+        if k == 0:
+            add("q_len=1 decode", n_layers * engine.decode_block)
+            continue
+        add("q_len=1 decode", n_layers * k)
+        inst = "decode" if group * (k + 1) <= DECODE_MAX_ROWS else "chunk"
+        add(f"q_len={k + 1} {inst}", n_layers)
+    shapes = {key: v for key, v in res["paged_attention_by_shape"].items()
+              if not key.startswith(f"q_len={engine.prefill_chunk} ")}
+    check(shapes == want_a, f"{label}: kernel A's decode-tick launches by "
+          f"shape {shapes}, expected {want_a} from the live depths")
+    fs = engine.fidelity_stats
+    ladder = [e for e in events if e["ev"] == "fidelity"]
+    kinds = [e["kind"] for e in ladder]
+    check("backoff" in kinds and "reprogram" in kinds, f"{label}: the "
+          f"ladder did not back off and reprogram: {kinds}")
+    live = sorted({k for k in ks if k})
+    slots = [reqs[i % len(reqs)] for i in range(engine.max_slots)]
+    devs = {k: verify_route_deviation(torch, engine, slots, k) for k in live}
+    bound = 2 * max(devs.values())
+    ties = spec_tokens_agree(torch, engine, reqs, res["tokens"], want,
+                             bound, label)
+    verify = [e for e in events if e["ev"] == "spec_verify"]
+    w = DRIFT_POLICY["window"]
+    windows = [sum(e["accepted"] for e in verify[i:i + w])
+               / max(sum(e["drafted"] for e in verify[i:i + w]), 1)
+               for i in range(0, len(verify), w)]
+    reads = engine.drift_reads - reads0
+    out = {"settings": drift_settings(),
+           "ladder": [{k: e[k] for k in ("tick", "kind", "spec_k", "ewma",
+                                         "vclock_s")} for e in ladder],
+           "reprograms": fs["reprograms"], "downtime_s": fs["downtime_s"],
+           "vclock_s": fs["vclock_s"],
+           "fault_fraction": fs["fault_fraction"],
+           "faulted_cells": round(fs["fault_fraction"]
+                                  * engine.cfg.param_count()),
+           "disabled_ticks": fs["disabled_ticks"],
+           "acceptance_per_window": windows,
+           "spec_k_live_per_tick": ks,
+           "acceptance_rate": engine.spec_stats["window"]["acceptance_rate"],
+           "drift_state_bytes": drift_lib.state_bytes(engine._drift_state),
+           "program_s": engine.drift_program_seconds,
+           "reprogram_s_each": engine.reprogram_seconds,
+           "read_ms_per_tick": (engine.drift_read_seconds - read_s0) * 1e3
+           / max(reads, 1),
+           "reads": reads,
+           "ms_per_tick": res["decode_ms_per_tick"],
+           "tokens_per_s": res["tokens_per_s"],
+           "max_memory_allocated_gb": res["max_memory_allocated_gb"],
+           "verify_route_logit_deviation": devs, "tie_bound": bound,
+           "paged_attention_by_shape": shapes, "near_ties": ties}
+    print(f"[{label} summary] " + json.dumps(out))
+    return {**res, **out}
+
+
+def reference_tokens(engine, reqs) -> dict:
+    """Greedy tokens of ``reqs`` through a non-spec engine (fresh arrivals
+    from its current tick)."""
+    base = engine.tick
+    reqs = [dataclasses.replace(r, arrival=base + r.arrival) for r in reqs]
+    return {c.rid: c.tokens for c in engine.run(reqs)}
 
 
 def path_launches(res: dict, name: str) -> dict:
@@ -644,7 +866,8 @@ def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
                           spec_launches: dict) -> dict:
     """Kernel A on the OFF engine's own layer-0 pools and block tables
     (``kernel_a_inputs``): decode (Q=1), the spec verify (Q=2, the analog
-    phase's; Q=5, spec_k 4's) and chunk prefill (Q=64), f32 and bf16
+    phase's and spec_k 1's; Q=3, spec_k 2's; Q=5, spec_k 4's) and chunk
+    prefill (Q=64), f32 and bf16
     pools; then on the log8 engine's own layer-0 code and scale pools and
     block tables (Q=1, 64), the log8 pools as served and the same K/V
     re-encoded on the int8 grid.  Sentinel entries are written into each
@@ -661,14 +884,14 @@ def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
     pools["int8"] = (kc, vc, ks, vs)
     del kf, vf
     cases = []
-    for q_len in (1, 2, 5, 64):
+    for q_len in (1, 2, 3, 5, 64):
         q = torch.randn((fp_in["bt"].shape[0], fp_in["n_heads"], q_len,
                          k0.shape[-1]), generator=gen, device="cuda")
         for pool_dtype in (torch.float32, torch.bfloat16):
             cases.append(paged_case(
                 torch, timer, fp_in, q, k0.to(pool_dtype),
                 v0.to(pool_dtype), {}, str(pool_dtype).split(".")[-1]))
-        if q_len in (2, 5):                 # the verify shapes: fp pools
+        if q_len in (2, 3, 5):              # the verify shapes: fp pools
             continue
         for mode in ("int8", "log8"):
             kc, vc, ks, vs = pools[mode]
@@ -1385,6 +1608,7 @@ def main() -> None:
              f"(src/repro_torch missing)")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core.drift import DriftModel
     from repro_torch.core.engine import FUSED, OFF, ON, NLDPEConfig
     from repro_torch.kernels import build
     from repro_torch.kernels.dual_compute.ops import (
@@ -1392,6 +1616,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.launch.engine import PagedServeEngine, ServeEngine
+    from repro_torch.launch.fidelity import DriftInjection, FidelityPolicy
     from repro_torch.models import lm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1432,6 +1657,16 @@ def main() -> None:
     del off
     torch.cuda.empty_cache()
     print(f"[serve OFF] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    tele = PagedServeEngine(cfg, params, telemetry=True, **paged_kw)
+    serve_telemetry(torch, tele, make_trace(cfg, 8, 32, 0), off_res,
+                    "serve telemetry")
+    # the non-spec tokens [serve spec drift] is held against (64 new)
+    drift_want = reference_tokens(tele, make_trace(cfg, 8, 64, 0))
+    del tele
+    torch.cuda.empty_cache()
+    print(f"[serve telemetry] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log8 = PagedServeEngine(cfg, params, max_slots=8, max_len=1024,
@@ -1502,6 +1737,27 @@ def main() -> None:
     print(f"[serve spec analog] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    aging = PagedServeEngine(
+        cfg, params, spec_k=4, spec_draft=NLDPEConfig(enabled=False),
+        drift=DriftInjection(DriftModel(nu=DRIFT_NU, t0=DRIFT_T0,
+                                        fault_rate=DRIFT_FAULT_RATE),
+                             seed=SEED, dt_step=DRIFT_DT,
+                             reprogram_s=DRIFT_REPROGRAM_S),
+        fidelity=FidelityPolicy(**DRIFT_POLICY), telemetry=True, **paged_kw)
+    print(f"[serve spec drift] engine built in "
+          f"{time.perf_counter() - t0:.1f} s (programming "
+          f"{aging.drift_program_seconds:.2f} s), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    drift_res = serve_spec_drift(torch, aging, make_trace(cfg, 8, 64, 0),
+                                 drift_want, "serve spec drift")
+    profile_window(torch, aging, make_trace(cfg, 4, 16, 0),
+                   "serve spec drift")
+    del aging
+    torch.cuda.empty_cache()
+    print(f"[serve spec drift] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     lib = library_phase(torch, params)
     library_checks(torch, lib)
     print(f"[library] phase {time.perf_counter() - t0:.1f} s")
@@ -1519,7 +1775,11 @@ def main() -> None:
                 "launches_serve_spec_analog": analog_res["launches"][
                     "paged_attention"],
                 "launches_serve_spec_analog_per_tick": analog_res[
-                    "paged_attention_per_tick_by_shape"]}),
+                    "paged_attention_per_tick_by_shape"],
+                "launches_serve_spec_drift": drift_res["launches"][
+                    "paged_attention"],
+                "launches_serve_spec_drift_by_shape": drift_res[
+                    "paged_attention_by_shape"]}),
         fused_acam_phase(torch, timer, params,
                          path_launches(fused_res, "fused_crossbar_acam")),
         logdomain_phase(torch, timer, lock_fused["per_kernel"][

@@ -88,17 +88,21 @@ class NoiseModel:
                                       + self.b_fluct)
 
     # -- Eq 6 ---------------------------------------------------------------
-    def program(self, rng: torch.Tensor,
-                g_target: torch.Tensor) -> torch.Tensor:
-        """One programming event: persistent write error."""
-        n = prng.normal(rng.to(g_target.device), g_target.shape)
+    def program(self, rng: torch.Tensor, g_target: torch.Tensor, *,
+                offset: int = 0) -> torch.Tensor:
+        """One programming event: persistent write error.  ``offset``:
+        ``g_target`` is the chunk from that flat index on of a larger
+        array (``prng``'s counter offset)."""
+        n = prng.normal(rng.to(g_target.device), g_target.shape,
+                        offset=offset)
         g = g_target + self.sigma_prog(g_target) * n
         return torch.clamp(g, self.g_min, self.g_max)
 
-    def read(self, rng: torch.Tensor,
-             g_programmed: torch.Tensor) -> torch.Tensor:
+    def read(self, rng: torch.Tensor, g_programmed: torch.Tensor, *,
+             offset: int = 0) -> torch.Tensor:
         """One read event: fresh fluctuation noise per read."""
-        n = prng.normal(rng.to(g_programmed.device), g_programmed.shape)
+        n = prng.normal(rng.to(g_programmed.device), g_programmed.shape,
+                        offset=offset)
         g = g_programmed + self.sigma_fluct(g_programmed) * n
         return torch.clamp(g, 0.0, self.g_max)
 

@@ -32,11 +32,19 @@ publication).
 * **Speculative decoding** — ``PagedServeEngine(spec_k=K)``: each tick
   drafts K tokens per slot through the NL-DPE drafter and verifies them in
   one exact chunk (``launch/spec_decode.py``, DESIGN.md §8).
+* **Closed-loop fidelity** — ``PagedServeEngine(spec_k=K, drift=...,
+  fidelity=...)``: the drafter's cells drift and stick on a virtual clock
+  (``core/drift.py``) and a monitor walks the degradation ladder on the
+  live acceptance — back off spec_k, reprogram, disable the draft path
+  (``launch/fidelity.py``, DESIGN.md §10).
+* **Telemetry** — ``telemetry=True`` (or a ``Telemetry``) on either engine:
+  per-request TTFT/TPOT/queue wait, phase walls and a schema-checked event
+  trace (``obs/``, DESIGN.md §12), host-side observation only; the
+  ``metrics`` registry is always on.
 
-Not ported yet (``ROADMAP.md`` queue A): drift/fidelity, telemetry, the
-host spill tier and preemption, meshes, AOT prefill buckets and the async
-engine.  The paged engine raises ``NotImplementedError`` when asked for
-any of them.
+Not ported yet (``ROADMAP.md`` queue A): the host spill tier and
+preemption, meshes, AOT prefill buckets and the async engine.  The paged
+engine raises ``NotImplementedError`` when asked for any of them.
 
 Where ``repro`` donates device buffers to its jitted steps, these engines
 update the cache and the decode state in place.
@@ -46,24 +54,30 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import weakref
 from collections import deque
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core import drift as drift_lib
 from ..core.engine import NLDPEConfig, OFF
+from ..core.logdomain import log_quantize
 from ..models import lm
+from ..obs import MetricsRegistry, Telemetry
+from . import prng
+from .fidelity import DriftInjection, FidelityMonitor, FidelityPolicy
 from .kvpool import PagePool, nldpe_fingerprint
 from .sampling import TOP_K_CAP, request_key, sample_tokens, step_keys
 from .spec_decode import (build_draft_scan_fn, build_verify_fn,
                           clip_positions, emits_tick_major,
                           quantize_draft_params)
 
-# PagedServeEngine options of repro's that the port does not have yet
-# (ROADMAP.md A.3), with the value that leaves each off
-_NOT_PORTED = {"drift": None, "fidelity": None, "telemetry": None,
-               "host_cache_pages": 0, "mesh": None, "rules": None,
+# PagedServeEngine options of repro's that the port does not have yet (the
+# spill tier, meshes, AOT prefill buckets: ROADMAP.md A.3 and A.7), with
+# the value that leaves each off
+_NOT_PORTED = {"host_cache_pages": 0, "mesh": None, "rules": None,
                "prefill_buckets": None}
 
 
@@ -102,13 +116,20 @@ class ServeEngine:
     ("int8", "log8", or None to keep ``cfg.kv_cache_dtype``); it is carried
     on the config, so setting it is ``dataclasses.replace(cfg,
     kv_cache_dtype=kv_quant)``.
+
+    ``telemetry=True`` (or a :class:`~repro_torch.obs.Telemetry`) records
+    the per-request lifecycle, phase walls and the event trace; every call
+    site is host-side observation at a boundary the engine already
+    synchronizes, so tokens are the same with it on or off.  ``metrics``
+    (always on) is the registry of lazy stats groups: ``"engine"``, and
+    ``"latency"`` with telemetry.
     """
 
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  nldpe: NLDPEConfig = OFF, prefill_chunk: int = 16,
                  decode_block: int = 4, eos_id: int = -1,
                  dtype=torch.float32, kv_quant: str | None = None,
-                 device=None):
+                 device=None, telemetry: Telemetry | bool | None = None):
         if any(t != "attn" for t in cfg.layer_pattern):
             raise NotImplementedError(
                 f"the serve engines serve attention blocks only; "
@@ -155,6 +176,27 @@ class ServeEngine:
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
         self.decode_ticks = 0
+
+        # observability (DESIGN.md §12): the registry's groups are lazy
+        # closures over state the engine keeps anyway; event and latency
+        # telemetry is opt-in and every call site is guarded on it
+        if telemetry is True:
+            telemetry = Telemetry()
+        elif telemetry is False:
+            telemetry = None
+        self.telemetry = telemetry
+        # rid -> (slot, drafted-at-admit, accepted-at-admit): finish
+        # attributes per-request spec acceptance from the slot counters
+        self._tel_admit: dict[int, tuple[int, int, int]] = {}
+        self.metrics = MetricsRegistry()
+        # the registry's groups (and the paged pool's eviction hook) reach
+        # the engine through a weak reference: a cycle through them would
+        # keep a dropped engine's device memory until the cyclic collector
+        # ran
+        me = weakref.ref(self)
+        self.metrics.register_group("engine", lambda: me()._engine_stats())
+        if self.telemetry is not None:
+            self.metrics.register_group("latency", self.telemetry.summary)
 
     def _init_cache(self) -> dict:
         return lm.init_model_cache(self.cfg, self.max_slots, self.max_len,
@@ -276,7 +318,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         self._check_wave(reqs)
         slots = [self._free.popleft() for _ in reqs]
-        return self._start_wave(reqs, slots, [0] * len(reqs), t0)
+        zeros = [0] * len(reqs)
+        return self._start_wave(reqs, slots, zeros, zeros, t0)
 
     def _check_wave(self, reqs: list[Request]) -> None:
         rids = [r.rid for r in reqs]
@@ -286,10 +329,14 @@ class ServeEngine:
             self._validate(r)
 
     def _start_wave(self, reqs: list[Request], slots: list[int],
-                    reuse_of: list[int], t0: float) -> list[Completion]:
+                    reuse_of: list[int], held_of: list[int],
+                    t0: float) -> list[Completion]:
         """Chunked prefill of each admitted prompt from ``reuse_of`` on (the
         positions already in the cache), first tokens sampled, instant
-        finishes retired, the decode state of the rest merged."""
+        finishes retired, the decode state of the rest merged.
+        ``held_of``: each request's pages (telemetry), ``t0`` the wave's
+        start on ``time.perf_counter``."""
+        tel = self.telemetry
         s, c = self.max_slots, self.prefill_chunk
         admit = np.zeros((s,), bool)
         reuse = np.zeros((s,), np.int32)
@@ -317,16 +364,25 @@ class ServeEngine:
         last = self._prefill(admit, plen, reuse, tokens, ci, col)
         firsts = sample_tokens(last, step_keys(self._t(keys), self._t(plen)),
                                self._t(temp), self._t(topk)).cpu().numpy()
-        self.prefill_seconds += time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        self.prefill_seconds += wall
+        if tel is not None:
+            # the first tokens' copy to the host above synchronized the
+            # wave's device work: the bracket closes on it
+            tel.phases.record("admission", wall)
+            tel.event("admission_wave", self.tick, n_reqs=len(reqs),
+                      n_chunks=n_chunks, wall_s=wall)
 
         done: list[Completion] = []
         sel = np.zeros((s,), bool)
         n_tok = np.zeros((s,), np.int32)
         n_gen = np.zeros((s,), np.int32)
-        for r, sl in zip(reqs, slots):
+        for r, sl, ru, held in zip(reqs, slots, reuse_of, held_of):
             first = int(firsts[sl])
             self._out[r.rid] = [first]
             self._admitted_tick[r.rid] = self.tick
+            if tel is not None:
+                self._tel_note_admit(r, sl, reuse=ru, pages_held=held)
             if r.max_new_tokens == 1 or (self.eos_id >= 0
                                          and first == self.eos_id):
                 self._release_slot(sl)
@@ -343,11 +399,38 @@ class ServeEngine:
         return done
 
     def _complete(self, req: Request, reason: str) -> Completion:
-        return Completion(rid=req.rid, prompt=tuple(req.tokens),
+        comp = Completion(rid=req.rid, prompt=tuple(req.tokens),
                           tokens=self._out.pop(req.rid),
                           finish_reason=reason,
                           admitted_tick=self._admitted_tick.pop(req.rid),
                           finished_tick=self.tick)
+        tel = self.telemetry
+        if tel is not None:
+            sl, d0, a0 = self._tel_admit.pop(req.rid, (None, 0, 0))
+            drafted = accepted = 0
+            dr = getattr(self, "_drafted", None)
+            if sl is not None and dr is not None:
+                drafted = int(dr[sl]) - d0
+                accepted = int(self._accepted[sl]) - a0
+            tel.finish(req.rid, self.tick, reason=reason,
+                       n_tokens=len(comp.tokens), drafted=drafted,
+                       accepted=accepted)
+        return comp
+
+    def _tel_note_admit(self, r: Request, sl: int, *, reuse: int = 0,
+                        pages_held: int = 0) -> None:
+        """Record one admission (telemetry on): the lifecycle edges and a
+        snapshot of the slot's cumulative spec counters, so finish can
+        attribute per-request drafted/accepted as a delta."""
+        tel = self.telemetry
+        dr = getattr(self, "_drafted", None)
+        self._tel_admit[r.rid] = (
+            sl, 0 if dr is None else int(dr[sl]),
+            0 if dr is None else int(self._accepted[sl]))
+        tel.admit(r.rid, self.tick, slot=sl, prompt_len=len(r.tokens),
+                  reuse=reuse, pages_held=pages_held)
+        # the first token was sampled at the end of the admission wave
+        tel.first_token(r.rid, self.tick)
 
     # ------------------------------------------------------------------
     # decode tick + trace scheduler
@@ -361,10 +444,27 @@ class ServeEngine:
     def any_active(self) -> bool:
         return any(o is not None for o in self._slot_owner)
 
+    def _engine_stats(self) -> dict:
+        """Scheduler gauges for ``metrics.snapshot()["engine"]``: host
+        state only, so reading them never syncs the device.  The port has
+        no prefill buckets yet: their two gauges read 0."""
+        return {"tick": self.tick, "free_slots": self.free_slots,
+                "active_slots": sum(o is not None
+                                    for o in self._slot_owner),
+                "inflight": len(self._out),
+                "prefill_buckets": 0, "prefill_pad_chunks": 0}
+
     def _dispatch_tick(self):
         """Device work of one decode tick: ``decode_block`` steps over all
-        slots.  Returns the (T, S) emitted tokens (-1 = none) and the
-        post-tick active mask, both still on the device."""
+        slots.  Returns the (T, S) emitted tokens (-1 = none), the
+        post-tick active mask, both still on the device, and ``fin``: the
+        call that closes the tick's telemetry bracket once the caller has
+        copied the tokens to the host (None with telemetry off)."""
+        tel = self.telemetry
+        t0 = 0.0
+        if tel is not None:
+            tel.tick_boundary(self.tick)
+            t0 = tel.phases.now()
         emits = []
         tok, pos, active, gen_left = (self._tok, self._pos, self._active,
                                       self._gen_left)
@@ -385,15 +485,27 @@ class ServeEngine:
         self._tok, self._pos, self._active, self._gen_left = (
             tok, pos, active, gen_left)
         self.tick += self.decode_block
-        return torch.stack(emits), active
+        if tel is None:
+            return torch.stack(emits), active, None
+        tick_after = self.tick
+        n_active = sum(o is not None for o in self._slot_owner)
+
+        def fin():
+            wall = tel.phases.add("decode", t0)
+            tel.event("decode_block", tick_after, n_active=n_active,
+                      block=self.decode_block, wall_s=wall)
+
+        return torch.stack(emits), active, fin
 
     def step(self) -> list[Completion]:
         """One decode tick; returns the requests that finished in it."""
         t0 = time.perf_counter()
-        emits, active = self._dispatch_tick()
+        emits, active, fin = self._dispatch_tick()
         # the tick's host sync (a spec tick hands over host arrays already)
         emits, active = (x.cpu().numpy() if torch.is_tensor(x) else x
                          for x in (emits, active))
+        if fin is not None:
+            fin()
         self.decode_seconds += time.perf_counter() - t0
         self.decode_ticks += 1
         return self._harvest(emits, active)
@@ -426,10 +538,14 @@ class ServeEngine:
         queue = deque(sorted(requests, key=lambda r: r.arrival))
         waiting: deque[Request] = deque()
         completions: list[Completion] = []
+        tel = self.telemetry
         while queue or waiting or self.any_active:
             progressed = False
             while queue and queue[0].arrival <= self.tick:
-                waiting.append(queue.popleft())
+                r = queue.popleft()
+                if tel is not None:
+                    tel.enqueue(r.rid, r.arrival)
+                waiting.append(r)
                 progressed = True
             if waiting and self._free:
                 wave = self._select_wave(waiting)
@@ -470,12 +586,25 @@ class PagedServeEngine(ServeEngine):
     request's pages carry ``spec_k`` positions of slack for the drafts,
     and only committed positions reach the radix index.  ``spec_stats``
     holds the acceptance counters, the analog-fidelity signal.
+
+    **Closed-loop fidelity** (DESIGN.md §10; needs ``spec_k``): ``drift``
+    (a :class:`~repro_torch.launch.fidelity.DriftInjection`) programs the
+    drafter's cells — the caller's float32 master through the log grid,
+    chunk by chunk (``core/drift.py``) — and reads them back, drifted and
+    stuck at the virtual clock ``vclock``, into the drafter's serving copy
+    every spec tick; ``fidelity`` (a ``FidelityPolicy``) closes the loop:
+    a monitor folds each tick's acceptance and backs off ``spec_k_live``,
+    reprograms the cells (from the master again, with a fresh key) or
+    falls back to the exact decode tick.  ``fidelity_stats`` holds the
+    clock, the ladder's events, the downtime and the fault census.  The
+    caller keeps ``params`` unchanged while the engine lives.
     """
 
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  page_size: int = 16, num_pages: int | None = None,
                  spec_k: int = 0, spec_draft: NLDPEConfig | None = None,
-                 **kw):
+                 drift: DriftInjection | None = None,
+                 fidelity: FidelityPolicy | None = None, **kw):
         asked = [n for n, off in _NOT_PORTED.items()
                  if kw.pop(n, off) not in (off, False)]
         if asked:
@@ -486,6 +615,10 @@ class PagedServeEngine(ServeEngine):
             raise ValueError("page_size >= 1")
         if spec_k < 0:
             raise ValueError("spec_k >= 0 (0 disables speculation)")
+        if (drift is not None or fidelity is not None) and not spec_k:
+            raise ValueError(
+                "drift/fidelity act on the analog draft path; they need "
+                "spec_k > 0")
         self.spec_k = int(spec_k)
         # full analog drafter by default; enabled=False keeps only the
         # log-grid weights
@@ -502,16 +635,18 @@ class PagedServeEngine(ServeEngine):
         # the root is keyed on the numerics and the effective storage grid
         self._fp = nldpe_fingerprint(self.nldpe, self.kv_quant)
         if self.spec_k:
-            # the drafter's weights: the float32 master through the log
-            # grid, then cast as any serving copy is (the float32
-            # intermediate is freed on return)
-            self._draft_params = lm.serving_params(
-                quantize_draft_params(params), self.cfg, self.spec_draft)
-            self._draft_fn = build_draft_scan_fn(
-                self.cfg, spec_k=self.spec_k, nldpe=self.spec_draft)
-            self._verify_fn = build_verify_fn(
-                self.cfg, self.params, spec_k=self.spec_k, nldpe=self.nldpe,
-                eos_id=self.eos_id)
+            if drift is None:
+                # the drafter's weights: the float32 master through the
+                # log grid, then cast as any serving copy is (the float32
+                # intermediate is freed on return)
+                self._draft_params = lm.serving_params(
+                    quantize_draft_params(params), self.cfg, self.spec_draft)
+            self._draft_fn, self._verify_fn = self._build_spec_fns(
+                self.spec_k)
+            # pairs at the other live depths the fidelity ladder moves to
+            # (always below spec_k, which _plan budgets the slack for)
+            self._spec_fn_cache: dict[int, tuple] = {}
+            self.spec_k_live = self.spec_k
             self._spec_steps = 0
             self._drafted = np.zeros((max_slots,), np.int64)
             self._accepted = np.zeros((max_slots,), np.int64)
@@ -522,6 +657,87 @@ class PagedServeEngine(ServeEngine):
             self._win_accepted = np.zeros((max_slots,), np.int64)
             self._win_ticks = 0
             self.ewma_acceptance: float | None = None
+        # closed-loop fidelity: drift is the plant (an aging device on a
+        # virtual clock), the monitor the controller; either works alone
+        self.drift = drift
+        self.monitor = (FidelityMonitor(fidelity or FidelityPolicy(), spec_k)
+                        if drift is not None or fidelity is not None
+                        else None)
+        self._ewma_alpha = (self.monitor.policy.ewma_alpha
+                            if self.monitor is not None else 0.25)
+        self.vclock = 0.0               # virtual seconds; never wall-clock
+        self._downtime_s = 0.0
+        self._reprograms = 0
+        self._disabled_ticks = 0
+        if drift is not None:
+            self._program_drift(params)
+
+        # registry groups over the legacy stats dicts (each group's
+        # snapshot compares == to its dict); "tiers" reads 0 until the
+        # spill tier and preemption are ported
+        me = weakref.ref(self)
+        self.metrics.register_group("pool", lambda: dict(me().pool.stats))
+        self.metrics.register_group("spec", lambda: me().spec_stats)
+        self.metrics.register_group("fidelity", lambda: me().fidelity_stats)
+        self.metrics.register_group("tiers", lambda: {
+            "host_pages": 0, "host_used": 0, "preempted_waiting": 0,
+            "preempts": 0, "resumes": 0})
+        tel = self.telemetry
+        if tel is not None:
+            self.pool.on_evict = (
+                lambda page: tel.event("eviction", me().tick, page=page))
+
+    def _build_spec_fns(self, k: int) -> tuple:
+        return (build_draft_scan_fn(self.cfg, spec_k=k, nldpe=self.spec_draft),
+                build_verify_fn(self.cfg, self.params, spec_k=k,
+                                nldpe=self.nldpe, eos_id=self.eos_id))
+
+    def _spec_fns_for(self, k: int) -> tuple:
+        """The (draft, verify) pair at live depth ``k``: the engine's own
+        at ``spec_k``, the others built once and cached."""
+        if k == self.spec_k:
+            return self._draft_fn, self._verify_fn
+        fns = self._spec_fn_cache.get(k)
+        if fns is None:
+            fns = self._spec_fn_cache[k] = self._build_spec_fns(k)
+        return fns
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _program_drift(self, params: dict) -> None:
+        """Program the drafter's cells from the caller's float32 master
+        through the log grid, one chunk at a time (the quantized float32
+        drafter is never held whole: a reprogram quantizes the master
+        again), and allocate the serving copy each tick's read fills, in
+        the dtypes ``lm.serving_params`` gives."""
+        d = self.drift
+        pkey, self._drift_key, self._read_key = prng.split(
+            prng.prng_key(d.seed), 3)
+        self._drift_master = params
+        self._sync()
+        t0 = time.perf_counter()
+        self._drift_state = drift_lib.program_params(
+            pkey, params, d.model, target=log_quantize)
+        self._sync()
+        self.drift_program_seconds = time.perf_counter() - t0
+        self.reprogram_seconds: list[float] = []
+        self.drift_read_seconds = 0.0
+        self.drift_reads = 0
+
+        def like(x):
+            if isinstance(x, dict):
+                return {k: like(v) for k, v in x.items()}
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+
+        def alloc(x):
+            if isinstance(x, dict):
+                return {k: alloc(v) for k, v in x.items()}
+            return torch.empty(x.shape, dtype=x.dtype, device=self.device)
+
+        self._draft_params = alloc(lm.serving_params(like(params), self.cfg,
+                                                     self.spec_draft))
 
     def _init_cache(self) -> dict:
         return lm.init_model_cache(
@@ -546,7 +762,8 @@ class PagedServeEngine(ServeEngine):
         accepted = int(self._accepted.sum())
         wd = int(self._win_drafted.sum())
         wa = int(self._win_accepted.sum())
-        return {"spec_k": self.spec_k, "spec_steps": self._spec_steps,
+        return {"spec_k": self.spec_k, "spec_k_live": self.spec_k_live,
+                "spec_steps": self._spec_steps,
                 "drafted": drafted, "accepted": accepted,
                 "acceptance_rate": accepted / max(drafted, 1),
                 "ewma_acceptance": self.ewma_acceptance,
@@ -568,30 +785,128 @@ class PagedServeEngine(ServeEngine):
         self._win_accepted[:] = 0
         self._win_ticks = 0
 
+    @property
+    def fidelity_stats(self) -> dict:
+        """Closed-loop telemetry (DESIGN.md §10): virtual clock, ladder
+        state and event log, reprogramming downtime, and the drift plant's
+        fault census."""
+        out = {"enabled": self.monitor is not None or self.drift is not None,
+               "vclock_s": self.vclock,
+               "spec_k_live": getattr(self, "spec_k_live", 0),
+               "reprograms": self._reprograms,
+               "downtime_s": self._downtime_s,
+               "disabled_ticks": self._disabled_ticks}
+        if self.monitor is not None:
+            out.update(ewma=self.monitor.ewma,
+                       disabled=self.monitor.disabled,
+                       events=list(self.monitor.events),
+                       events_dropped=self.monitor.events.dropped)
+        if self.drift is not None:
+            out["fault_fraction"] = drift_lib.fault_fraction(
+                self._drift_state, self.vclock)
+        return out
+
+    # ------------------------------------------------------------------
+    # closed-loop fidelity plumbing (DESIGN.md §10)
+    # ------------------------------------------------------------------
+
+    def _aged_draft_params(self) -> dict:
+        """The drafter's weights *now*: the programmed cells drifted to the
+        current virtual time, faulted cells stuck, read into the serving
+        copy (its wall time metered behind a device sync)."""
+        d = self.drift
+        key = (prng.fold_in(self._read_key, self.tick) if d.read_noise
+               else None)
+        t0 = time.perf_counter()
+        drift_lib.read_params(self._drift_state, d.model, self.vclock, key,
+                              out=self._draft_params)
+        self._sync()
+        self.drift_read_seconds += time.perf_counter() - t0
+        self.drift_reads += 1
+        return self._draft_params
+
+    def _execute_reprogram(self) -> None:
+        """The ladder's recovery action: rewrite every drafter cell through
+        a fresh program-and-verify pass at the current virtual time and
+        meter the downtime.  Stuck cells survive reprogramming."""
+        self._reprograms += 1
+        if self.drift is None:
+            return                      # monitor-only mode: counted, no-op
+        self.vclock += self.drift.reprogram_s
+        self._downtime_s += self.drift.reprogram_s
+        self._drift_key, key = prng.split(self._drift_key)
+        t0 = time.perf_counter()
+        drift_lib.reprogram_params(key, self._drift_state,
+                                   self._drift_master, self.drift.model,
+                                   self.vclock, target=log_quantize)
+        self._sync()
+        self.reprogram_seconds.append(time.perf_counter() - t0)
+
+    def _after_tick(self, *, drafted: int, accepted: int, k: int) -> None:
+        """Advance the virtual device clock one tick and run the fidelity
+        controller.  Without a drift plant the clock counts exact decode
+        positions (1 per spec tick, decode_block per fallback tick)."""
+        if self.drift is not None:
+            self.vclock += self.drift.tick_seconds(k, self.decode_block)
+        else:
+            self.vclock += float(self.decode_block if k == 0 else 1)
+        if self.monitor is None:
+            return
+        action = self.monitor.observe(drafted=drafted, accepted=accepted,
+                                      t=self.vclock, tick=self.tick)
+        if action == "reprogram":
+            self._execute_reprogram()
+        self.spec_k_live = self.monitor.spec_k
+        tel = self.telemetry
+        if tel is not None and action is not None:
+            tel.event("fidelity", self.tick, kind=action,
+                      spec_k=self.monitor.spec_k, ewma=self.monitor.ewma,
+                      vclock_s=self.vclock)
+
     def _dispatch_tick(self):
         """One decode tick.  Without ``spec_k`` the base class's
-        ``decode_block`` plain steps; with it ONE speculative step — the
-        draft phase (its wall time metered behind a device sync), then the
-        exact verify — emitting 1 to ``spec_k + 1`` tokens per active slot.
-        A spec tick returns host arrays: its acceptance counters need the
-        verify's results on the host."""
+        ``decode_block`` plain steps; with it ONE speculative step at the
+        live depth ``k`` — the draft phase (its wall time metered behind a
+        device sync), then the exact verify — emitting 1 to ``k + 1``
+        tokens per active slot; at ``k == 0`` (the ladder disabled the
+        drafter) the base class's exact tick.  A spec tick returns host
+        arrays: its acceptance counters need the verify's results on the
+        host."""
         if not self.spec_k:
             return super()._dispatch_tick()
+        k = self.spec_k_live = (self.monitor.spec_k
+                                if self.monitor is not None else self.spec_k)
+        if k == 0:
+            out = super()._dispatch_tick()
+            self._disabled_ticks += 1
+            self._after_tick(drafted=0, accepted=0, k=0)
+            return out
+        tel = self.telemetry
+        if tel is not None:
+            tel.tick_boundary(self.tick)
         pre_active = self._active.cpu().numpy()
+        dparams = (self._aged_draft_params() if self.drift is not None
+                   else self._draft_params)
+        draft_fn, verify_fn = self._spec_fns_for(k)
         t0 = time.perf_counter()
-        drafts, q_probs = self._draft_fn(
-            self._draft_params, self.cache, self._tok, self._pos,
-            self._active, self._temp, self._topk, self._keys)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)   # meter the draft alone
-        self.spec_draft_seconds += time.perf_counter() - t0
+        drafts, q_probs = draft_fn(
+            dparams, self.cache, self._tok, self._pos, self._active,
+            self._temp, self._topk, self._keys)
+        self._sync()                              # meter the draft alone
+        dt_draft = time.perf_counter() - t0
+        self.spec_draft_seconds += dt_draft
+        if tel is not None:
+            tel.phases.record("draft", dt_draft)
+            tel.event("spec_draft", self.tick, k=k,
+                      n_active=int(pre_active.sum()), wall_s=dt_draft)
+        t1 = time.perf_counter()
         (self._tok, self._pos, self._active, self._gen_left, emits,
-         accepted) = self._verify_fn(
+         accepted) = verify_fn(
             self.cache, self._tok, self._pos, self._active, self._gen_left,
             self._temp, self._topk, self._keys, drafts, q_probs)
         self.tick += 1
         self._spec_steps += 1
-        drafted_now = np.where(pre_active, self.spec_k, 0).astype(np.int64)
+        drafted_now = np.where(pre_active, k, 0).astype(np.int64)
         accepted_now = np.where(pre_active, accepted.cpu().numpy(),
                                 0).astype(np.int64)
         self._drafted += drafted_now
@@ -600,12 +915,20 @@ class PagedServeEngine(ServeEngine):
         self._win_accepted += accepted_now
         self._win_ticks += 1
         d, a = int(drafted_now.sum()), int(accepted_now.sum())
+        if tel is not None:
+            # the accepted counts' copy to the host above synchronized the
+            # verify: the bracket closes on that existing sync
+            dt_verify = tel.phases.record("verify",
+                                          time.perf_counter() - t1)
+            tel.event("spec_verify", self.tick, k=k, drafted=d, accepted=a,
+                      wall_s=dt_verify)
         if d:
-            alpha = 0.25
+            alpha = self._ewma_alpha
             self.ewma_acceptance = (
                 a / d if self.ewma_acceptance is None
                 else alpha * a / d + (1 - alpha) * self.ewma_acceptance)
-        return emits_tick_major(emits), self._active.cpu().numpy()
+        self._after_tick(drafted=d, accepted=a, k=k)
+        return emits_tick_major(emits), self._active.cpu().numpy(), None
 
     def _setup(self, admit: np.ndarray, reuse: np.ndarray,
                new_bt: np.ndarray) -> None:
@@ -727,11 +1050,15 @@ class PagedServeEngine(ServeEngine):
             plans.append(plan)
 
         # every allocation succeeded: COW copies and stats only now
+        tel = self.telemetry
         for sl, plan in zip(slots, plans):
             fresh = plan["fresh"]
             if plan["fork_src"] is not None:
                 self._copy_page(plan["fork_src"], fresh[0])
                 self.pool.note_cow()
+                if tel is not None:
+                    tel.event("cow_fork", self.tick, src=plan["fork_src"],
+                              dst=fresh[0])
             bt_row = plan["hit"] + fresh
             assert len(bt_row) == plan["nb_need"]
             plan["bt_row"] = bt_row
@@ -755,4 +1082,5 @@ class PagedServeEngine(ServeEngine):
 
         # Phase 4: chunked suffix prefill at per-slot base positions
         return self._start_wave(reqs, slots,
-                                [plan["reuse"] for plan in plans], t0)
+                                [plan["reuse"] for plan in plans],
+                                [plan["nb_need"] for plan in plans], t0)

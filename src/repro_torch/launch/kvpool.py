@@ -82,6 +82,9 @@ class PagePool:
         self.stats = {"lookups": 0, "hits": 0, "hit_pages": 0,
                       "prefill_tokens_saved": 0, "evicted": 0,
                       "cow_forks": 0, "published": 0, "gen_published": 0}
+        # observation hook: called with the page id after each LRU
+        # eviction (the page is already free, so it cannot steer eviction)
+        self.on_evict = None
 
     # -- allocation / refcounts ---------------------------------------------
 
@@ -256,6 +259,8 @@ class PagePool:
         self._node[page] = None
         self._free.append(page)
         self.stats["evicted"] += 1
+        if self.on_evict is not None:
+            self.on_evict(page)
         return page
 
     # -- invariants (tests call this after every trace) ---------------------------

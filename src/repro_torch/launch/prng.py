@@ -24,6 +24,9 @@ default) and 64-bit types off:
   ``(nextafter(-1, 0), 1)`` through ``sqrt(2) * erf_inv``, with XLA's
   single-precision ``erf_inv`` polynomial (``erf_inv`` below).
 * ``bernoulli(key, p, shape)`` — ``_bernoulli`` "low": ``uniform < p``.
+* ``exponential(key, shape)`` — ``_exponential``: ``-log1p(-u)`` of a
+  uniform on ``[0, 1)`` (``log1p`` rounds an ulp or two apart between the
+  frameworks; the uniforms are bitwise).
 * ``gumbel(keys, n)`` — ``_gumbel`` in its ``"low"`` mode:
   ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``.
 * ``categorical(keys, logits)`` — ``argmax(gumbel + logits)``.
@@ -31,6 +34,12 @@ default) and 64-bit types off:
 A key is a (2,) tensor; a batch of keys (*B, 2) draws one independent
 ``shape`` per key, as ``jax.vmap`` over the reference's calls gives.
 Draws land on the keys' device.
+
+``offset`` (``random_bits``, ``uniform``, ``normal``, ``bernoulli``,
+``exponential``) draws a chunk of a larger draw: element ``i`` of
+``shape`` hashes counter ``offset + i``, so the chunks ``[o, o + n)`` of a
+leaf's flattened index, drawn one by one, equal the whole-shape draw bit
+for bit while holding only ``n`` counters at a time.
 """
 from __future__ import annotations
 
@@ -96,11 +105,12 @@ def _shape(shape) -> tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(shape)
 
 
-def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(keys: torch.Tensor, shape, *, offset: int = 0
+                ) -> torch.Tensor:
     """(*B, 2) keys -> (*B, *shape) uint32 words in int64
-    (``bits(key, shape)`` per key)."""
+    (``bits(key, shape)`` per key; counters from ``offset``)."""
     shape = _shape(shape)
-    i = torch.arange(math.prod(shape), dtype=torch.int64,
+    i = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64,
                      device=keys.device).reshape(shape)
     lead = keys.shape[:-1] + (1,) * len(shape)
     y0, y1 = threefry2x32(keys[..., 0].reshape(lead),
@@ -109,10 +119,10 @@ def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
 
 
 def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, *, offset: int = 0) -> torch.Tensor:
     """(*B, 2) keys -> (*B, *shape) float32 uniforms on
     ``[minval, maxval)``."""
-    bits = (random_bits(keys, shape) >> 9) | 0x3F800000
+    bits = (random_bits(keys, shape, offset=offset) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
@@ -140,17 +150,25 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) == 1.0, x * float("inf"), out)
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
+def normal(key: torch.Tensor, shape, *, offset: int = 0) -> torch.Tensor:
     """(*B, 2) keys -> (*B, *shape) float32 standard normals."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
+    u = uniform(key, shape, lo, 1.0, offset=offset)
     return float(np.float32(np.sqrt(2.0))) * erf_inv(u)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p: float, shape, *, offset: int = 0
+              ) -> torch.Tensor:
     """(*B, 2) keys -> (*B, *shape) bool draws with mean ``p`` (float32
     ``p``, as a Python float is in ``jax.random.bernoulli``)."""
-    return uniform(key, shape) < float(np.float32(p))
+    return uniform(key, shape, offset=offset) < float(np.float32(p))
+
+
+def exponential(key: torch.Tensor, shape, *, offset: int = 0
+                ) -> torch.Tensor:
+    """(*B, 2) keys -> (*B, *shape) float32 standard exponentials: ``1 - u``
+    keeps ``log`` on (0, 1]."""
+    return torch.log1p(uniform(key, shape, offset=offset).neg_()).neg_()
 
 
 def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:

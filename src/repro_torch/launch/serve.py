@@ -13,14 +13,24 @@ tokens.
     python -m repro_torch.launch.serve --continuous [--nldpe | --fused]
     python -m repro_torch.launch.serve --paged [--nldpe | --fused]
                                        [--kv-quant {log8,int8}]
-                                       [--spec K [--spec-full-analog]]
+                                       [--spec K [--spec-full-analog]
+                                        [--drift NU] [--fault-rate R]
+                                        [--drift-dt S]]
+    ... --continuous | --paged [--telemetry] [--trace-out PATH]
+                               [--profile-ticks N [--profile-dir DIR]]
+                               [--metrics]
 
 The default branch prefills ``--batch`` prompts of ``--prompt-len`` tokens
 and decodes ``--gen-len`` steps in lockstep; ``--continuous`` serves a
 staggered trace through the slotted ``ServeEngine``, ``--paged`` a
 shared-system-prompt trace through ``PagedServeEngine`` (``--kv-quant``
 stores its pages as 8-bit codes; ``--spec K`` adds analog-draft
-speculative decoding with K drafts per verify).  A config whose ``kv_cache_dtype`` names
+speculative decoding with K drafts per verify; ``--drift``/``--fault-rate``
+age its drafter on a virtual clock under the fidelity ladder).  The engine
+demos take ``--telemetry`` (latency percentiles and phase walls; the event
+trace as JSONL with ``--trace-out``, a ``torch.profiler`` trace of the
+first N ticks with ``--profile-ticks``) and ``--metrics`` (the registry
+as Prometheus text).  A config whose ``kv_cache_dtype`` names
 a grid gives every path quantized caches.  The model is the
 reduced config of ``--arch`` (as the JAX CLI runs it) with seeded random
 weights, on the GPU unless ``--device cpu``.
@@ -34,9 +44,12 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..core.drift import DriftModel
 from ..core.engine import NLDPEConfig, OFF
 from ..models import lm
+from ..obs import Telemetry
 from .engine import PagedServeEngine, Request, ServeEngine
+from .fidelity import DriftInjection, FidelityPolicy
 
 
 def build_prefill_step(cfg, *, nldpe: NLDPEConfig = OFF):
@@ -116,14 +129,21 @@ def _validate_args(p: argparse.ArgumentParser, args) -> None:
         p.error("--continuous and --paged are mutually exclusive "
                 "(pick one engine demo)")
     bad = [n for n in ("page_size", "num_pages", "system_prompt_len",
-                       "spec", "spec_full_analog", "kv_quant") if moved(n)]
+                       "spec", "spec_full_analog", "drift", "fault_rate",
+                       "drift_dt", "kv_quant") if moved(n)]
     if bad and not args.paged:
         p.error(f"--{bad[0].replace('_', '-')} requires --paged "
                 f"(the lockstep/--continuous paths ignore it)")
-    bad = [n for n in ("slots", "requests") if moved(n)]
+    bad = [n for n in ("slots", "requests", "telemetry", "trace_out",
+                       "profile_ticks", "metrics") if moved(n)]
     if bad and not engine:
         p.error(f"--{bad[0].replace('_', '-')} requires an engine demo "
                 f"(--continuous or --paged); the lockstep path ignores it")
+    if moved("profile_dir") and not args.profile_ticks:
+        p.error("--profile-dir requires --profile-ticks N")
+    if (args.drift is not None or args.fault_rate) and not args.spec:
+        p.error("--drift/--fault-rate need --spec K (they age the "
+                "analog draft path)")
     if args.python_loop and engine:
         p.error("--python-loop is a lockstep-path baseline; the engine "
                 "demos always use the batched decode")
@@ -171,8 +191,41 @@ def build_parser() -> argparse.ArgumentParser:
                         "position) scales for --paged: 'log8' = the "
                         "drafter's sign-magnitude log grid (DESIGN.md "
                         "§11), 'int8' = uniform absmax grid")
+    p.add_argument("--drift", type=float, default=None, metavar="NU",
+                   help="with --paged --spec: age the analog drafter live "
+                        "— power-law conductance drift exponent nu on a "
+                        "virtual clock, with the acceptance-driven "
+                        "backoff/reprogram/disable ladder closed around it "
+                        "(DESIGN.md §10); only throughput moves")
+    p.add_argument("--fault-rate", type=float, default=0.0,
+                   metavar="RATE",
+                   help="per-cell stuck-at-fault Poisson arrival rate "
+                        "(1/virtual-second) for --drift; faults survive "
+                        "reprogramming")
+    p.add_argument("--drift-dt", type=float, default=60.0, metavar="S",
+                   help="virtual seconds per decode position for --drift "
+                        "(accelerated aging clock; default 60)")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--requests", type=int, default=12)
+    p.add_argument("--telemetry", action="store_true",
+                   help="per-request latency tracing + phase timers for "
+                        "--continuous/--paged (DESIGN.md §12): TTFT/TPOT/"
+                        "queue-wait percentiles and a structured event "
+                        "trace; tokens are the same with it off")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="flush the event trace as JSONL to PATH (implies "
+                        "--telemetry; the first line is a meta record with "
+                        "the schema version and the ring's drop count)")
+    p.add_argument("--profile-ticks", type=int, default=0, metavar="N",
+                   help="capture the first N engine ticks with "
+                        "torch.profiler (implies --telemetry; a Chrome "
+                        "trace, loadable in perfetto)")
+    p.add_argument("--profile-dir", default=None,
+                   help="output directory for --profile-ticks (default "
+                        "nldpe_profile under the working directory)")
+    p.add_argument("--metrics", action="store_true",
+                   help="print the engine's metrics registry as Prometheus "
+                        "text after the run")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
@@ -187,11 +240,47 @@ def _report(label: str, eng, comps, dt: float, extra: str = "") -> None:
           f"{extra})")
 
 
+def _report_obs(eng, args) -> None:
+    """The telemetry story after an engine demo: latency percentiles, the
+    phase walls, the JSONL trace and profiler output if asked for, and the
+    registry as Prometheus text with ``--metrics``."""
+    tel = eng.telemetry
+    if tel is not None:
+        tel.close()                     # stops a still-open profiler trace
+        s = tel.summary()
+
+        def ms(x):
+            return "-" if x is None else f"{x * 1e3:.1f}ms"
+
+        tt, tp, qw = s["ttft_s"], s["tpot_s"], s["queue_wait_s"]
+        print(f"  telemetry: {s['requests_finished']} finished / "
+              f"{s['ticks']} ticks; TTFT p50/p99 {ms(tt['p50'])}/"
+              f"{ms(tt['p99'])}, TPOT p50/p99 {ms(tp['p50'])}/"
+              f"{ms(tp['p99'])}, queue-wait p99 {ms(qw['p99'])}")
+        for phase, d in s["phases"].items():
+            print(f"    phase {phase:>9}: {d['seconds'] * 1e3:8.1f} ms "
+                  f"over {d['calls']} calls")
+        if args.trace_out:
+            n = tel.flush_jsonl(args.trace_out)
+            print(f"    trace: {n} events ({tel.trace.dropped} dropped) "
+                  f"-> {args.trace_out}")
+        if args.profile_ticks:
+            prof = s["profiler"]
+            print(f"    profiler: first {args.profile_ticks} ticks -> "
+                  f"{prof['trace'] or prof['error']}")
+    if args.metrics:
+        print(eng.metrics.prometheus_text(), end="")
+
+
 def run(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
     _validate_args(p, args)
     device = torch.device(args.device) if args.device else None
+    tel = None
+    if args.telemetry or args.trace_out or args.profile_ticks:
+        tel = Telemetry(profile_ticks=args.profile_ticks,
+                        profile_dir=args.profile_dir)
     cfg = get_config(args.arch, reduced=True)
     nldpe = NLDPEConfig(enabled=args.nldpe or args.fused,
                         fused_dual_compute=args.fused)
@@ -212,6 +301,16 @@ def run(argv=None):
                         max_new_tokens=int(rng.integers(2, args.gen_len + 1)),
                         arrival=int(rng.poisson(2) * i))
                 for i in range(args.requests)]
+        drift = fidelity = None
+        if args.drift is not None or args.fault_rate:
+            drift = DriftInjection(
+                model=DriftModel(nu=args.drift or 0.0, t0=args.drift_dt,
+                                 fault_rate=args.fault_rate),
+                seed=args.seed, dt_step=args.drift_dt,
+                reprogram_s=10 * args.drift_dt)
+            # short demo traces: decide every 4 spec ticks so the ladder
+            # shows within a few dozen requests
+            fidelity = FidelityPolicy(window=4)
         eng = PagedServeEngine(cfg, params, max_slots=args.slots,
                                max_len=max_len, nldpe=nldpe,
                                page_size=args.page_size,
@@ -219,7 +318,9 @@ def run(argv=None):
                                spec_k=args.spec,
                                spec_draft=NLDPEConfig(
                                    enabled=args.spec_full_analog),
-                               kv_quant=args.kv_quant, device=device)
+                               drift=drift, fidelity=fidelity,
+                               kv_quant=args.kv_quant, device=device,
+                               telemetry=tel)
         t0 = time.perf_counter()
         comps = eng.run(reqs)
         dt = time.perf_counter() - t0
@@ -240,6 +341,16 @@ def run(argv=None):
                   f"({sp['acceptance_rate']:.1%} — the analog-fidelity "
                   f"signal), {n_tok / max(sp['spec_steps'], 1):.2f} "
                   f"tokens/verify pass")
+        if drift is not None:
+            fs = eng.fidelity_stats
+            ev = "".join(f"\n    {e['event']:>9} @ t={e['t']:.0f}s "
+                         f"(spec_k -> {e['spec_k']}, ewma={e['ewma']})"
+                         for e in fs["events"]) or " (none)"
+            print(f"  fidelity loop: vclock {fs['vclock_s']:.0f}s, "
+                  f"{fs['reprograms']} reprograms "
+                  f"({fs['downtime_s']:.0f}s downtime), "
+                  f"{fs['fault_fraction']:.2%} cells stuck, live spec_k "
+                  f"{fs['spec_k_live']}; events:{ev}")
     elif args.continuous:
         reqs = [Request(rid=i,
                         tokens=tuple(int(t) for t in rng.integers(
@@ -249,13 +360,14 @@ def run(argv=None):
                         arrival=int(rng.poisson(2) * i))
                 for i in range(args.requests)]
         eng = ServeEngine(cfg, params, max_slots=args.slots, max_len=max_len,
-                          nldpe=nldpe, device=device)
+                          nldpe=nldpe, device=device, telemetry=tel)
         t0 = time.perf_counter()
         comps = eng.run(reqs)
         dt = time.perf_counter() - t0
         _report("continuous", eng, comps, dt, f", {eng.tick} ticks")
     else:
         return _lockstep(args, cfg, params, nldpe, rng, max_len)
+    _report_obs(eng, args)
     for c in comps[:4]:
         print(f"  rid={c.rid} admitted@{c.admitted_tick} "
               f"finished@{c.finished_tick} [{c.finish_reason}] "

@@ -883,3 +883,144 @@ def test_quickstart_on_card(dev):
     from repro_torch import quickstart
     out = quickstart.main()
     assert torch.equal(out["gelu"]["kernel"], out["gelu"]["interval"])
+
+
+# ---------------------------------------------------------------------------
+# the drift model, the fidelity ladder and telemetry on the card
+# ---------------------------------------------------------------------------
+
+DRIFT_EXP_ULPS = 2      # t_fault: log1p on the card and on the CPU
+DRIFT_NORMAL_ULPS = 4   # g_prog with noise: erf_inv's log1p and sqrt
+DRIFT_READ_TOL = 2.0 ** -20   # read weights, times each leaf's w_max
+
+
+def _f32_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    a = a.cpu().contiguous().view(torch.int32).to(torch.int64)
+    b = b.cpu().contiguous().view(torch.int32).to(torch.int64)
+    return int((a - b).abs().max())
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["ideal", "noise"])
+def test_drift_program_and_read_on_card_match_cpu(dev, noisy):
+    """``program_params``, ``reprogram_params`` and ``read_params`` on the
+    card and on the CPU over the reduced model's log-grid drafter (the
+    same float32 targets on both, quantized on the CPU: ``exp`` rounds an
+    ulp apart between the devices; faults on): the sign channel,
+    ``w_max``, ``stuck_hi`` and IDEAL ``g_prog`` bitwise; ``t_fault``
+    within ``DRIFT_EXP_ULPS``, noisy ``g_prog`` within
+    ``DRIFT_NORMAL_ULPS``; the read weights (drift, stuck cells, read
+    noise) within ``DRIFT_READ_TOL * w_max``."""
+    from repro_torch.core import drift
+    from repro_torch.core.noise import IDEAL, NoiseModel
+    from repro_torch.launch import prng
+    from repro_torch.launch.spec_decode import quantize_draft_params
+    from repro_torch.models import lm
+    cfg = get_config("qwen2_5_3b", reduced=True)
+    params = quantize_draft_params(lm.init_params(
+        cfg, generator=torch.Generator().manual_seed(3), device="cpu"))
+    m = drift.DriftModel(nu=0.6, t0=2.0, fault_rate=0.02,
+                         noise=NoiseModel() if noisy else IDEAL,
+                         verify_passes=2)
+    key = prng.prng_key(21)
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = from_jax(_np(params), device=where)
+        st = drift.program_params(key, p, m)
+        drift.reprogram_params(prng.fold_in(key, 1), st, p, m, 3.0)
+        w = drift.read_params(st, m, 9.0, prng.fold_in(key, 2))
+        out[where] = (drift.flatten(st["cells"],
+                                    is_leaf=drift._is_cell_state),
+                      drift.flatten(w))
+    for (_, a), (_, b) in zip(out["cpu"][0], out["cuda"][0]):
+        assert torch.equal(a["sign"], b["sign"].cpu())
+        assert torch.equal(a["w_max"], b["w_max"].cpu())
+        assert torch.equal(a["stuck_hi"], b["stuck_hi"].cpu())
+        assert _f32_ulps(a["t_fault"], b["t_fault"]) <= DRIFT_EXP_ULPS
+        if noisy:
+            assert _f32_ulps(a["g_prog"], b["g_prog"]) <= DRIFT_NORMAL_ULPS
+        else:
+            assert torch.equal(a["g_prog"], b["g_prog"].cpu())
+    for (_, a), (_, b), (_, st) in zip(out["cpu"][1], out["cuda"][1],
+                                       out["cpu"][0]):
+        err = (a - b.cpu()).abs().max().item()
+        assert err <= DRIFT_READ_TOL * st["w_max"].item()
+
+
+def _small_drift_engine(where, params, cfg, **kw):
+    from repro_torch.core.drift import DriftModel
+    from repro_torch.core.engine import NLDPEConfig
+    from repro_torch.launch.engine import PagedServeEngine
+    from repro_torch.launch.fidelity import DriftInjection, FidelityPolicy
+    inj = DriftInjection(model=DriftModel(nu=0.5, t0=2.0, fault_rate=0.05),
+                         seed=3, dt_step=10.0)
+    return PagedServeEngine(
+        cfg, from_jax(_np(params), device=where), max_slots=2, max_len=24,
+        page_size=4, prefill_chunk=4, decode_block=2, spec_k=2,
+        spec_draft=NLDPEConfig(enabled=False), drift=inj,
+        fidelity=FidelityPolicy(window=3, reprogram_patience=1,
+                                max_reprograms=2), device=where, **kw)
+
+
+def test_drift_engine_on_card_walks_the_ladder(dev):
+    """A small drift engine (dense stuck-at faults) on the card, f32
+    activations: the ladder backs off, reprograms and disables the drafter
+    as on the CPU, and the card's tokens are the CPU's up to one near-tie;
+    kernel A serves the verify at q_len 3 and the exact fallback."""
+    import dataclasses
+
+    from repro_torch.launch.engine import Request
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    from repro_torch.models import lm
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, tokens=tuple(int(x) for x in rng.integers(
+        0, 3, 5)), max_new_tokens=6) for i in range(24)]
+    out, kinds = {}, {}
+    for where in ("cpu", "cuda"):
+        eng = _small_drift_engine(where, params, cfg)
+        before = paged_attention.launches
+        out[where] = {c.rid: c.tokens for c in eng.run(reqs)}
+        kinds[where] = [e["event"] for e in eng.fidelity_stats["events"]]
+        if where == "cuda":
+            assert paged_attention.launches > before
+            assert eng.fidelity_stats["disabled_ticks"] > 0
+            assert eng.drift_reads == eng.spec_stats["spec_steps"]
+        eng.pool.check()
+        assert eng.pool.available() == eng.pool.num_pages
+    assert {"backoff", "reprogram", "disable"} <= set(kinds["cuda"])
+    ties = sum(out["cpu"][r.rid] != out["cuda"][r.rid] for r in reqs)
+    assert ties <= 1
+
+
+def test_telemetry_on_equals_off_on_card(dev):
+    """The paged spec engine on the card with telemetry on and off: the
+    same tokens bit for bit (the same kernels, observation only), and a
+    trace with every request's lifecycle."""
+    import dataclasses
+
+    from repro_torch.core.engine import NLDPEConfig
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    rng = np.random.default_rng(9)
+    shared = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 8))
+    reqs = [Request(rid=i, tokens=shared + tuple(
+        int(t) for t in rng.integers(0, cfg.vocab_size, 1 + i)),
+        max_new_tokens=8, temperature=0.7 * (i % 2), arrival=i)
+        for i in range(5)]
+    out = {}
+    for tel in (False, True):
+        eng = PagedServeEngine(cfg, params, max_slots=3, max_len=32,
+                               page_size=4, prefill_chunk=4, decode_block=2,
+                               spec_k=2, spec_draft=NLDPEConfig(enabled=False),
+                               telemetry=tel, device=dev)
+        out[tel] = {c.rid: c.tokens for c in eng.run(reqs)}
+    assert out[True] == out[False]
+    s = eng.telemetry.summary()
+    assert s["requests_finished"] == len(reqs)
+    assert s["phases"]["verify"]["calls"] == eng.spec_stats["spec_steps"]

@@ -490,8 +490,8 @@ def test_spec_engine_validates_and_refuses_unported_options():
     with pytest.raises(ValueError, match="spec_k"):
         PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                          spec_k=-1, device="cpu")
-    for opt in (dict(drift=object()), dict(telemetry=True),
-                dict(host_cache_pages=4), dict(fidelity=object())):
+    for opt in (dict(host_cache_pages=4), dict(mesh=object()),
+                dict(prefill_buckets=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                              spec_k=2, device="cpu", **opt)
