@@ -25,7 +25,8 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    generate fn and the per-token loop must give the same tokens — and in
    ``FUSED`` numerics — 4 prompts of 256, 8 new tokens, the prefill
    through the log-domain flash kernel (C) and kernel B;
-5. serves the paged phase's 8 requests through the slotted ``ServeEngine``;
+5. serves 4 of the paged phase's requests through the slotted
+   ``ServeEngine``;
    then ``[serve spec]``: the paged OFF engine and trace with speculative
    decoding, spec_k 4 and the weights-only drafter (kernel A's decode
    instance for the drafts, its chunk instance for the verify at q_len 5),
@@ -38,7 +39,27 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    telemetry on — its tokens must be paged OFF's bit for bit, its event
    trace (flushed to ``build/serve_telemetry.jsonl``) must follow the
    committed schema, and it reports TTFT, TPOT and queue-wait percentiles,
-   phase walls and its tokens/s beside paged OFF's; ``[serve spec
+   phase walls and its tokens/s beside paged OFF's; then it serves the
+   trace again on the same engine, every prompt's full pages radix hits,
+   and holds those tokens to the first serve's up to near-ties within 2D,
+   D the largest logit deviation between the miss and hit routes to a
+   last prompt token (``prefix_route_deviation``); ``[serve spill]``: four
+   384-token system prompts cycled by 16 requests through an engine whose
+   112-page pool keeps two prefix chains beside the running slots, with a
+   256-page host tier, and through its destroy-on-evict twin, in turns
+   over two such traces — it must spill and restore (one page read back
+   bitwise), tokens within the 2D guard of the unlimited-pool engine's,
+   and it reports both tokens/s, the tier counters, spill and restore ms
+   per page and the host bytes held;
+   ``[serve preempt]``: 8 priority-0 requests fill the slots and 2
+   priority-2 requests preempt two of them to the host, which resume —
+   tokens within the guard of a FIFO twin's, ms per preempt and resume,
+   and the priority requests' TTFT beside the twin's; ``[serve async]``:
+   the async pipeline (drain depth 4) over the paged OFF engine with
+   prefill buckets, tokens within the guard of paged OFF's, tokens/s
+   beside paged OFF's and beside its own tick loop in turns, pad chunks,
+   pipeline counters and an idle share;
+   ``[serve spec
    drift]``: the ``[serve spec]`` engine with 64 new tokens per request,
    its drafter's cells drifting and sticking on a virtual clock under the
    fidelity ladder (telemetry on) — the ladder must back off and
@@ -120,6 +141,10 @@ DRIFT_WHY = ("benchmarks/serve_bench.py's FID_POLICY thresholds around the "
              "reference, and the next arrivals come at 2^-23 / rate = 1192 "
              "virtual s, past the run: it serves with those stuck cells, "
              "which reprogramming keeps")
+# [serve spill]: four system prompts of this many tokens (24 pages each)
+# and a host tier of this many pages (1.18 MB each at full width, f32)
+SPILL_SYSTEM = 384
+SPILL_HOST_PAGES = 256
 PORT_KERNELS = ("paged_attention", "fused_crossbar_acam", "logdomain_flash",
                 "log_quantize", "flash_attention", "acam_activation",
                 "crossbar_vmm", "nldpe_qmatmul")
@@ -244,6 +269,9 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
     engine.run([Request(rid=-1, tokens=(1, 2, 3), max_new_tokens=2,
                         arrival=engine.tick)])
     base = engine.tick
+    paged = hasattr(engine, "pool")
+    # the trace's own pool counters (an engine may have served before)
+    st0 = dict(engine.stats) if paged else {}
     reqs = [dataclasses.replace(r, arrival=base + r.arrival) for r in reqs]
     by_shape: dict = {}
     plain_a = attention.paged_attention
@@ -314,10 +342,9 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
               f"{r.max_new_tokens}")
         check(all(0 <= t < engine.cfg.vocab_size for t in c.tokens),
               f"{label}: rid {c.rid} emitted a token outside the vocabulary")
-    paged = hasattr(engine, "pool")
-    st = engine.stats if paged else {"hits": 0, "lookups": 0,
-                                     "prefill_tokens_saved": 0,
-                                     "cow_forks": 0}
+    st = ({k: v - st0[k] for k, v in engine.stats.items()} if paged else
+          {"hits": 0, "lookups": 0, "prefill_tokens_saved": 0,
+           "cow_forks": 0})
     if paged:
         check(st["hits"] > 0, f"{label}: no radix prefix hit")
     if counter is not None:
@@ -529,6 +556,72 @@ def spec_tokens_agree(torch, engine, reqs, got: dict, want: dict,
     return ties
 
 
+def hit_reuse(plen: int, ps: int) -> int:
+    """Positions a paged engine reuses when a prompt of ``plen`` tokens is
+    cached whole: its full pages, and at most ``plen - 1`` (a page-aligned
+    prompt forks its last page and recomputes its last token)."""
+    return min(plen // ps * ps, plen - 1)
+
+
+def prefix_route_deviation(torch, engine, reqs) -> dict:
+    """Max |logit| difference, at full width, between the routes a paged
+    engine takes to one prompt's last-token logits.  The miss route: the
+    token inside the 64-query prefill chunk that holds it, the rows before
+    it the prompt's tokens.  Two hit routes, the prompt's full pages in
+    the cache (``hit_reuse``): the rest of the prompt as the engine runs
+    it, in a 64-query chunk from the last full page on (the token at
+    another row, other splits of kernel A's chunk instance), and the last
+    token alone through ``lm.decode_step`` (the decode instance, GEMMs of
+    height S).  One prompt of ``reqs`` per slot of the engine, on its
+    serving weights, in a fresh paged cache.  ``D`` is the larger."""
+    from repro_torch.launch.spec_decode import clip_positions
+    from repro_torch.models import lm
+    cfg, c = engine.cfg, engine.prefill_chunk
+    b, ps, n_blocks = len(reqs), engine.page_size, engine.n_blocks
+    cache = lm.init_model_cache(cfg, b, engine.max_len,
+                                paged=(b * n_blocks, ps), device="cuda")
+    cache["bt"].copy_(torch.arange(b * n_blocks, dtype=torch.int32,
+                                   device="cuda").reshape(b, n_blocks))
+    plen = [len(r.tokens) for r in reqs]
+    n = -(-max(plen) // c) * c
+    toks = torch.zeros((b, n + c), dtype=torch.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :plen[i]] = torch.tensor(r.tokens)
+    toks = toks.cuda()
+    ones = torch.ones((b,), dtype=torch.bool, device="cuda")
+    ar = torch.arange(c, dtype=torch.int32, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    last = torch.tensor([p - 1 for p in plen], dtype=torch.int32,
+                        device="cuda")
+    reuse = torch.tensor([hit_reuse(p, ps) for p in plen],
+                         dtype=torch.int32, device="cuda")
+    miss = [None] * b
+    with torch.no_grad():
+        for s0 in range(0, n, c):           # pads past a prompt are masked
+            lg = lm.forward(engine.params, toks[:, s0:s0 + c], cfg,
+                            cache=cache, positions=(s0 + ar).expand(b, c),
+                            write_mask=ones)
+            for i, p in enumerate(plen):
+                if s0 <= p - 1 < s0 + c:
+                    miss[i] = lg[i, p - 1 - s0]
+        miss = torch.stack(miss)
+        clip_positions(cache, ones, reuse)  # the full pages alone cached
+        other = {n_: t.clone() for n_, t in cache.items()}
+        tail = torch.stack([toks[i, hit_reuse(p, ps):hit_reuse(p, ps) + c]
+                            for i, p in enumerate(plen)])
+        chunk = lm.forward(engine.params, tail, cfg, cache=cache,
+                           positions=reuse[:, None] + ar,
+                           write_mask=ones)[rows, (last - reuse).long()]
+        clip_positions(other, ones, last)
+        step = lm.decode_step(engine.params, cfg,
+                              toks[rows, last.long()], last, other,
+                              write_mask=ones)
+    d_chunk = (chunk - miss).abs().max().item()
+    d_step = (step - miss).abs().max().item()
+    return {"chunk_from_reuse": d_chunk, "decode_step": d_step,
+            "D": max(d_chunk, d_step)}
+
+
 def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
     """``[serve telemetry]``: the paged OFF trace through the paged OFF
     engine with telemetry on.  Observation only: the tokens must be the
@@ -536,7 +629,10 @@ def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
     every line checked against the committed schema; prints the events by
     kind, TTFT, TPOT and queue wait at p50/p90/p99, the phase walls, the
     Prometheus text's length, and tokens/s beside paged OFF's (host
-    overhead, not a gate)."""
+    overhead, not a gate).  Then the trace again on the same engine (every
+    prompt's full pages radix hits), its tokens held to the first serve's
+    under the 2D guard of ``prefix_route_deviation``, the divergences and
+    their margins printed."""
     from collections import Counter
 
     from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -569,11 +665,29 @@ def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
           f"{res['decode_ticks']} ticks")
     s = tel.summary()
     prom = engine.metrics.prometheus_text()
+    # the same trace again on the same engine: every prompt's full pages
+    # are now radix hits (published at the first serve's completion), and
+    # the rest of each prompt runs in a chunk from the last full page on —
+    # another route to the same logits than the first serve's, so its
+    # tokens are held to the first serve's up to near-ties of that route
+    route = prefix_route_deviation(torch, engine, [
+        reqs[i % len(reqs)] for i in range(engine.max_slots)])
+    saved0 = engine.stats["prefill_tokens_saved"]
+    again = reference_tokens(engine, [dataclasses.replace(
+        r, rid=500 + r.rid) for r in reqs])
+    want_saved = sum(hit_reuse(len(r.tokens), engine.page_size)
+                     for r in reqs)
+    check(engine.stats["prefill_tokens_saved"] - saved0 == want_saved,
+          f"{label}: the re-serve did not hit every prompt's full pages")
+    reserve_ties = spec_tokens_agree(
+        torch, engine, [dataclasses.replace(r, rid=500 + r.rid)
+                        for r in reqs], again,
+        {500 + rid: t for rid, t in off["tokens"].items()},
+        2 * route["D"], f"{label} re-serve")
     # host overhead in turns on this engine: telemetry off, on, on, off
     # (the call sites read engine.telemetry at each tick).  Each turn
     # serves the trace's shapes with fresh suffixes, so every turn hits the
-    # cached system prompt alone, as the first run did (a full-prompt hit
-    # takes other kernel-A routes, whose tokens may differ at a near-tie)
+    # cached system prompt alone, as the first run did
     turns: dict = {"off": [], "on": []}
     vocab, n_sys = engine.cfg.vocab_size, 256
     for j, turn in enumerate(("off", "on", "on", "off")):
@@ -605,9 +719,12 @@ def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
            "in_turns_tokens_per_s": turns,
            "in_turns_on_over_off": float(np.mean(turns["on"])
                                          / np.mean(turns["off"])),
-           "tokens_equal_paged_off": True}
+           "tokens_equal_paged_off": True,
+           "prefix_route_deviation": route, "reserve_tie_bound":
+           2 * route["D"], "reserve_near_ties": reserve_ties,
+           "reserve_requests_diverged": len(reserve_ties)}
     print(f"[{label} summary] " + json.dumps(out))
-    return {**res, **out}
+    return {**res, **out, "route": route}
 
 
 def drift_settings() -> dict:
@@ -701,6 +818,326 @@ def serve_spec_drift(torch, engine, reqs, want: dict, label: str) -> dict:
            "paged_attention_by_shape": shapes, "near_ties": ties}
     print(f"[{label} summary] " + json.dumps(out))
     return {**res, **out}
+
+
+def spill_trace(cfg, turn: int = 0, n: int = 16, max_new: int = 32):
+    """``[serve spill]``: four 384-token system prompts, ``n`` greedy
+    requests cycling A B C D A ..., each with 32-96 random suffix tokens,
+    2 ticks apart; another ``turn`` draws other prompts."""
+    from repro_torch.launch.engine import Request
+    rng = np.random.default_rng(SEED + 1 + 10 * turn)
+    systems = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                  SPILL_SYSTEM))
+               for _ in range(4)]
+    return [Request(rid=i, tokens=systems[i % 4] + tuple(
+        int(t) for t in rng.integers(0, cfg.vocab_size,
+                                     int(rng.integers(32, 97)))),
+        max_new_tokens=max_new, arrival=2 * i) for i in range(n)]
+
+
+def synced(torch, fn, times: list):
+    """``fn`` timed on the host clock behind a device sync on each side."""
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+SPILL_KEYS = ("spilled", "restored", "spill_dropped", "host_evicted",
+              "readopted", "evicted", "hits", "prefill_tokens_saved")
+
+
+def serve_spill(torch, cfg, params, paged_kw: dict, route: dict) -> dict:
+    """``[serve spill]``: ``spill_trace`` on an engine whose device pool
+    keeps at most two prefix chains beside the running slots, with a host
+    tier of ``SPILL_HOST_PAGES`` (tier), and on its destroy-on-evict twin
+    (the same pool, no host tier), in turns: tier, twin on one trace, then
+    twin, tier on another of 8 requests (other system prompts, so each
+    engine's second turn starts from a pool full of chains it cannot
+    use).  Both engines'
+    tokens are held to the unlimited-pool paged OFF engine's under the 2D
+    guard (D of ``prefix_route_deviation``: a restored or re-prefilled
+    chain reaches the suffix through other waves).  The tier must spill
+    and restore, and the first page restored is read back through
+    ``gather_page_rows`` and must be the page it was when it spilled, bit
+    for bit.  Prints tokens/s of both per turn, the tier counters,
+    restores per spill, prefill tokens saved against the twin, spill and
+    restore ms per page behind a sync, the host bytes held and kernel A's
+    launches."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.engine import PagedServeEngine
+    from repro_torch.nn.attention import gather_page_rows
+    traces = [spill_trace(cfg, 0), spill_trace(cfg, 1, n=8)]
+    ps, slots = paged_kw["page_size"], paged_kw["max_slots"]
+    chain = SPILL_SYSTEM // ps
+    worst = -(-(SPILL_SYSTEM + 96 + 32 - 1) // ps)
+    num_pages = slots * (worst - chain) + 2 * chain
+    sizing = {"chain_pages": chain, "request_pages_max": worst,
+              "private_pages_max": worst - chain, "slots": slots,
+              "num_pages": num_pages,
+              "formula": "slots x private pages + 2 chains",
+              "host_cache_pages": SPILL_HOST_PAGES}
+    print("[serve spill] pool " + json.dumps(sizing))
+    engines = {kind: PagedServeEngine(cfg, params, num_pages=num_pages,
+                                      host_cache_pages=host, **paged_kw)
+               for kind, host in (("tier", SPILL_HOST_PAGES),
+                                  ("destroy", 0))}
+    tier = engines["tier"]
+    spill_s, restore_s, probe, held = [], [], {}, [0]
+    # until the first restore, every spilled page's device bytes are kept
+    # (by payload) to hold that restore against
+    kept: dict = {}
+    plain_spill, plain_restore = tier._spill_page, tier._restore_page
+
+    def spill(page):
+        before = ([r.clone() for r in gather_page_rows(tier.cache, page)]
+                  if "equal" not in probe else None)
+        out_ = plain_spill(page)
+        probe.setdefault("bytes", sum(x.nbytes for x in out_))
+        if before is not None:
+            kept[id(out_)] = (page, out_, before)
+        held[0] = max(held[0], tier.pool.host_used + 1)
+        return out_
+
+    def restore(payload, page):
+        plain_restore(payload, page)
+        if "equal" not in probe and id(payload) in kept:
+            spilled, _, before = kept[id(payload)]
+            probe["equal"] = all(torch.equal(a, b) for a, b in zip(
+                gather_page_rows(tier.cache, page), before))
+            probe["page"], probe["restored_into"] = spilled, page
+            kept.clear()
+
+    tier._spill_page = synced(torch, spill, spill_s)
+    tier._restore_page = synced(torch, restore, restore_s)
+    turns: dict = {"tier": [], "destroy": []}
+    for t, kind in ((0, "tier"), (0, "destroy"), (1, "destroy"),
+                    (1, "tier")):
+        eng = engines[kind]
+        before = {k: eng.stats[k] for k in SPILL_KEYS}
+        res = serve(torch, eng, traces[t], paged_attention,
+                    f"serve spill {kind} turn {t}")
+        res["delta"] = {k: eng.stats[k] - before[k] for k in SPILL_KEYS}
+        turns[kind].append(res)
+        eng.pool.check()
+    host_end = tier.pool.host_used
+    del engines, tier, eng
+    torch.cuda.empty_cache()
+    unlimited = PagedServeEngine(cfg, params, **paged_kw)
+    ties: dict = {}
+    for t, reqs in enumerate(traces):
+        want = reference_tokens(unlimited, reqs)
+        for kind in turns:
+            ties[f"{kind} turn {t}"] = spec_tokens_agree(
+                torch, unlimited, reqs, turns[kind][t]["tokens"], want,
+                2 * route["D"], f"serve spill {kind} turn {t}")
+    del unlimited
+    torch.cuda.empty_cache()
+    st = {k: sum(r["delta"][k] for r in turns["tier"]) for k in SPILL_KEYS}
+    tw = {k: sum(r["delta"][k] for r in turns["destroy"])
+          for k in SPILL_KEYS}
+    check(st["spilled"] > 0 and st["restored"] > 0, f"serve spill: "
+          f"spilled {st['spilled']}, restored {st['restored']}")
+    check(probe.get("equal") is True, "serve spill: the first page restored "
+          f"is not the page it was when it spilled ({probe.get('equal')})")
+    tps = {k: [r["tokens_per_s"] for r in v] for k, v in turns.items()}
+    ratios = [a / b for a, b in zip(tps["tier"], tps["destroy"])]
+    page_bytes = probe["bytes"]
+    summary = {
+        "pool": sizing,
+        "tokens_per_s": tps["tier"][0],
+        "destroy_twin_tokens_per_s": tps["destroy"][0],
+        "tokens_per_s_ratio": float(np.mean(ratios)),
+        "tokens_per_s_ratio_per_trace": ratios,
+        "in_turns_tokens_per_s": tps,
+        "prefill_s": [r["prefill_s"] for r in turns["tier"]],
+        "destroy_twin_prefill_s": [r["prefill_s"]
+                                   for r in turns["destroy"]],
+        **{k: st[k] for k in ("spilled", "restored", "spill_dropped",
+                              "host_evicted", "readopted")},
+        "restores_per_spill": st["restored"] / st["spilled"],
+        "prefill_tokens_saved": st["prefill_tokens_saved"],
+        "destroy_twin_prefill_tokens_saved": tw["prefill_tokens_saved"],
+        "prefill_tokens_saved_vs_twin": st["prefill_tokens_saved"]
+        - tw["prefill_tokens_saved"],
+        "destroy_twin_evicted": tw["evicted"],
+        "spill_ms_per_page": float(np.mean(spill_s)) * 1e3,
+        "restore_ms_per_page": float(np.mean(restore_s)) * 1e3,
+        "spill_ms_p50_max": [float(np.median(spill_s)) * 1e3,
+                             max(spill_s) * 1e3],
+        "restore_ms_p50_max": [float(np.median(restore_s)) * 1e3,
+                               max(restore_s) * 1e3],
+        "page_bytes": page_bytes,
+        "host_bytes_held_max": held[0] * page_bytes,
+        "host_bytes_held_end": host_end * page_bytes,
+        "round_trip_page": {"spilled": probe["page"],
+                            "restored_into": probe["restored_into"],
+                            "bitwise": probe["equal"]},
+        "kernel_a_launches": turns["tier"][0]["launches"][
+            "paged_attention"],
+        "destroy_twin_kernel_a_launches": turns["destroy"][0]["launches"][
+            "paged_attention"],
+        "max_memory_allocated_gb": turns["tier"][0][
+            "max_memory_allocated_gb"],
+        "tie_bound": 2 * route["D"], "near_ties": ties}
+    print("[serve spill summary] " + json.dumps(summary))
+    return {**summary, "launches": turns["tier"][0]["launches"],
+            "twin_launches": turns["destroy"][0]["launches"]}
+
+
+def preempt_trace(cfg, prioritized: bool = True):
+    """``[serve preempt]``: 8 priority-0 requests of 256-token prompts (a
+    64-token shared head, so the radix cache hits) and 48 new tokens fill
+    the 8 slots at tick 0; 2 requests of priority 2 arrive at tick 4."""
+    from repro_torch.launch.engine import Request
+    rng = np.random.default_rng(SEED + 2)
+    head = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 64))
+    reqs = []
+    for i in range(10):
+        high = i >= 8
+        reqs.append(Request(
+            rid=i, tokens=head + tuple(int(t) for t in rng.integers(
+                0, cfg.vocab_size, 192)), max_new_tokens=48,
+            arrival=4 if high else 0,
+            priority=2 if high and prioritized else 0))
+    return reqs
+
+
+def serve_preempt(torch, cfg, params, paged_kw: dict, route: dict) -> dict:
+    """``[serve preempt]``: ``preempt_trace`` on the paged OFF engine with
+    telemetry: the priority-2 arrivals must preempt running slots to the
+    host and the victims resume; every request's tokens equal a
+    never-preempted twin's (the same requests, priorities stripped, FIFO,
+    a fresh engine) under the 2D guard (a resumed slot decodes in other
+    co-batches).  Prints ms per preempt and per resume behind a sync (with
+    the pages copied each way) and the priority requests' TTFT beside the
+    twin's."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.engine import PagedServeEngine
+    out = {}
+    for kind in ("preempt", "fifo"):
+        eng = PagedServeEngine(cfg, params, telemetry=True, **paged_kw)
+        pre_s, res_s = [], []
+        eng._preempt_slot = synced(torch, eng._preempt_slot, pre_s)
+        eng._resume_one = synced(torch, eng._resume_one, res_s)
+        reqs = preempt_trace(cfg, prioritized=kind == "preempt")
+        res = serve(torch, eng, reqs, paged_attention,
+                    f"serve preempt {kind}")
+        ttft = {r.rid: r.ttft_s for r in eng.telemetry.records
+                if r.rid in (8, 9)}
+        pages = [e["pages"] for e in eng.telemetry.trace
+                 if e["ev"] == "preempt"]
+        res.update(preempts=eng.preempts, resumes=eng.resumes,
+                   preempt_ms=[t * 1e3 for t in pre_s],
+                   resume_ms=[t * 1e3 for t in res_s], ttft=ttft,
+                   pages=pages)
+        eng.pool.check()
+        out[kind] = res
+        if kind == "fifo":
+            ties = spec_tokens_agree(torch, eng, reqs, out["preempt"][
+                "tokens"], res["tokens"], 2 * route["D"], "serve preempt")
+        del eng
+        torch.cuda.empty_cache()
+    p, f = out["preempt"], out["fifo"]
+    check(p["preempts"] > 0 and p["resumes"] > 0, f"serve preempt: "
+          f"{p['preempts']} preempts, {p['resumes']} resumes")
+    check(f["preempts"] == 0, "serve preempt: the FIFO twin preempted")
+    summary = {
+        "preempts": p["preempts"], "resumes": p["resumes"],
+        "pages_per_preempt": p["pages"],
+        "preempt_ms": p["preempt_ms"], "resume_ms": p["resume_ms"],
+        "ms_per_preempt": float(np.mean(p["preempt_ms"])),
+        "ms_per_resume": float(np.mean(p["resume_ms"])),
+        "high_priority_ttft_s": p["ttft"],
+        "fifo_twin_high_priority_ttft_s": f["ttft"],
+        "tokens_per_s": p["tokens_per_s"],
+        "fifo_twin_tokens_per_s": f["tokens_per_s"],
+        "kernel_a_launches": p["launches"]["paged_attention"],
+        "tie_bound": 2 * route["D"], "near_ties": ties}
+    print("[serve preempt summary] " + json.dumps(summary))
+    return {**summary, "launches": p["launches"]}
+
+
+def serve_async(torch, cfg, params, paged_kw: dict, off: dict,
+                route: dict) -> dict:
+    """``[serve async]``: ``AsyncServeEngine(drain_depth=4)`` over the
+    paged OFF engine with ``prefill_buckets=True`` on the paged OFF trace:
+    tokens equal the paged OFF phase's under the 2D guard; prints tokens/s
+    beside paged OFF's in this call and beside the same engine's tick
+    loop in turns, the pad chunks, the pipeline's counters and a profiled
+    window's idle share."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.async_engine import AsyncServeEngine
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    eng = PagedServeEngine(cfg, params, prefill_buckets=True, **paged_kw)
+    a = AsyncServeEngine(eng, drain_depth=4)
+    a.run([Request(rid=-1, tokens=(1, 2, 3), max_new_tokens=2,
+                   arrival=a.tick)])
+    reqs = make_trace(cfg, 8, 32, 0)
+    base = a.tick
+    reqs = [dataclasses.replace(r, arrival=base + r.arrival) for r in reqs]
+    pad0 = eng.prefill_pad_chunks
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps = a.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters()}
+    check(launches["paged_attention"] > 0,
+          "serve async: kernel A was never launched")
+    pads = eng.prefill_pad_chunks - pad0
+    got = {c.rid: c.tokens for c in comps}
+    check(sorted(got) == [r.rid for r in reqs], "serve async: not every "
+          "request completed")
+    ties = spec_tokens_agree(torch, eng, reqs, got, off["tokens"],
+                             2 * route["D"], "serve async")
+    st = eng.metrics.snapshot()["async"]
+    n_gen = sum(len(t) for t in got.values())
+    prof = profile_window(torch, a, make_trace(cfg, 4, 32, 0), "serve async")
+    a.close()
+    # the pipeline against the tick loop in turns on this engine (sync,
+    # async, async, sync; an engine is run directly only while its
+    # wrapper is closed), each turn 2 requests with fresh suffixes
+    turns: dict = {"sync": [], "async": []}
+    vocab, n_sys = cfg.vocab_size, 256
+    for j, kind in enumerate(("sync", "async", "async", "sync")):
+        runner = a if kind == "async" else eng
+        base = runner.tick
+        fresh = [dataclasses.replace(
+            r, rid=2000 + 100 * j + r.rid, arrival=base + r.arrival,
+            tokens=r.tokens[:n_sys] + tuple(
+                (t + 7919 * (j + 1)) % vocab for t in r.tokens[n_sys:]))
+            for r in make_trace(cfg, 2, 32, 0)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        comps = runner.run(fresh)
+        torch.cuda.synchronize()
+        turns[kind].append(sum(len(c.tokens) for c in comps)
+                           / (time.perf_counter() - t1))
+        a.close()
+    summary = {"drain_depth": a.drain_depth, "tokens_per_s": n_gen / wall,
+               "paged_off_tokens_per_s": off["tokens_per_s"],
+               "tokens_per_s_ratio": n_gen / wall / off["tokens_per_s"],
+               "in_turns_tokens_per_s": turns,
+               "in_turns_async_over_sync": float(np.mean(turns["async"])
+                                                 / np.mean(turns["sync"])),
+               "wall_s": wall, "prefill_buckets": eng._bucket_sizes,
+               "prefill_pad_chunks": pads,
+               "max_inflight": st["max_inflight"],
+               "pipeline_flushes": st["pipeline_flushes"],
+               "dispatched_ticks": st["dispatched_ticks"],
+               "device_idle_share": prof["device_idle_share"],
+               "kernel_a_launches": launches["paged_attention"],
+               "tie_bound": 2 * route["D"], "near_ties": ties}
+    print("[serve async summary] " + json.dumps(summary))
+    del a, eng
+    torch.cuda.empty_cache()
+    return {**summary, "launches": launches}
 
 
 def reference_tokens(engine, reqs) -> dict:
@@ -1660,20 +2097,34 @@ def main() -> None:
 
     t0 = time.perf_counter()
     tele = PagedServeEngine(cfg, params, telemetry=True, **paged_kw)
-    serve_telemetry(torch, tele, make_trace(cfg, 8, 32, 0), off_res,
-                    "serve telemetry")
+    tele_res = serve_telemetry(torch, tele, make_trace(cfg, 8, 32, 0),
+                               off_res, "serve telemetry")
     # the non-spec tokens [serve spec drift] is held against (64 new)
     drift_want = reference_tokens(tele, make_trace(cfg, 8, 64, 0))
+    route = tele_res["route"]
     del tele
     torch.cuda.empty_cache()
     print(f"[serve telemetry] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    spill_res = serve_spill(torch, cfg, params, paged_kw, route)
+    print(f"[serve spill] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    preempt_res = serve_preempt(torch, cfg, params, paged_kw, route)
+    print(f"[serve preempt] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    async_res = serve_async(torch, cfg, params, paged_kw, off_res, route)
+    print(f"[serve async] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log8 = PagedServeEngine(cfg, params, max_slots=8, max_len=1024,
                             nldpe=OFF, page_size=16, prefill_chunk=64,
                             decode_block=4, kv_quant="log8")
     log8_res = serve_log8(torch, log8, off_bytes, make_trace(cfg, 8, 32, 0))
-    profile_window(torch, log8, make_trace(cfg, 4, 32, 0), "serve OFF log8")
+    # a 2-request window (4 before the tier phases came), for their time
+    profile_window(torch, log8, make_trace(cfg, 2, 32, 0), "serve OFF log8")
     log8_in = kernel_a_inputs(log8)
     del log8
     torch.cuda.empty_cache()
@@ -1706,9 +2157,11 @@ def main() -> None:
     t0 = time.perf_counter()
     slotted = ServeEngine(cfg, params, max_slots=8, max_len=1024, nldpe=OFF,
                           prefill_chunk=64, decode_block=4)
-    serve(torch, slotted, make_trace(cfg, 8, 32, 0), None,
+    # 4 requests and a 2-request window (8 and 4 before the tier phases
+    # came), for their time
+    serve(torch, slotted, make_trace(cfg, 4, 32, 0), None,
           "serve slotted OFF")
-    profile_window(torch, slotted, make_trace(cfg, 4, 32, 0),
+    profile_window(torch, slotted, make_trace(cfg, 2, 32, 0),
                    "serve slotted OFF")
     del slotted
     torch.cuda.empty_cache()
@@ -1779,7 +2232,15 @@ def main() -> None:
                 "launches_serve_spec_drift": drift_res["launches"][
                     "paged_attention"],
                 "launches_serve_spec_drift_by_shape": drift_res[
-                    "paged_attention_by_shape"]}),
+                    "paged_attention_by_shape"],
+                "launches_serve_spill": spill_res["launches"][
+                    "paged_attention"],
+                "launches_serve_spill_destroy_twin": spill_res[
+                    "twin_launches"]["paged_attention"],
+                "launches_serve_preempt": preempt_res["launches"][
+                    "paged_attention"],
+                "launches_serve_async": async_res["launches"][
+                    "paged_attention"]}),
         fused_acam_phase(torch, timer, params,
                          path_launches(fused_res, "fused_crossbar_acam")),
         logdomain_phase(torch, timer, lock_fused["per_kernel"][

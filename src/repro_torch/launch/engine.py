@@ -42,9 +42,25 @@ publication).
   trace (``obs/``, DESIGN.md §12), host-side observation only; the
   ``metrics`` registry is always on.
 
-Not ported yet (``ROADMAP.md`` queue A): the host spill tier and
-preemption, meshes, AOT prefill buckets and the async engine.  The paged
-engine raises ``NotImplementedError`` when asked for any of them.
+* **Host spill tier** — ``PagedServeEngine(host_cache_pages=N)``: LRU
+  eviction demotes refcount-0 radix pages to host memory instead of
+  destroying them, and a radix hit on a spilled chain restores it
+  host->device before publish (DESIGN.md §13, ``launch/kvpool.py``).
+* **Priority preemption** — ``Request.priority``: higher classes admit
+  first, and a strictly higher arrival may swap a running lower-priority
+  slot out to host memory (its decode state, position row and every page's
+  bytes); the victim resumes later, indistinguishable from never having
+  been preempted.
+* **Prefill buckets** — ``prefill_buckets=True`` (or an iterable of chunk
+  counts) on either engine rounds each admission wave's chunk count up to
+  a bucket, the pad chunks write-masked off.  Eager PyTorch has nothing to
+  compile ahead, so the buckets are pad-only, as ``repro``'s are under a
+  mesh (``aot_prefill`` is False).
+* **Async serving** — ``launch/async_engine.AsyncServeEngine`` runs
+  ``_dispatch_tick`` and ``_harvest`` on separate threads (DESIGN.md §14).
+
+Not ported yet (``ROADMAP.md`` queue A): meshes.  The paged engine raises
+``NotImplementedError`` when given ``mesh`` or ``rules``.
 
 Where ``repro`` donates device buffers to its jitted steps, these engines
 update the cache and the decode state in place.
@@ -65,6 +81,7 @@ from ..core import drift as drift_lib
 from ..core.engine import NLDPEConfig, OFF
 from ..core.logdomain import log_quantize
 from ..models import lm
+from ..nn import attention
 from ..obs import MetricsRegistry, Telemetry
 from . import prng
 from .fidelity import DriftInjection, FidelityMonitor, FidelityPolicy
@@ -74,11 +91,9 @@ from .spec_decode import (build_draft_scan_fn, build_verify_fn,
                           clip_positions, emits_tick_major,
                           quantize_draft_params)
 
-# PagedServeEngine options of repro's that the port does not have yet (the
-# spill tier, meshes, AOT prefill buckets: ROADMAP.md A.3 and A.7), with
-# the value that leaves each off
-_NOT_PORTED = {"host_cache_pages": 0, "mesh": None, "rules": None,
-               "prefill_buckets": None}
+# PagedServeEngine options of repro's that the port does not have yet
+# (meshes: ROADMAP.md A.7), with the value that leaves each off
+_NOT_PORTED = {"mesh": None, "rules": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +107,8 @@ class Request:
     top_k: int = 0                     # 0 -> disabled
     seed: int | None = None            # defaults to rid
     arrival: int = 0                   # arrival time in decode ticks
+    priority: int = 0                  # higher admits first; strictly
+    #                                    higher may preempt (paged engine)
 
 
 @dataclasses.dataclass
@@ -104,6 +121,28 @@ class Completion:
     finish_reason: str                 # "length" | "eos"
     admitted_tick: int
     finished_tick: int
+
+
+@dataclasses.dataclass
+class _Preempted:
+    """A preempted request's whole resume image on the host: its decode
+    state, sampling key, position-track row and every block-table page's
+    bytes (real copies: the cache is written in place, and the next chunk
+    or decode may overwrite the released pages).  Sampling folds (seed,
+    position), drafts are deterministic per prefix, and attention reaches
+    page bytes only through the block table, so resuming into other
+    physical pages changes no token."""
+
+    req: Request
+    tok: int
+    pos: int
+    gen_left: int
+    temp: float
+    topk: int
+    keys: np.ndarray                   # (2,) int64 sampling key
+    pos_row: torch.Tensor              # (max_len,) int32 position track
+    payloads: list                     # per page, the pool leaves' rows
+    tel_carry: tuple                   # (drafted, accepted) already done
 
 
 class ServeEngine:
@@ -123,13 +162,19 @@ class ServeEngine:
     synchronizes, so tokens are the same with it on or off.  ``metrics``
     (always on) is the registry of lazy stats groups: ``"engine"``, and
     ``"latency"`` with telemetry.
+
+    ``prefill_buckets`` (True, or an iterable of chunk counts) rounds each
+    admission wave's chunk count up to a bucket (``_bucket_table``); the
+    pad chunks are write-masked off, so tokens and cache bytes do not
+    change, and ``prefill_pad_chunks`` counts them.
     """
 
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  nldpe: NLDPEConfig = OFF, prefill_chunk: int = 16,
                  decode_block: int = 4, eos_id: int = -1,
                  dtype=torch.float32, kv_quant: str | None = None,
-                 device=None, telemetry: Telemetry | bool | None = None):
+                 device=None, telemetry: Telemetry | bool | None = None,
+                 prefill_buckets=None):
         if any(t != "attn" for t in cfg.layer_pattern):
             raise NotImplementedError(
                 f"the serve engines serve attention blocks only; "
@@ -170,7 +215,16 @@ class ServeEngine:
         self._free = deque(range(s))
         self._out: dict[int, list[int]] = {}
         self._admitted_tick: dict[int, int] = {}
+        # requests swapped out to the host by priority preemption (the paged
+        # engine fills it; the run loop only has to know they exist)
+        self._preempted: list[_Preempted] = []
         self.tick = 0
+        # pad-only prefill buckets: the ladder of chunk counts a wave's
+        # prefill rounds up to (empty: run exactly the wave's chunks)
+        self._bucket_sizes = (self._bucket_table(prefill_buckets)
+                              if prefill_buckets else [])
+        self.prefill_pad_chunks = 0
+        self.aot_prefill = False
         # host-clock totals (each region ends in a device->host copy, so
         # the device work inside it has finished)
         self.prefill_seconds = 0.0
@@ -202,6 +256,25 @@ class ServeEngine:
         return lm.init_model_cache(self.cfg, self.max_slots, self.max_len,
                                    slotted=True, dtype=self.dtype,
                                    device=self.device)
+
+    def _bucket_table(self, spec) -> list[int]:
+        """The prefill bucket ladder (``repro``'s ``_build_buckets``):
+        ``spec`` True gives the powers of two below ceil(max_len /
+        prefill_chunk) and that maximum; an iterable of chunk counts is
+        sorted, clamped to [1, maximum] and closed with the maximum, so
+        every wave fits a bucket."""
+        n_max = -(-self.max_len // self.prefill_chunk)
+        if spec is True:
+            sizes, n = [], 1
+            while n < n_max:
+                sizes.append(n)
+                n *= 2
+            sizes.append(n_max)
+            return sizes
+        sizes = sorted({min(max(1, int(b)), n_max) for b in spec})
+        if not sizes or sizes[-1] != n_max:
+            sizes.append(n_max)
+        return sizes
 
     # ------------------------------------------------------------------
     # device helpers
@@ -280,13 +353,24 @@ class ServeEngine:
                 f"request {req.rid}: prompt {p} + {req.max_new_tokens} new "
                 f"tokens needs {need} positions > max_len={self.max_len}")
 
-    def _prefill(self, admit, plen, reuse, tokens, ci, col) -> torch.Tensor:
+    def _prefill(self, admit, plen, reuse, tokens, ci, col):
         """Chunked suffix prefill of one wave; returns the (S, V) logits of
         each admitted slot's last prompt token (merged chunk by chunk, so
-        wave memory never scales with the chunk count)."""
+        wave memory never scales with the chunk count) and the chunks run.
+        With prefill buckets the wave runs the smallest bucket's chunk
+        count; a pad chunk's write mask is all False, so it leaves the
+        cache unchanged and no slot takes its logits."""
         s, c = self.max_slots, self.prefill_chunk
         suffix = plen - reuse
         n_chunks = -(-int(suffix[admit].max()) // c)
+        if self._bucket_sizes:
+            nb = min(b for b in self._bucket_sizes if b >= n_chunks)
+            self.prefill_pad_chunks += nb - n_chunks
+            if nb * c > tokens.shape[1]:
+                pad = np.zeros((s, nb * c), np.int32)
+                pad[:, :tokens.shape[1]] = tokens
+                tokens = pad
+            n_chunks = nb
         rows = torch.arange(s, device=self.device)
         col_t = self._t(col.astype(np.int64))
         last = torch.zeros((s, self.cfg.vocab_size), dtype=torch.float32,
@@ -299,11 +383,35 @@ class ServeEngine:
                              self._t(base), mask, self._t(limit))
             take = self._t(admit & (ci == i))
             last = torch.where(take[:, None], lg[rows, col_t], last)
-        return last
+        return last, n_chunks
+
+    @staticmethod
+    def _priority_order(waiting: deque) -> None:
+        """Stable-reorder the waiting queue by descending priority (FIFO
+        within a class); a no-op when every request has priority 0, so
+        such traces schedule exactly as before."""
+        if any(r.priority for r in waiting):
+            ordered = sorted(waiting, key=lambda r: -r.priority)
+            waiting.clear()
+            waiting.extend(ordered)
+
+    def _resume_preempted(self, waiting=()) -> None:
+        """Hook: swap preempted requests back in (paged engine).  Runs each
+        scheduler iteration before admission; ``waiting`` lets the override
+        hold back resumes a higher-priority arrival would only preempt
+        again."""
+
+    def _can_admit(self, waiting: deque) -> bool:
+        """Whether ``_select_wave`` could admit anything now.  The paged
+        engine also answers True with no free slot when a waiting request
+        outranks a running one (admission by preemption)."""
+        return bool(self._free)
 
     def _select_wave(self, waiting: deque) -> list[Request]:
         """Pop the next admission wave: as many waiting requests as there
-        are free slots (the paged engine adds its page budget)."""
+        are free slots, highest priority first (the paged engine adds its
+        page budget and preemption)."""
+        self._priority_order(waiting)
         return [waiting.popleft()
                 for _ in range(min(len(waiting), len(self._free)))]
 
@@ -361,7 +469,7 @@ class ServeEngine:
                                    else r.rid).numpy()
             temp[sl] = r.temperature
             topk[sl] = r.top_k
-        last = self._prefill(admit, plen, reuse, tokens, ci, col)
+        last, n_chunks = self._prefill(admit, plen, reuse, tokens, ci, col)
         firsts = sample_tokens(last, step_keys(self._t(keys), self._t(plen)),
                                self._t(temp), self._t(topk)).cpu().numpy()
         wall = time.perf_counter() - t0
@@ -446,13 +554,13 @@ class ServeEngine:
 
     def _engine_stats(self) -> dict:
         """Scheduler gauges for ``metrics.snapshot()["engine"]``: host
-        state only, so reading them never syncs the device.  The port has
-        no prefill buckets yet: their two gauges read 0."""
+        state only, so reading them never syncs the device."""
         return {"tick": self.tick, "free_slots": self.free_slots,
                 "active_slots": sum(o is not None
                                     for o in self._slot_owner),
                 "inflight": len(self._out),
-                "prefill_buckets": 0, "prefill_pad_chunks": 0}
+                "prefill_buckets": len(self._bucket_sizes),
+                "prefill_pad_chunks": self.prefill_pad_chunks}
 
     def _dispatch_tick(self):
         """Device work of one decode tick: ``decode_block`` steps over all
@@ -539,7 +647,7 @@ class ServeEngine:
         waiting: deque[Request] = deque()
         completions: list[Completion] = []
         tel = self.telemetry
-        while queue or waiting or self.any_active:
+        while queue or waiting or self.any_active or self._preempted:
             progressed = False
             while queue and queue[0].arrival <= self.tick:
                 r = queue.popleft()
@@ -547,7 +655,10 @@ class ServeEngine:
                     tel.enqueue(r.rid, r.arrival)
                 waiting.append(r)
                 progressed = True
-            if waiting and self._free:
+            n_pre = len(self._preempted)
+            self._resume_preempted(waiting)
+            progressed |= len(self._preempted) != n_pre
+            if waiting and self._can_admit(waiting):
                 wave = self._select_wave(waiting)
                 if wave:
                     completions.extend(self._admit_wave(wave))
@@ -556,14 +667,24 @@ class ServeEngine:
                 if progressed:
                     continue        # instant finishes freed slots; re-admit
                 if queue:
-                    # idle until the next arrival: strictly advances the tick
+                    # idle until the next arrival: strictly advances the
+                    # tick, so a blocked waiting queue cannot spin here
                     self.tick = max(self.tick, queue[0].arrival)
                     continue
+                # nothing active, nothing arriving, and this iteration moved
+                # nothing: no later iteration can differ
                 if waiting:
                     raise RuntimeError(
-                        f"scheduler deadlock: {len(waiting)} waiting, no "
+                        f"scheduler deadlock: {len(waiting)} waiting and "
+                        f"{len(self._preempted)} preempted request(s), no "
                         f"active slots, no future arrivals, and admission "
-                        f"made no progress")
+                        f"made no progress (admission blocked or the pool "
+                        f"is too small for the requests)")
+                if self._preempted:
+                    raise RuntimeError(
+                        f"{len(self._preempted)} preempted request(s) "
+                        f"cannot resume into an idle engine; the page pool "
+                        f"is too small for their footprints")
                 break
             completions.extend(self.step())
         return sorted(completions, key=lambda c: c.rid)
@@ -598,10 +719,25 @@ class PagedServeEngine(ServeEngine):
     falls back to the exact decode tick.  ``fidelity_stats`` holds the
     clock, the ladder's events, the downtime and the fault census.  The
     caller keeps ``params`` unchanged while the engine lives.
+
+    **Host spill tier** (``host_cache_pages > 0``, DESIGN.md §13): LRU
+    eviction copies a refcount-0 radix page to host memory (``_spill_page``)
+    and keeps its node, up to ``host_cache_pages`` pages; a radix hit on a
+    spilled chain allocates fresh pages and copies it back
+    (``_restore_page``) before the wave publishes.  0 keeps
+    destroy-on-evict.
+
+    **Priority preemption**: a waiting request that strictly outranks a
+    running one may take its slot when no slot or page budget is free; the
+    victim's decode state, position row and pages go to host memory without
+    publication, and it resumes when the engine has room (``preempts``,
+    ``resumes``).  Both tiers show in ``metrics.snapshot()["tiers"]`` and,
+    with telemetry, as ``spill``/``restore``/``preempt``/``resume`` events.
     """
 
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  page_size: int = 16, num_pages: int | None = None,
+                 host_cache_pages: int = 0,
                  spec_k: int = 0, spec_draft: NLDPEConfig | None = None,
                  drift: DriftInjection | None = None,
                  fidelity: FidelityPolicy | None = None, **kw):
@@ -628,8 +764,12 @@ class PagedServeEngine(ServeEngine):
         self.n_blocks = -(-max_len // page_size)
         self.num_pages = (max_slots * self.n_blocks if num_pages is None
                           else num_pages)
-        self.pool = PagePool(self.num_pages, page_size)
+        self.host_cache_pages = int(host_cache_pages)
+        self.pool = PagePool(self.num_pages, page_size,
+                             host_pages=self.host_cache_pages)
         self._slot_pages: list[list[int] | None] = [None] * max_slots
+        self.preempts = 0
+        self.resumes = 0
         super().__init__(cfg, params, max_slots=max_slots, max_len=max_len,
                          **kw)
         # the root is keyed on the numerics and the effective storage grid
@@ -673,19 +813,25 @@ class PagedServeEngine(ServeEngine):
             self._program_drift(params)
 
         # registry groups over the legacy stats dicts (each group's
-        # snapshot compares == to its dict); "tiers" reads 0 until the
-        # spill tier and preemption are ported
+        # snapshot compares == to its dict); the tier gauges have a group
+        # of their own, so "pool" stays == pool.stats
         me = weakref.ref(self)
         self.metrics.register_group("pool", lambda: dict(me().pool.stats))
         self.metrics.register_group("spec", lambda: me().spec_stats)
         self.metrics.register_group("fidelity", lambda: me().fidelity_stats)
-        self.metrics.register_group("tiers", lambda: {
-            "host_pages": 0, "host_used": 0, "preempted_waiting": 0,
-            "preempts": 0, "resumes": 0})
+        self.metrics.register_group("tiers", lambda: me()._tier_stats())
+        if self.host_cache_pages > 0:
+            self.pool.on_spill = lambda page: me()._spill_page(page)
         tel = self.telemetry
         if tel is not None:
             self.pool.on_evict = (
                 lambda page: tel.event("eviction", me().tick, page=page))
+
+    def _tier_stats(self) -> dict:
+        return {"host_pages": self.pool.host_pages,
+                "host_used": self.pool.host_used,
+                "preempted_waiting": len(self._preempted),
+                "preempts": self.preempts, "resumes": self.resumes}
 
     def _build_spec_fns(self, k: int) -> tuple:
         return (build_draft_scan_fn(self.cfg, spec_k=k, nldpe=self.spec_draft),
@@ -951,49 +1097,105 @@ class PagedServeEngine(ServeEngine):
             if name in self.cache:
                 self.cache[name][:, dst] = self.cache[name][:, src]
 
+    # -- host tier: device->host spill, host->device restore (§13) ---------
+
+    def _page_to_host(self, page: int) -> list:
+        """Real host copies of one page's rows in every pool leaf
+        (``gather_page_rows``), never views of the pool, which the next
+        chunk or decode writes in place.  From the card each row goes into
+        pinned memory by a blocking copy: it is done when this returns, and
+        a restore reads it back at the pinned rate."""
+        rows = attention.gather_page_rows(self.cache, page)
+        if self.device.type != "cuda":
+            return [r.clone() for r in rows]
+        out = []
+        for r in rows:
+            host = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+            host.copy_(r)
+            out.append(host)
+        return out
+
+    def _spill_page(self, page: int) -> list:
+        """The pool's ``on_spill`` hook: the page's bytes to the host while
+        they are still resident (the pool frees the page after it)."""
+        payload = self._page_to_host(page)
+        tel = self.telemetry
+        if tel is not None:
+            tel.event("spill", self.tick, page=page)
+        return payload
+
+    def _restore_page(self, payload: list, page: int) -> None:
+        """Host->device copy of a spilled payload into physical page
+        ``page`` (``scatter_page_rows``).  The copies block: the payload's
+        pinned buffers have been read when this returns and may be freed
+        or reused at once."""
+        attention.scatter_page_rows(self.cache, payload, page)
+
     def _plan(self, req: Request, *, peek: bool) -> dict:
-        """Map a request onto pages: radix-hit pages to share, an optional
-        COW fork of the boundary page, and the fresh pages its
-        prompt + gen footprint needs.  ``peek=True`` never touches pool
-        state and also reports ``cost`` (fresh pages plus refcount-0 hits,
-        which retaining takes out of the evictable set)."""
+        """Map a request onto pages: radix-hit pages to share, the spilled
+        continuation of the hit chain to restore, an optional COW fork of
+        the boundary page, and the fresh pages its prompt + gen footprint
+        needs.  ``peek=True`` never touches pool state and also reports
+        ``cost`` (fresh pages plus refcount-0 hits, which retaining takes
+        out of the evictable set); without it the spilled nodes are pinned
+        until admission restores them (or unpins them on a rollback)."""
         ps = self.page_size
         plen = len(req.tokens)
-        hit = self.pool.match(self._fp, req.tokens, peek=peek)
-        fork_src = None
-        if hit and len(hit) * ps > plen - 1:
+        hit, spill = self.pool.match_tiers(self._fp, req.tokens, peek=peek)
+        fork_src = fork_node = None
+        n_hit = len(hit) + len(spill)
+        if n_hit and n_hit * ps > plen - 1:
             # the cache covers the whole prompt: the boundary page becomes
-            # private (final-token recompute + decode appends land in it)
-            fork_src = hit[-1]
-            hit = hit[:-1]
+            # private (final-token recompute + decode appends land in it).
+            # A spilled boundary is a payload fork: its host bytes go
+            # straight into the private page and the node stays spilled.
+            if spill:
+                fork_node, spill = spill[-1], spill[:-1]
+            else:
+                fork_src, hit = hit[-1], hit[:-1]
             reuse = plen - 1
         else:
-            reuse = len(hit) * ps
+            reuse = n_hit * ps
         # spec_k positions of slack: a spec step writes drafted K/V up to
         # spec_k positions past the committed tip, into pages the slot owns
         # (capped at max_len: the position track drops anything beyond)
         footprint = min(plen + req.max_new_tokens - 1 + self.spec_k,
                         self.max_len)
         nb_need = -(-footprint // ps)
-        plan = {"hit": hit, "fork_src": fork_src, "reuse": reuse,
-                "nb_need": nb_need, "n_fresh": nb_need - len(hit)}
+        # fresh pages take the restores, the fork and the suffix: only
+        # resident hits come free
+        plan = {"hit": hit, "spill": spill, "fork_src": fork_src,
+                "fork_node": fork_node, "reuse": reuse, "nb_need": nb_need,
+                "n_fresh": nb_need - len(hit)}
         if peek:
             plan["ref0_pages"] = [p for p in hit
                                   if self.pool.refcount(p) == 0]
         return plan
 
     def _select_wave(self, waiting: deque) -> list[Request]:
-        """Admit requests while both a slot and their page budget fit;
-        raise if the head request cannot fit even an idle pool."""
+        """Admit requests, highest priority first, while both a slot and
+        their page budget fit; raise if the head request cannot fit even an
+        idle pool.  When the head does not fit, a strictly lower-priority
+        running slot may be preempted to make room — only while the wave
+        is still empty, so every plan this call keeps postdates every
+        preemption it makes (a victim's released pages change the
+        refcount-0 and hit picture)."""
+        self._priority_order(waiting)
         wave: list[Request] = []
         spent = 0
         charged: set[int] = set()     # ref-0 hit pages already budgeted
-        while waiting and len(wave) < len(self._free):
+        while waiting:
+            if len(wave) >= len(self._free):
+                if wave or not self._preempt_for(waiting[0]):
+                    break
+                continue                # a slot freed; re-check the head
             plan = self._plan(waiting[0], peek=True)
             ref0_new = [p for p in plan["ref0_pages"] if p not in charged]
             cost = plan["n_fresh"] + len(ref0_new)
             if cost > self.pool.available() - spent:
-                break
+                if wave or not self._preempt_for(waiting[0]):
+                    break
+                continue                # pages freed; replan the head
             charged.update(ref0_new)
             spent += cost
             wave.append(waiting.popleft())
@@ -1005,6 +1207,133 @@ class PagedServeEngine(ServeEngine):
                 f"holds {self.pool.num_pages} (page_size="
                 f"{self.page_size}); grow num_pages or shrink the request")
         return wave
+
+    # -- priority preemption: a running slot out to the host and back -------
+
+    def _can_admit(self, waiting: deque) -> bool:
+        """A full engine can still admit when a waiting request strictly
+        outranks a running slot: ``_select_wave`` preempts the victim."""
+        if self._free:
+            return True
+        top = max(r.priority for r in waiting)
+        return any(r is not None and r.priority < top
+                   for r in self._slot_owner)
+
+    def _preempt_for(self, incoming: Request) -> bool:
+        """Swap out one running victim for a strictly higher-priority
+        incoming request.  The victim order is total — lowest priority,
+        then most recently admitted, then highest rid — so scheduling, and
+        every token after it, is reproducible."""
+        victims = [(r.priority, -self._admitted_tick[r.rid], -r.rid, sl)
+                   for sl, r in enumerate(self._slot_owner)
+                   if r is not None and r.priority < incoming.priority]
+        if not victims:
+            return False
+        self._preempt_slot(min(victims)[3])
+        return True
+
+    def _preempt_slot(self, sl: int) -> None:
+        """Swap slot ``sl`` out to the host: copy its decode state, key,
+        position-track row and every block-table page's bytes, then release
+        the pages WITHOUT publishing them (K/V past the committed prefix
+        must never enter the radix index) and clear the slot's active bit.
+        Every snapshot is a host copy, not the live tensors the next tick
+        rebinds or writes in place.  The payloads are the engine's and take
+        none of the pool's ``host_pages`` (preemption works with the spill
+        tier off)."""
+        req = self._slot_owner[sl]
+        assert req is not None, "preempt of an empty slot"
+        state = [t[sl].tolist() for t in (self._tok, self._pos,
+                                          self._gen_left, self._temp,
+                                          self._topk, self._keys)]
+        tok, pos, gen, temp, topk, keys = state
+        pos_row = self.cache["pos"][sl].to("cpu", copy=True)
+        pages = self._slot_pages[sl]
+        payloads = [self._page_to_host(p) for p in pages]
+        tel = self.telemetry
+        carry = (0, 0)
+        if tel is not None and req.rid in self._tel_admit and self.spec_k:
+            _, d0, a0 = self._tel_admit[req.rid]
+            carry = (int(self._drafted[sl]) - d0,
+                     int(self._accepted[sl]) - a0)
+        self.pool.release(pages)
+        self._slot_pages[sl] = None
+        self._slot_owner[sl] = None
+        self._free.append(sl)
+        # the decode freezes the row (its block table still maps the
+        # released pages, which it may read but never writes)
+        mask = np.zeros((self.max_slots,), bool)
+        mask[sl] = True
+        self._active = self._active & ~self._t(mask)
+        self._preempted.append(_Preempted(
+            req=req, tok=tok, pos=pos, gen_left=gen, temp=temp, topk=topk,
+            keys=np.asarray(keys, np.int64), pos_row=pos_row,
+            payloads=payloads, tel_carry=carry))
+        self.preempts += 1
+        if tel is not None:
+            tel.event("preempt", self.tick, rid=req.rid, slot=sl,
+                      pages=len(payloads), priority=req.priority)
+
+    def _resume_preempted(self, waiting=()) -> None:
+        """Swap preempted requests back in, highest priority first (FIFO
+        within a class).  A strictly higher-priority *waiting* request holds
+        resumes back: admission would only preempt the resumed one again."""
+        if not self._preempted:
+            return
+        self._preempted.sort(key=lambda p: -p.req.priority)
+        top_wait = max((r.priority for r in waiting), default=None)
+        kept: list[_Preempted] = []
+        for pre in self._preempted:
+            if (self._free
+                    and (top_wait is None or pre.req.priority >= top_wait)
+                    and self._resume_one(pre)):
+                continue
+            kept.append(pre)
+        self._preempted = kept
+
+    def _resume_one(self, pre: _Preempted) -> bool:
+        """Restore one preempted request into a free slot: fresh pages, its
+        payloads copied in, the slot's block-table row and saved position
+        row, its decode state merged back."""
+        n = len(pre.payloads)
+        fresh = self.pool.alloc(n)
+        if fresh is None:
+            return False
+        sl = self._free.popleft()
+        for payload, pg in zip(pre.payloads, fresh):
+            self._restore_page(payload, pg)
+        row = np.full((self.n_blocks,), self.num_pages, np.int32)
+        row[:n] = fresh
+        self.cache["bt"][sl] = self._t(row)
+        self.cache["pos"][sl] = pre.pos_row.to(self.device)
+        s = self.max_slots
+        sel = np.zeros((s,), bool)
+        sel[sl] = True
+
+        def one(v, dtype):
+            a = np.zeros((s,) + np.shape(v), dtype)
+            a[sl] = v
+            return a
+
+        self._merge_state(sel, one(pre.tok, np.int32), one(pre.pos, np.int32),
+                          one(pre.gen_left, np.int32),
+                          one(pre.temp, np.float32), one(pre.topk, np.int32),
+                          one(pre.keys, np.int64))
+        self._slot_pages[sl] = list(fresh)
+        self._slot_owner[sl] = pre.req
+        self.resumes += 1
+        tel = self.telemetry
+        if tel is not None:
+            # re-seed the request's spec baseline so finish reports its
+            # drafted/accepted as if it had never been preempted
+            base_d = base_a = 0
+            if self.spec_k:
+                base_d = int(self._drafted[sl]) - pre.tel_carry[0]
+                base_a = int(self._accepted[sl]) - pre.tel_carry[1]
+            self._tel_admit[pre.req.rid] = (sl, base_d, base_a)
+            tel.event("resume", self.tick, rid=pre.req.rid, slot=sl,
+                      pages=n)
+        return True
 
     def _release_slot(self, sl: int, seq: tuple | None = None) -> None:
         """A slot's request finished: publish its committed sequence (the
@@ -1020,11 +1349,12 @@ class PagedServeEngine(ServeEngine):
             self._slot_pages[sl] = None
 
     def _admit_wave(self, reqs: list[Request]) -> list[Completion]:
-        """Plan -> retain/alloc -> COW -> publish -> reset -> suffix
-        prefill -> sample first tokens -> merge decode state."""
+        """Plan -> retain/alloc and restore -> COW -> publish -> reset ->
+        suffix prefill -> sample first tokens -> merge decode state."""
         t0 = time.perf_counter()
         self._check_wave(reqs)
         s = self.max_slots
+        tel = self.telemetry
 
         # Phase 1: plan + commit pool state for every request before any
         # publish: wave-mates never share each other's pages (their prefill
@@ -1037,9 +1367,16 @@ class PagedServeEngine(ServeEngine):
             fresh = self.pool.alloc(plan["n_fresh"])
             if fresh is None:
                 self.pool.release(plan["hit"])
+                self.pool.unpin(plan["spill"])
+                if plan["fork_node"] is not None:
+                    self.pool.unpin([plan["fork_node"]])
                 for pl in plans:
                     self.pool.release(pl["hit"])
                     self.pool.release(pl["fresh"])
+                    # their spilled chains are restored (resident cache
+                    # now, no pin); only a pending payload fork holds one
+                    if pl["fork_node"] is not None:
+                        self.pool.unpin([pl["fork_node"]])
                 for sl2 in reversed(slots):
                     self._free.appendleft(sl2)
                 raise RuntimeError(
@@ -1047,19 +1384,40 @@ class PagedServeEngine(ServeEngine):
                     f"({self.pool.available()} available, "
                     f"{plan['n_fresh']} needed)")
             plan["fresh"] = fresh
+            # restore the spilled chain now, top down, into the leading
+            # fresh pages: before the next request plans (a wave-mate
+            # sharing the chain sees resident hits and never restores it
+            # twice) and before publish
+            for nd, pg in zip(plan["spill"], fresh):
+                self._restore_page(nd.payload, pg)
+                self.pool.restore(nd, pg)
+                if tel is not None:
+                    tel.event("restore", self.tick, page=pg)
             plans.append(plan)
 
-        # every allocation succeeded: COW copies and stats only now
-        tel = self.telemetry
+        # every allocation succeeded: COW copies and stats only now, so a
+        # failed wave leaves the cache and the savings counters untouched
         for sl, plan in zip(slots, plans):
             fresh = plan["fresh"]
-            if plan["fork_src"] is not None:
-                self._copy_page(plan["fork_src"], fresh[0])
+            restored = fresh[:len(plan["spill"])]
+            rest = fresh[len(plan["spill"]):]
+            nd = plan["fork_node"]
+            if nd is not None or plan["fork_src"] is not None:
+                fork_dst = rest[0]
+                # a spilled boundary forks from its payload, unless a
+                # wave-mate restored the node in Phase 1: then an ordinary
+                # device-side copy (the bytes are the same)
+                src = plan["fork_src"] if nd is None else nd.page
+                if src >= 0:
+                    self._copy_page(src, fork_dst)
+                else:
+                    self._restore_page(nd.payload, fork_dst)
+                if nd is not None:
+                    self.pool.unpin([nd])
                 self.pool.note_cow()
                 if tel is not None:
-                    tel.event("cow_fork", self.tick, src=plan["fork_src"],
-                              dst=fresh[0])
-            bt_row = plan["hit"] + fresh
+                    tel.event("cow_fork", self.tick, src=src, dst=fork_dst)
+            bt_row = plan["hit"] + restored + rest
             assert len(bt_row) == plan["nb_need"]
             plan["bt_row"] = bt_row
             self._slot_pages[sl] = list(bt_row)

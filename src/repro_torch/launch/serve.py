@@ -13,12 +13,14 @@ tokens.
     python -m repro_torch.launch.serve --continuous [--nldpe | --fused]
     python -m repro_torch.launch.serve --paged [--nldpe | --fused]
                                        [--kv-quant {log8,int8}]
+                                       [--host-cache-pages N]
+                                       [--priority K]
                                        [--spec K [--spec-full-analog]
                                         [--drift NU] [--fault-rate R]
                                         [--drift-dt S]]
     ... --continuous | --paged [--telemetry] [--trace-out PATH]
                                [--profile-ticks N [--profile-dir DIR]]
-                               [--metrics]
+                               [--metrics] [--async-serve]
 
 The default branch prefills ``--batch`` prompts of ``--prompt-len`` tokens
 and decodes ``--gen-len`` steps in lockstep; ``--continuous`` serves a
@@ -26,8 +28,12 @@ staggered trace through the slotted ``ServeEngine``, ``--paged`` a
 shared-system-prompt trace through ``PagedServeEngine`` (``--kv-quant``
 stores its pages as 8-bit codes; ``--spec K`` adds analog-draft
 speculative decoding with K drafts per verify; ``--drift``/``--fault-rate``
-age its drafter on a virtual clock under the fidelity ladder).  The engine
-demos take ``--telemetry`` (latency percentiles and phase walls; the event
+age its drafter on a virtual clock under the fidelity ladder;
+``--host-cache-pages N`` spills evicted radix pages to host memory and
+restores them on a hit; ``--priority K`` gives every Kth request priority
+1, which may preempt a running slot to host memory).  The engine demos
+take ``--async-serve`` (the dispatch/drain pipeline of
+``launch/async_engine.py`` over bucketed prefill), ``--telemetry`` (latency percentiles and phase walls; the event
 trace as JSONL with ``--trace-out``, a ``torch.profiler`` trace of the
 first N ticks with ``--profile-ticks``) and ``--metrics`` (the registry
 as Prometheus text).  A config whose ``kv_cache_dtype`` names
@@ -128,14 +134,16 @@ def _validate_args(p: argparse.ArgumentParser, args) -> None:
     if args.continuous and args.paged:
         p.error("--continuous and --paged are mutually exclusive "
                 "(pick one engine demo)")
-    bad = [n for n in ("page_size", "num_pages", "system_prompt_len",
-                       "spec", "spec_full_analog", "drift", "fault_rate",
+    bad = [n for n in ("page_size", "host_cache_pages", "priority",
+                       "num_pages", "system_prompt_len", "spec",
+                       "spec_full_analog", "drift", "fault_rate",
                        "drift_dt", "kv_quant") if moved(n)]
     if bad and not args.paged:
         p.error(f"--{bad[0].replace('_', '-')} requires --paged "
                 f"(the lockstep/--continuous paths ignore it)")
     bad = [n for n in ("slots", "requests", "telemetry", "trace_out",
-                       "profile_ticks", "metrics") if moved(n)]
+                       "profile_ticks", "metrics", "async_serve")
+           if moved(n)]
     if bad and not engine:
         p.error(f"--{bad[0].replace('_', '-')} requires an engine demo "
                 f"(--continuous or --paged); the lockstep path ignores it")
@@ -175,6 +183,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="paged engine with radix prefix sharing over a "
                         "shared-system-prompt trace")
     p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--host-cache-pages", type=int, default=0,
+                   help="host-memory spill tier for --paged (DESIGN.md "
+                        "§13): LRU-evicted radix pages go to the host "
+                        "instead of being destroyed, and radix hits "
+                        "restore them; 0 disables")
+    p.add_argument("--priority", type=int, default=0, metavar="K",
+                   help="for --paged: give every Kth demo request "
+                        "priority 1 (0 disables); higher priority admits "
+                        "first and may preempt a running lower-priority "
+                        "slot to host memory, which resumes later with "
+                        "the same tokens")
     p.add_argument("--num-pages", type=int, default=None)
     p.add_argument("--system-prompt-len", type=int, default=24)
     p.add_argument("--spec", type=int, default=0, metavar="K",
@@ -226,6 +245,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", action="store_true",
                    help="print the engine's metrics registry as Prometheus "
                         "text after the run")
+    p.add_argument("--async-serve", action="store_true",
+                   help="drive the engine demo through the async "
+                        "dispatch/drain pipeline with bucketed prefill "
+                        "(DESIGN.md §14); the same tokens as the tick loop")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
@@ -238,6 +261,26 @@ def _report(label: str, eng, comps, dt: float, extra: str = "") -> None:
           f"{n_tok} tokens in {dt * 1e3:.0f} ms "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s, {eng.max_slots} slots"
           f"{extra})")
+
+
+def _runner(eng, args):
+    """The engine, or with ``--async-serve`` the async pipeline over it."""
+    if not args.async_serve:
+        return eng
+    from .async_engine import AsyncServeEngine
+    return AsyncServeEngine(eng)
+
+
+def _report_async(runner, eng, args) -> None:
+    if not args.async_serve:
+        return
+    a = eng.metrics.snapshot()["async"]
+    print(f"  async: {a['dispatched_ticks']} dispatched ticks, max "
+          f"inflight {a['max_inflight']}/{a['drain_depth']}, "
+          f"{a['pipeline_flushes']} pipeline flushes; prefill buckets "
+          f"{eng._bucket_sizes} (x{eng.prefill_chunk} tok), "
+          f"{eng.prefill_pad_chunks} pad chunks")
+    runner.close()
 
 
 def _report_obs(eng, args) -> None:
@@ -299,7 +342,10 @@ def run(argv=None):
                             0, cfg.vocab_size, int(rng.integers(1, max(
                                 2, args.prompt_len - sys_len + 1))))),
                         max_new_tokens=int(rng.integers(2, args.gen_len + 1)),
-                        arrival=int(rng.poisson(2) * i))
+                        arrival=int(rng.poisson(2) * i),
+                        priority=(1 if args.priority
+                                  and i % args.priority == args.priority - 1
+                                  else 0))
                 for i in range(args.requests)]
         drift = fidelity = None
         if args.drift is not None or args.fault_rate:
@@ -315,14 +361,17 @@ def run(argv=None):
                                max_len=max_len, nldpe=nldpe,
                                page_size=args.page_size,
                                num_pages=args.num_pages,
+                               host_cache_pages=args.host_cache_pages,
                                spec_k=args.spec,
                                spec_draft=NLDPEConfig(
                                    enabled=args.spec_full_analog),
                                drift=drift, fidelity=fidelity,
                                kv_quant=args.kv_quant, device=device,
-                               telemetry=tel)
+                               telemetry=tel,
+                               prefill_buckets=args.async_serve or None)
+        runner = _runner(eng, args)
         t0 = time.perf_counter()
-        comps = eng.run(reqs)
+        comps = runner.run(reqs)
         dt = time.perf_counter() - t0
         st = eng.stats
         mode = f", spec_k={args.spec}" if args.spec else ""
@@ -333,6 +382,11 @@ def run(argv=None):
         print(f"  prefix hits {st['hits']}/{st['lookups']}, prefill tokens "
               f"saved {st['prefill_tokens_saved']}, cow forks "
               f"{st['cow_forks']}, evicted {st['evicted']}")
+        if args.host_cache_pages or args.priority:
+            print(f"  tiers: spilled {st['spilled']}, restored "
+                  f"{st['restored']}, host {eng.pool.host_used}/"
+                  f"{eng.pool.host_pages} pages; preempts {eng.preempts}, "
+                  f"resumes {eng.resumes}")
         if args.spec:
             sp = eng.spec_stats
             n_tok = sum(len(c.tokens) for c in comps)
@@ -360,13 +414,16 @@ def run(argv=None):
                         arrival=int(rng.poisson(2) * i))
                 for i in range(args.requests)]
         eng = ServeEngine(cfg, params, max_slots=args.slots, max_len=max_len,
-                          nldpe=nldpe, device=device, telemetry=tel)
+                          nldpe=nldpe, device=device, telemetry=tel,
+                          prefill_buckets=args.async_serve or None)
+        runner = _runner(eng, args)
         t0 = time.perf_counter()
-        comps = eng.run(reqs)
+        comps = runner.run(reqs)
         dt = time.perf_counter() - t0
         _report("continuous", eng, comps, dt, f", {eng.tick} ticks")
     else:
         return _lockstep(args, cfg, params, nldpe, rng, max_len)
+    _report_async(runner, eng, args)
     _report_obs(eng, args)
     for c in comps[:4]:
         print(f"  rid={c.rid} admitted@{c.admitted_tick} "

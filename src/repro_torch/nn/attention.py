@@ -259,6 +259,36 @@ def update_cache_paged(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         cache[name][pg, :, off] = new[bi, :, ci]
 
 
+_POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
+def gather_page_rows(cache: dict, page: int) -> list:
+    """One physical page of a model paged cache across every pool leaf:
+    ``leaf[:, page]`` — the (L, Hkv, page_size, D) K/V rows of all layers,
+    and for an int8/log8 pool the codes plus the (L, Hkv, page_size) scale
+    rows — in ``("k", "v", "k_scale", "v_scale")`` order, as views.
+    ``scatter_page_rows`` takes the same list back.  The layers are
+    stacked, so a page is 2 rows (4 with scales), not one per layer as in
+    ``repro``'s per-layer pytree."""
+    return [cache[n][:, page] for n in _POOL_LEAVES if n in cache]
+
+
+def scatter_page_rows(cache: dict, rows, page: int) -> None:
+    """Inverse of ``gather_page_rows``: write ``rows`` (host or device) as
+    physical page ``page`` of every pool leaf, in place."""
+    names = [n for n in _POOL_LEAVES if n in cache]
+    rows = list(rows)
+    if len(rows) != len(names):
+        raise ValueError("scatter_page_rows: rows do not match this cache")
+    for n, row in zip(names, rows):
+        dst = cache[n][:, page]
+        if row.shape != dst.shape or row.dtype != dst.dtype:
+            raise ValueError(f"scatter_page_rows: {n} row is {row.dtype} "
+                             f"{tuple(row.shape)}, the pool's "
+                             f"{dst.dtype} {tuple(dst.shape)}")
+        dst.copy_(row)
+
+
 def paged_dense_view(cache: dict) -> dict:
     """Gather a paged cache into the dense slotted layout (B, H, L, D):
     position ``p`` lands at row ``p`` (sentinel entries gather a clamped

@@ -1024,3 +1024,195 @@ def test_telemetry_on_equals_off_on_card(dev):
     s = eng.telemetry.summary()
     assert s["requests_finished"] == len(reqs)
     assert s["phases"]["verify"]["calls"] == eng.spec_stats["spec_steps"]
+
+
+# ---------------------------------------------------------------------------
+# kernel A's batch invariance, the host spill tier, preemption and the
+# async pipeline on the card
+# ---------------------------------------------------------------------------
+
+def _invariance_launches(dev, pool, q_len, seed=3):
+    """One sequence (``seq``) through kernel A in two launches with other
+    co-batched sequences (other lengths, other block tables, another batch
+    size and slot), over one pool of ``pool``'s kind at the serve engine's
+    Qwen2.5-3B widths (16/2 heads, D 128, pages of 16, a 64-page table).
+    Returns seq's outputs of both launches."""
+    rng = np.random.default_rng(seed)
+    hq, hkv, ps, d, nb, p = 16, 2, 16, 128, 64, 600
+    kp = torch.tensor(rng.normal(size=(p, hkv, ps, d)), dtype=torch.float32)
+    vp = torch.tensor(rng.normal(size=(p, hkv, ps, d)), dtype=torch.float32)
+    kw = {}
+    if pool in ("int8", "log8"):
+        from repro_torch.nn.attention import _quantize_kv
+        (kp, ks), (vp, vs) = _quantize_kv(kp, pool), _quantize_kv(vp, pool)
+        kw = dict(k_scale=ks.to(dev), v_scale=vs.to(dev), kv_quant=pool)
+    elif pool == "bfloat16":
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    kp, vp = kp.to(dev), vp.to(dev)
+    pages = rng.permutation(p)
+    seq_len = 700
+    seq_bt = pages[:nb]
+    q_seq = torch.tensor(rng.normal(size=(1, hq, q_len, d)),
+                         dtype=torch.float32)
+
+    def launch(others, at):
+        """seq at batch index ``at`` among ``others`` (length, pages)."""
+        lens, bts, qs = [], [], []
+        for i, (n, pg) in enumerate(others):
+            lens.append(n)
+            bts.append(pg)
+            qs.append(torch.tensor(rng.normal(size=(1, hq, q_len, d)),
+                                   dtype=torch.float32))
+        lens.insert(at, seq_len)
+        bts.insert(at, seq_bt)
+        qs.insert(at, q_seq)
+        out = paged_attention(
+            torch.cat(qs).to(dev), kp, vp,
+            torch.tensor(np.stack(bts), dtype=torch.int32, device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), **kw)
+        return out[at]
+
+    a = launch([(40, pages[64:128]), (1000 - q_len, pages[128:192])], 0)
+    b = launch([(300, pages[192:256]), (9, pages[256:320]),
+                (650, pages[320:384]), (1000 - q_len, pages[384:448]),
+                (120, pages[448:512])], 3)
+    torch.cuda.synchronize()
+    return a, b
+
+
+# What holds on the card: the decode instance sums each sequence's splits
+# from its own table width, so its outputs are bit-invariant to the batch;
+# the chunk instance sizes its splits to one wave over the whole launch
+# (``ops.plan``), so a sequence's sum order follows its co-tenants' lengths
+# and it is invariant only to A_TOL (ROADMAP.md C).
+BATCH_BITWISE = {1: True, 64: False}
+
+
+@pytest.mark.parametrize("q_len", [1, 64], ids=["decode", "chunk"])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "log8"])
+def test_paged_attention_batch_invariance(dev, pool, q_len, capsys):
+    a, b = _invariance_launches(dev, pool, q_len)
+    diff = (a - b).abs().max().item()
+    with capsys.disabled():
+        print(f"\n[kernel A batch invariance] {pool} q_len={q_len}: "
+              f"max |diff| {diff:.3e}, bitwise {torch.equal(a, b)}")
+    if BATCH_BITWISE[q_len]:
+        assert torch.equal(a, b)
+    else:
+        assert diff <= 1e-4
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "log8"])
+def test_spill_restore_page_round_trip_on_card(dev, pool):
+    """A served engine's page through the spill hook to the host and back
+    into another page: bit for bit, and the payload is a host copy that
+    does not change when the device page is overwritten."""
+    import dataclasses
+
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    from repro_torch.nn.attention import gather_page_rows
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    from repro_torch.models import lm
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    kw = (dict(kv_quant=pool) if pool in ("int8", "log8")
+          else dict(dtype=getattr(torch, pool)))
+    eng = PagedServeEngine(cfg, params, max_slots=2, max_len=32,
+                           page_size=4, num_pages=10, prefill_chunk=4,
+                           decode_block=2, host_cache_pages=8, device=dev,
+                           **kw)
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, 13)), max_new_tokens=4, arrival=2 * i)
+        for i in range(6)]
+    eng.run(reqs)
+    assert eng.stats["spilled"] > 0
+    page = next(p for p in range(eng.num_pages) if eng.pool._node[p])
+    before = [r.clone() for r in gather_page_rows(eng.cache, page)]
+    payload = eng._spill_page(page)
+    assert all(x.device.type == "cpu" for x in payload)
+    for leaf in gather_page_rows(eng.cache, page):
+        leaf.fill_(7)
+    torch.cuda.synchronize()
+    dst = next(p for p in range(eng.num_pages)
+               if p != page and eng.pool.refcount(p) == 0)
+    for p_, host in ((dst, payload), (page, payload)):
+        eng._restore_page(host, p_)
+        for got, want, h in zip(gather_page_rows(eng.cache, p_), before,
+                                host):
+            assert torch.equal(got, want) and torch.equal(h, want.cpu())
+
+
+def _tier_trace(cfg):
+    """Spill then restore (a 12-token shared prefix evicted by two long
+    fillers, then hit twice), then a priority arrival on a full engine."""
+    from repro_torch.launch.engine import Request
+    rng = np.random.default_rng(5)
+    shared = tuple(int(x) for x in rng.integers(0, cfg.vocab_size, 12))
+    fill = [tuple(int(x) for x in rng.integers(0, 64, n)) for n in (11, 10)]
+    spill = [Request(rid=0, tokens=shared, max_new_tokens=3),
+             Request(rid=1, tokens=fill[0], max_new_tokens=6, arrival=9),
+             Request(rid=2, tokens=fill[1], max_new_tokens=6, arrival=9),
+             Request(rid=3, tokens=shared + (1,), max_new_tokens=4,
+                     arrival=18),
+             Request(rid=4, tokens=shared, max_new_tokens=2, arrival=27)]
+    low = [tuple(int(x) for x in rng.integers(0, 64, n)) for n in (9, 10)]
+    prio = [Request(rid=10, tokens=low[0], max_new_tokens=6),
+            Request(rid=11, tokens=low[1], max_new_tokens=6),
+            Request(rid=12, tokens=tuple(int(x) for x in rng.integers(
+                0, 64, 8)), max_new_tokens=4, arrival=1, priority=2)]
+    return spill, prio
+
+
+def _tier_tokens(eng, wrap=None) -> dict:
+    import dataclasses
+    runner = wrap(eng) if wrap else eng
+    out = {}
+    for reqs in _tier_trace(eng.cfg):
+        base = runner.tick
+        out.update({c.rid: c.tokens for c in runner.run([
+            dataclasses.replace(r, arrival=base + r.arrival)
+            for r in reqs])})
+    if wrap:
+        runner.close()
+    return out
+
+
+def test_spill_preempt_and_async_engines_on_card_match_cpu(dev):
+    """A small two-tier engine (8 device pages, 6 host pages) on the card,
+    f32 activations: it spills, restores, preempts and resumes, and its
+    tokens are the CPU plain path's up to one near-tie; so are an async
+    pipeline's over the same engine with prefill buckets."""
+    import dataclasses
+
+    from repro_torch.launch.async_engine import AsyncServeEngine
+    from repro_torch.launch.engine import PagedServeEngine
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    out = {}
+    for where in ("cpu", "cuda"):
+        for kind in ("sync", "async"):
+            eng = PagedServeEngine(
+                cfg, from_jax(_np(params), device=where), max_slots=2,
+                max_len=24, page_size=4, num_pages=8, prefill_chunk=4,
+                decode_block=2, host_cache_pages=6, device=where,
+                prefill_buckets=(kind == "async") or None)
+            before = paged_attention.launches
+            out[where, kind] = _tier_tokens(
+                eng, AsyncServeEngine if kind == "async" else None)
+            st = eng.stats
+            assert st["spilled"] > 0 and st["restored"] > 0
+            assert eng.preempts > 0 and eng.resumes > 0
+            if where == "cuda":
+                assert paged_attention.launches > before
+            eng.pool.check()
+            assert eng.pool.available() == eng.pool.num_pages
+    assert out["cpu", "sync"] == out["cpu", "async"]
+    for kind in ("sync", "async"):
+        ties = sum(out["cpu", kind][r] != out["cuda", kind][r]
+                   for r in out["cpu", kind])
+        assert ties <= 1, kind

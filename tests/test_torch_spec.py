@@ -490,11 +490,15 @@ def test_spec_engine_validates_and_refuses_unported_options():
     with pytest.raises(ValueError, match="spec_k"):
         PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                          spec_k=-1, device="cpu")
-    for opt in (dict(host_cache_pages=4), dict(mesh=object()),
-                dict(prefill_buckets=True)):
+    for opt in (dict(mesh=object()), dict(rules="serve_exact")):
         with pytest.raises(NotImplementedError, match="not ported"):
             PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                              spec_k=2, device="cpu", **opt)
+    # the spill tier and prefill buckets are ported: accepted
+    eng = PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
+                           spec_k=2, device="cpu", host_cache_pages=4,
+                           prefill_buckets=True)
+    assert eng.pool.host_pages == 4 and eng._bucket_sizes
     eng = PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                            spec_k=1, device="cpu")
     assert eng.spec_draft == ON                # repro's default drafter
