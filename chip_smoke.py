@@ -41,9 +41,10 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    committed schema, and it reports TTFT, TPOT and queue-wait percentiles,
    phase walls and its tokens/s beside paged OFF's; then it serves the
    trace again on the same engine, every prompt's full pages radix hits,
-   and holds those tokens to the first serve's up to near-ties within 2D,
-   D the largest logit deviation between the miss and hit routes to a
-   last prompt token (``prefix_route_deviation``); ``[serve spill]``: four
+   and those tokens must be the first serve's bit for bit (the hit route's
+   chunk gives the miss route's logits, ``prefix_route_deviation``, whose
+   D — the decode step's deviation — guards the phases below);
+   ``[serve spill]``: four
    384-token system prompts cycled by 16 requests through an engine whose
    112-page pool keeps two prefix chains beside the running slots, with a
    256-page host tier, and through its destroy-on-evict twin, in turns
@@ -85,8 +86,19 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    ``acam_apply`` (kernel D) at M = 8 and 512, held against kernel B on the
    same cells; ``nldpe_matmul_int8`` (kernel G) at three DMMul shapes, held
    against its plain version and ``nldpe_matmul(mode="fused")``; and
-   ``repro_torch.quickstart.main()`` on the card — then times D, E and G
-   like the other kernels;
+   ``repro_torch.quickstart.main()`` on the card (its NAF section's hard
+   evaluations through kernel D) — then times D, E and G like the other
+   kernels;
+9. ``[naf dt]``: NAF step 4 for ``silu`` at ``finetune_table``'s defaults
+   from a corrupted table (every hard evaluation through kernel D, which
+   must equal its plain version bit for bit): the table must recover by
+   half; prints the MSEs, the history, D's launches and ms per evaluation;
+10. ``[naf pipeline]``: ``repro_torch.naf_pipeline.main()`` on the card;
+11. ``[train]``: full-width Qwen2.5-3B training on the float32 masters
+   (bf16 compute, layers recomputed in the backward pass): one AdamW
+   step, then two crossbar-NAF steps — finite losses, the seconds of each
+   step's noise pass, forward plus backward and update, and the peak
+   memory, under 80 GB;
 
 then prints one JSON line with the kernels' numbers and, last, the device
 line.  It exits non-zero, printing no result, if there is no GPU, if it
@@ -285,9 +297,8 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
                 0 if k_pages.dtype == torch.float32 else 1)
         inst = plan(q.shape[0], k_pages.shape[1],
                     q.shape[1] // k_pages.shape[1] * q.shape[2],
-                    bt.shape[1], k_pages.shape[2], q.shape[3], kind,
-                    torch.cuda.get_device_properties(0)
-                    .multi_processor_count).instance
+                    bt.shape[1], k_pages.shape[2], q.shape[3],
+                    kind).instance
         key = f"q_len={q.shape[2]} {inst}"
         by_shape[key] = (by_shape.get(key, 0) + paged_attention.launches
                          - before)
@@ -570,9 +581,9 @@ def prefix_route_deviation(torch, engine, reqs) -> dict:
     it the prompt's tokens.  Two hit routes, the prompt's full pages in
     the cache (``hit_reuse``): the rest of the prompt as the engine runs
     it, in a 64-query chunk from the last full page on (the token at
-    another row, other splits of kernel A's chunk instance), and the last
-    token alone through ``lm.decode_step`` (the decode instance, GEMMs of
-    height S).  One prompt of ``reqs`` per slot of the engine, on its
+    another row of kernel A's chunk instance, which splits at absolute
+    boundaries: the same bits), and the last token alone through
+    ``lm.decode_step`` (the decode instance, GEMMs of height S).  One prompt of ``reqs`` per slot of the engine, on its
     serving weights, in a fresh paged cache.  ``D`` is the larger."""
     from repro_torch.launch.spec_decode import clip_positions
     from repro_torch.models import lm
@@ -630,9 +641,9 @@ def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
     kind, TTFT, TPOT and queue wait at p50/p90/p99, the phase walls, the
     Prometheus text's length, and tokens/s beside paged OFF's (host
     overhead, not a gate).  Then the trace again on the same engine (every
-    prompt's full pages radix hits), its tokens held to the first serve's
-    under the 2D guard of ``prefix_route_deviation``, the divergences and
-    their margins printed."""
+    prompt's full pages radix hits): its tokens must be the first serve's
+    bit for bit, and so must the hit route's chunk logits
+    (``prefix_route_deviation``'s ``chunk_from_reuse`` is 0)."""
     from collections import Counter
 
     from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -667,9 +678,8 @@ def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
     prom = engine.metrics.prometheus_text()
     # the same trace again on the same engine: every prompt's full pages
     # are now radix hits (published at the first serve's completion), and
-    # the rest of each prompt runs in a chunk from the last full page on —
-    # another route to the same logits than the first serve's, so its
-    # tokens are held to the first serve's up to near-ties of that route
+    # the rest of each prompt runs in a chunk from the last full page on,
+    # another route to the same logits than the first serve's
     route = prefix_route_deviation(torch, engine, [
         reqs[i % len(reqs)] for i in range(engine.max_slots)])
     saved0 = engine.stats["prefill_tokens_saved"]
@@ -679,11 +689,15 @@ def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
                      for r in reqs)
     check(engine.stats["prefill_tokens_saved"] - saved0 == want_saved,
           f"{label}: the re-serve did not hit every prompt's full pages")
-    reserve_ties = spec_tokens_agree(
-        torch, engine, [dataclasses.replace(r, rid=500 + r.rid)
-                        for r in reqs], again,
-        {500 + rid: t for rid, t in off["tokens"].items()},
-        2 * route["D"], f"{label} re-serve")
+    # kernel A's chunk instance cuts every sequence at absolute split
+    # boundaries, and the chunk's GEMMs keep their (slots x chunk) shape,
+    # so the hit route gives the miss route's bits: the re-serve is
+    # bitwise the first serve
+    check(route["chunk_from_reuse"] == 0.0, f"{label}: the hit route's "
+          f"chunk moves the last prompt token's logits by "
+          f"{route['chunk_from_reuse']}")
+    check(again == {500 + rid: t for rid, t in off["tokens"].items()},
+          f"{label} re-serve: tokens differ from the first serve's")
     # host overhead in turns on this engine: telemetry off, on, on, off
     # (the call sites read engine.telemetry at each tick).  Each turn
     # serves the trace's shapes with fresh suffixes, so every turn hits the
@@ -720,9 +734,8 @@ def serve_telemetry(torch, engine, reqs, off: dict, label: str) -> dict:
            "in_turns_on_over_off": float(np.mean(turns["on"])
                                          / np.mean(turns["off"])),
            "tokens_equal_paged_off": True,
-           "prefix_route_deviation": route, "reserve_tie_bound":
-           2 * route["D"], "reserve_near_ties": reserve_ties,
-           "reserve_requests_diverged": len(reserve_ties)}
+           "prefix_route_deviation": route,
+           "reserve_tokens_equal_first_serve": True}
     print(f"[{label} summary] " + json.dumps(out))
     return {**res, **out, "route": route}
 
@@ -1432,8 +1445,7 @@ def paged_case(torch, timer, inputs: dict, q, kp, vp, qkw: dict, pool: str,
     flops = 4 * d * pairs * q.shape[1]
     bd = attn_bound(nbytes, flops, 2 if kp.dtype == torch.bfloat16 else 3)
     pl = plan(b, hkv, q.shape[1] // hkv * q_len, nb, ps, d,
-              2 if qkw else (0 if kp.dtype == torch.float32 else 1),
-              torch.cuda.get_device_properties(0).multi_processor_count)
+              2 if qkw else (0 if kp.dtype == torch.float32 else 1))
     case = {"q_len": q_len, "pool": pool, "instance": pl.instance,
             "rows": pl.rows, "splits": pl.splits,
             "max_abs_err": err, "ms": ms, "call_ms": call_ms,
@@ -1711,11 +1723,15 @@ def library_phase(torch, params) -> dict:
     qs = quickstart.main()
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters()}
-    want = {"crossbar_vmm": 3, "acam_apply": 3, "nldpe_qmatmul": 4}
+    # quickstart's D: 1 GELU call and the hard evaluations of its NAF
+    # section (8 draws before, 1 clean, 8 an epoch, 8 after)
+    naf_evals = 8 * (quickstart.NAF_EPOCHS + 2) + 1
+    want = {"crossbar_vmm": 3, "acam_apply": 3 + naf_evals,
+            "nldpe_qmatmul": 4}
     for name, count in want.items():
         check(launches[name] == count, f"library: {name} launched "
               f"{launches[name]} times, expected {count} (2 + 1 quickstart "
-              f"for E and D, 3 + 1 for G)")
+              f"for E, 2 + 1 + {naf_evals} for D, 3 + 1 for G)")
     check(bool(torch.equal(qs["gelu"]["kernel"], qs["gelu"]["interval"])),
           "library: quickstart's kernel-D GELU differs from its interval "
           "match")
@@ -1829,6 +1845,9 @@ def acam_phase(torch, timer, lib: dict) -> dict:
             "source": "src/repro_torch/csrc/acam_activation.cu",
             "replaces": "src/repro/kernels/acam_activation/kernel.py:57",
             "launches": lib["launches"]["acam_apply"],
+            "launches_by": "[library] phase (E->D passes and the quickstart "
+                           "with its NAF section); [naf dt] and [naf "
+                           "pipeline] add theirs after they run",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tolerance": "bitwise", "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
@@ -1945,6 +1964,148 @@ def qmatmul_phase(torch, timer, lib: dict) -> dict:
             "library_ms": top["library_ms"],
             "library": "torch.matmul of the dequantized f32 operands",
             "timing": timer.source, "cases": cases}
+
+
+def naf_dt_phase(torch, timer) -> dict:
+    """``[naf dt]``: NAF step 4 for ``silu`` (Qwen2.5-3B's activation) at
+    ``finetune_table``'s defaults (10 epochs, 5000 samples, batch 512, 4
+    noise draws), from ``corrupt_table(silu, key 11, DEFAULT.rescale(6))``
+    under ``DEFAULT.rescale(2)``, as ``examples/naf_pipeline.py`` sets it
+    up, with every count set to 0 before it.  Every hard evaluation (8
+    draws before, 1 clean, 8 an epoch, 8 after) runs through kernel D: its
+    launches must be those 97, the table must recover by half
+    (``mse_after < 0.5 * mse_before``, the bound of tests/test_naf.py),
+    and kernel D on one evaluation's noisy thresholds must equal its plain
+    version bit for bit; prints the MSEs, the history and D's device ms
+    per evaluation."""
+    from repro_torch.core import dt, noise
+    from repro_torch.core.differentiable import (DiffACAMConfig,
+                                                 _thresholds_through_cells)
+    from repro_torch.core.naf import corrupt_table, finetune_table
+    from repro_torch.kernels.acam_activation.ops import (acam_apply,
+                                                         acam_apply_grid)
+    from repro_torch.kernels.acam_activation.ref import acam_activation_ref
+    from repro_torch.launch import prng
+    table = dt.build_table("silu")
+    model = noise.DEFAULT.rescale(2.0)
+    bad = corrupt_table(table, prng.prng_key(11), noise.DEFAULT.rescale(6.0),
+                        device="cuda")
+    epochs = 10
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = finetune_table(bad, rng=prng.prng_key(1), model=model,
+                         epochs=epochs, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = acam_apply.launches
+    want = 8 * (epochs + 2) + 1
+    check(launches == want, f"naf dt: kernel D launched {launches} times, "
+          f"expected {want} (every hard evaluation)")
+    check(np.isfinite([res.mse_before, res.mse_after, res.mse_clean]).all(),
+          "naf dt: non-finite MSE")
+    check(res.mse_after < 0.5 * res.mse_before, f"naf dt: no recovery: "
+          f"{res.mse_before} -> {res.mse_after}")
+    # one evaluation's operands: 2048 points on the fine-tuned table's
+    # thresholds through noisy cells
+    cfg = DiffACAMConfig(bits=table.bits, th_lo=-8.0, th_hi=8.0)
+    k1, k2 = prng.split(prng.prng_key(5).cuda())
+    with torch.no_grad():
+        wl, wh = (_thresholds_through_cells(
+            k, torch.from_numpy(t).cuda(), cfg, model).contiguous()
+            for k, t in ((k1, res.table.lo), (k2, res.table.hi)))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -8, 8, 2048).astype(np.float32)).cuda()
+    grid = (float(table.out_spec.lo), float(table.out_spec.step))
+    out = acam_apply_grid(x, wl, wh, *grid)
+    ref = acam_activation_ref(x, wl, wh, *grid)
+    check(bool(torch.equal(out, ref)), "naf dt: kernel D differs from its "
+          "plain version on noisy NAF thresholds")
+    ms, call_ms = timer.ms(lambda: acam_apply_grid(x, wl, wh, *grid),
+                           iters=20)
+    plain_ms, _ = timer.ms(lambda: acam_activation_ref(x, wl, wh, *grid),
+                           iters=5)
+    info = {"function": "silu", "epochs": epochs, "samples": 5000,
+            "batch": 512, "noise_draws": 4, "mse_clean": res.mse_clean,
+            "mse_before": res.mse_before, "mse_after": res.mse_after,
+            "recovery": res.mse_after / res.mse_before,
+            "history": res.history, "seconds": wall,
+            "kernel_d_launches": launches,
+            "kernel_d_ms_per_evaluation": ms,
+            "kernel_d_call_ms_per_evaluation": call_ms,
+            "plain_ms_per_evaluation": plain_ms,
+            "kernel_d_equals_plain": True}
+    print("[naf dt] " + json.dumps(info))
+    return info
+
+
+def naf_pipeline_phase(torch) -> dict:
+    """``[naf pipeline]``: ``repro_torch.naf_pipeline.main()`` on the card
+    (reduced MiniCPM-2B: pretraining, crossbar NAF, the DT-ACAM model,
+    per-DT NAF of ``silu``), every count set to 0 before it: finite losses,
+    step 4 recovers, and its 57 hard evaluations run through kernel D."""
+    from repro_torch import naf_pipeline
+    from repro_torch.kernels.acam_activation.ops import acam_apply
+    zero_counts()
+    t0 = time.perf_counter()
+    out = naf_pipeline.main()
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["kernel_d_launches"] = acam_apply.launches
+    check(all(np.isfinite(v) for v in out.values()), f"naf pipeline: "
+          f"non-finite result {out}")
+    check(out["kernel_d_launches"] == 8 * (5 + 2) + 1, f"naf pipeline: "
+          f"kernel D launched {out['kernel_d_launches']} times, expected 57")
+    check(out["step4_mse_after"] < out["step4_mse_before"],
+          "naf pipeline: step 4 did not recover")
+    print("[naf pipeline] " + json.dumps(out))
+    return out
+
+
+def train_phase(torch, cfg, params) -> dict:
+    """``[train]``: full-width Qwen2.5-3B training steps on the float32
+    masters ``params`` (updated in place), bf16 compute, each layer
+    recomputed in the backward pass: one AdamW step, then two crossbar-NAF
+    steps (``naf=True``, lambda 1e-5) on a batch of 8 x 64 seeded uniform
+    tokens.  Prints each step's loss, the seconds of the noise pass, of
+    forward plus backward and of the update (behind syncs), and the peak
+    memory, which must stay under the card's 80 GB; the losses must be
+    finite."""
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    toks = torch.randint(0, cfg.vocab_size, (8, 65), generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    opt_cfg = adamw.AdamWConfig(lr=1e-4)
+    plain = build_train_step(cfg, opt_cfg, timed=True)
+    naf = build_train_step(cfg, opt_cfg, naf=True, naf_lambda1=1e-5,
+                           naf_lambda2=1e-5, timed=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.init(params)
+    steps = []
+    for kind, fn in (("adamw", plain), ("naf", naf), ("naf", naf)):
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, batch)
+        torch.cuda.synchronize()
+        steps.append({"kind": kind, "loss": m["loss"].item(),
+                      "grad_norm": m["grad_norm"].item(),
+                      "seconds": m["seconds"],
+                      "wall_s": time.perf_counter() - t0})
+        check(np.isfinite(steps[-1]["loss"]), f"train: {kind} step loss "
+              f"is not finite")
+        print("[train step] " + json.dumps(steps[-1]))
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 80e9, f"train: peak memory {peak / 1e9:.2f} GB")
+    info = {"model": cfg.name, "parameters": cfg.param_count(),
+            "batch": [8, 64], "compute_dtype": str(cfg.activation_dtype),
+            "scan_remat": cfg.scan_remat, "steps": steps,
+            "peak_gb": peak / 1e9}
+    print("[train] " + json.dumps(info))
+    del opt
+    return info
 
 
 def small_model_agrees(torch) -> None:
@@ -2256,6 +2417,23 @@ def main() -> None:
     t0 = time.perf_counter()
     small_model_agrees(torch)
     print(f"[reference] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    naf_dt = naf_dt_phase(torch, timer)
+    print(f"[naf dt] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    pipeline = naf_pipeline_phase(torch)
+    print(f"[naf pipeline] phase {time.perf_counter() - t0:.1f} s")
+    d_entry = next(k for k in kernels if k["name"] == "acam_apply")
+    d_entry["launches_naf_dt"] = naf_dt["kernel_d_launches"]
+    d_entry["launches_naf_pipeline"] = pipeline["kernel_d_launches"]
+    d_entry["naf_dt_ms_per_evaluation"] = naf_dt["kernel_d_ms_per_evaluation"]
+
+    # last: it updates the float32 masters in place
+    t0 = time.perf_counter()
+    train_phase(torch, cfg, params)
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

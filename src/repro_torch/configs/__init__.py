@@ -1,2 +1,2 @@
-"""Architecture configs of the port (the paged engine's model)."""
+"""Architecture configs of the port (the ``("attn",)`` family)."""
 from .base import ArchConfig, get_config

@@ -1,8 +1,9 @@
 """ArchConfig — the port's copy of ``repro.configs.base`` (field names kept).
 
-Only the dense attention family the paged engine serves is ported; the
-other families' fields stay so configs round-trip by name, and the
-engine rejects patterns it cannot serve.
+Only the dense attention family is ported (``qwen2_5_3b``, ``qwen2_7b``,
+``minicpm_2b``: the ``("attn",)`` pattern); the other families' fields
+stay so configs round-trip by name, and the model rejects patterns it
+cannot run.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ class ArchConfig:
     attn_softcap: float | None = None
     logit_softcap: float | None = None
     embed_scale: bool = False
+    scan_remat: bool = True           # train: recompute each layer backward
     kv_cache_dtype: str = "bf16"
     activation_dtype: torch.dtype = torch.bfloat16
     notes: str = ""

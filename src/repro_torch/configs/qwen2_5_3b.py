@@ -16,4 +16,4 @@ def reduced() -> ArchConfig:
     import dataclasses
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-        vocab_size=256)
+        vocab_size=256, scan_remat=False)

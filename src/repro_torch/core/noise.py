@@ -78,12 +78,12 @@ class NoiseModel:
 
     # -- Eq 5 ---------------------------------------------------------------
     def sigma_prog(self, g_target: torch.Tensor) -> torch.Tensor:
-        g = torch.clamp(g_target, 1e-6, self.c_prog)
+        g = clip(g_target, 1e-6, self.c_prog)
         return self.scale * torch.exp(self.a_prog * torch.log(g)
                                       + self.b_prog)
 
     def sigma_fluct(self, g: torch.Tensor) -> torch.Tensor:
-        gc = torch.clamp(g, 1e-6, self.c_fluct)
+        gc = clip(g, 1e-6, self.c_fluct)
         return self.scale * torch.exp(self.a_fluct * torch.log(gc)
                                       + self.b_fluct)
 
@@ -96,7 +96,7 @@ class NoiseModel:
         n = prng.normal(rng.to(g_target.device), g_target.shape,
                         offset=offset)
         g = g_target + self.sigma_prog(g_target) * n
-        return torch.clamp(g, self.g_min, self.g_max)
+        return clip(g, self.g_min, self.g_max)
 
     def read(self, rng: torch.Tensor, g_programmed: torch.Tensor, *,
              offset: int = 0) -> torch.Tensor:
@@ -104,7 +104,7 @@ class NoiseModel:
         n = prng.normal(rng.to(g_programmed.device), g_programmed.shape,
                         offset=offset)
         g = g_programmed + self.sigma_fluct(g_programmed) * n
-        return torch.clamp(g, 0.0, self.g_max)
+        return clip(g, 0.0, self.g_max)
 
     def readout(self, rng: torch.Tensor,
                 g_target: torch.Tensor) -> torch.Tensor:
@@ -114,13 +114,13 @@ class NoiseModel:
 
     # -- Eq 7 ---------------------------------------------------------------
     def threshold_of_g(self, g: torch.Tensor) -> torch.Tensor:
-        g = torch.clamp(g, min=1e-6)
+        g = clip(g, 1e-6)
         return torch.exp(self.a_acam * torch.log(g) + self.b_acam) \
             + self.c_acam
 
     def g_of_threshold(self, th: torch.Tensor) -> torch.Tensor:
         """Inverse of Eq 7 (used when programming a desired threshold)."""
-        t = torch.clamp(th - self.c_acam, min=1e-9)
+        t = clip(th - self.c_acam, 1e-9)
         return torch.exp(true_div(torch.log(t) - self.b_acam, self.a_acam))
 
     def rescale(self, s: float) -> "NoiseModel":
@@ -129,6 +129,19 @@ class NoiseModel:
 
 IDEAL = NoiseModel(scale=0.0)
 DEFAULT = NoiseModel()
+
+
+def clip(x: torch.Tensor, lo: float, hi: float | None = None
+         ) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``.  The values are ``torch.clamp``'s; where
+    ``x`` needs a gradient it is ``minimum(maximum(x, lo), hi)``, which
+    sends half the gradient through at a tie, as ``jnp.clip`` does (NAF
+    differentiates through this map, and a weight at its leaf's ``w_max``
+    lands exactly on ``g_max``)."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    x = torch.maximum(x, x.new_tensor(lo))
+    return x if hi is None else torch.minimum(x, x.new_tensor(hi))
 
 
 def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -157,8 +170,8 @@ def weight_to_g(w: torch.Tensor, w_max, model: NoiseModel = DEFAULT
         g_ratio = _g_ratio(w_max, model)
     else:
         g_ratio = float(np.float32((model.g_max - model.g_min) / w_max))
-    return torch.clamp(torch.abs(w) * g_ratio + model.g_min,
-                       model.g_min, model.g_max)
+    return clip(torch.abs(w) * g_ratio + model.g_min, model.g_min,
+                model.g_max)
 
 
 def g_to_weight(g: torch.Tensor, w_max, model: NoiseModel = DEFAULT
@@ -173,6 +186,40 @@ def noisy_weight(rng: torch.Tensor, w: torch.Tensor, w_max,
     """Round-trip a (non-negative) weight through a noisy cell (Eq 6)."""
     g = model.readout(rng, weight_to_g(w, w_max, model))
     return g_to_weight(g, w_max, model)
+
+
+def noisy_thresholds(rng: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                     th_range: tuple[float, float],
+                     model: NoiseModel = DEFAULT
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Round-trip ACAM interval thresholds through noisy cells + Eq 7.
+
+    Threshold values (in function-input units, spanning ``th_range``) are
+    normalized to the TH voltage window, inverted through Eq 7 to target
+    conductances, perturbed per Eq 6, and mapped back.  Padding rows
+    (|th| >= 1e29) pass through untouched so they can never match.  One
+    key splits into ``lo``'s and ``hi``'s, as in the reference; every
+    division is one IEEE float32 division, as the reference's eager code
+    rounds it."""
+    t_lo, t_hi = th_range
+    dev = lo.device
+    th_min = model.threshold_of_g(torch.tensor(np.float32(model.g_min),
+                                               device=dev))
+    th_max = model.threshold_of_g(torch.tensor(np.float32(model.g_max),
+                                               device=dev))
+
+    def roundtrip(key, th):
+        pad = torch.abs(th) >= 1e29
+        u = true_div(torch.where(pad, t_lo, th) - t_lo, t_hi - t_lo)
+        g = model.g_of_threshold(th_min + u * (th_max - th_min))
+        g_noisy = model.readout(key, g)
+        v = model.threshold_of_g(g_noisy)
+        th_noisy = t_lo + torch.div(v - th_min, th_max - th_min) \
+            * (t_hi - t_lo)
+        return torch.where(pad, th, th_noisy)
+
+    k1, k2 = prng.split(rng.to(dev))
+    return roundtrip(k1, lo), roundtrip(k2, hi)
 
 
 # ---------------------------------------------------------------------------

@@ -185,3 +185,26 @@ def kv_table(mode: str, device) -> torch.Tensor:
 
 
 _KV_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+# ---------------------------------------------------------------------------
+# Stochastic-free fake-quant for NAF training (straight-through estimator)
+# ---------------------------------------------------------------------------
+
+class _FakeQuantSTE(torch.autograd.Function):
+    """``spec.apply(x)`` forward, identity backward (``repro``'s
+    ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        return spec.apply(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fake_quant_ste(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Quantize-dequantize ``x`` on ``spec``'s grid; the gradient passes
+    through unchanged (straight-through estimator)."""
+    return _FakeQuantSTE.apply(x, spec)

@@ -69,12 +69,19 @@
 //     an f32 pool holding its decoded values;
 //   * splits of the position axis: decode cuts the block table's width
 //     into the grid's splits (known before the length, so the first
-//     block-table reads go out with the length's); chunk sizes them on the
-//     device from every sequence's length (the host knows only the
-//     table's width): the fewest stages per split for which all busy
-//     blocks fit one wave of the card, so a long sequence gets more SMs
-//     than a short one and every SM about one block.  A split with no
-//     position writes nothing; the first block of each sequence records
+//     block-table reads go out with the length's); chunk cuts each
+//     sequence's positions at fixed absolute stage boundaries:
+//     ch_split_stages(RM) stages a split (3 for 128-row tiles, 2 for
+//     64-row ones), doubled until at most CH_MAX_SPLITS splits cover the
+//     sequence.  Nothing of the other sequences of the launch enters, and
+//     a query row's positions fall into the same splits at the same
+//     stages whatever the chunk's start and the row's index in it (a
+//     masked position adds an exact 0, an empty split merges as one), so
+//     a row's output is bit-invariant to the batch and to the chunking, as
+//     long as its sequence stays in one doubling regime (up to
+//     CH_MAX_SPLITS * 3 * 64 = 3072 positions at 128-row tiles).
+//     A split with no position writes nothing; the first block of each
+//     sequence records
 //     how many splits are busy, and a second launch merges their (max,
 //     sum, acc) triples in split order, one block per (sequence, KV head,
 //     row) (flash-decoding).  Merging in the same launch instead (the last
@@ -127,7 +134,6 @@ struct Args {
   int* busy;              //             (B,): busy splits per sequence
   int Hq, Hkv, Q, P, ps, NB;
   int splits;             // grid splits of the position axis
-  int wave;               // chunk: blocks the card runs at once
   float scale;
 };
 
@@ -584,25 +590,13 @@ paged_attention_kernel_decode(Args a) {
 
 // ---- chunk instance ---------------------------------------------------------
 
-// Stages one chunk split may take: the fewest for which every (sequence,
-// KV head, row tile) together takes at most `a.wave` splits (one wave of
-// the card; each split is one block), from every sequence's length.  Lane
-// k tries k + 1 stages and a ballot picks the fewest that fit (past 32,
-// the stages that spread all of them over one wave); every warp computes
-// it alike, so the whole grid agrees without a barrier.
-__device__ int chunk_steps(const Args& a, int B, int tiles) {
-  const int per = (threadIdx.x & 31) + 1;
-  int blocks = 0, most = 0, total = 0;
-  for (int i = 0; i < B; ++i) {
-    const int n = (__ldg(a.lengths + i) + a.Q - 1 + CH_S - 1) / CH_S;
-    blocks += min(a.splits, (n + per - 1) / per);
-    most = max(most, n);
-    total += n;
-  }
-  const unsigned fits =
-      __ballot_sync(FULL, blocks * a.Hkv * tiles <= a.wave || per >= most);
-  if (fits) return __ffs(fits);
-  return max(33, (total * a.Hkv * tiles + a.wave - 1) / a.wave);
+// Chunk splits: split s takes stages [s * per, (s + 1) * per) of the
+// sequence, per = ch_split_stages(RM) doubled until CH_MAX_SPLITS splits
+// cover the sequence's stages.  kernels/paged_attention/ops.py sizes the
+// grid with the same constants, for the longest sequence the table holds.
+constexpr int CH_MAX_SPLITS = 16;
+__host__ __device__ constexpr int ch_split_stages(int rm) {
+  return rm == 8 ? 3 : 2;
 }
 
 template <typename T, int D, int RM>
@@ -648,13 +642,19 @@ paged_attention_kernel_chunk(Args a) {
   const int len = __ldg(a.lengths + b);
   const int limit = len + Q - 1;
   const int nst = (limit + S - 1) / S;
-  const int per = chunk_steps(a, gridDim.x / a.Hkv, gridDim.y);
-  const int nsp = min(a.splits, (nst + per - 1) / per);   // busy splits
+  // per doubles until at most min(CH_MAX_SPLITS, grid splits) splits cover
+  // the sequence: ops.plan's grid holds the capped count for any length
+  // the table takes, so only a narrower grid (the tests force one)
+  // doubles it further
+  const int most = min(CH_MAX_SPLITS, a.splits);
+  int per = ch_split_stages(RM);
+  while ((nst + per - 1) / per > most) per *= 2;
+  const int nsp = (nst + per - 1) / per;            // busy splits
   if (split == 0 && h == 0 && tile == 0 && tid == 0 && a.splits > 1)
     a.busy[b] = nsp;
   if (split >= nsp) return;           // not a busy split
   const size_t prow = ((size_t)bh * a.splits + split) * n_rows;
-  const int s0 = split * nst / nsp, s1 = (split + 1) * nst / nsp;
+  const int s0 = split * per, s1 = min(s0 + per, nst);
 
   float* qc = reinterpret_cast<float*>(smem + L::Q_OFF);
   float* pt = reinterpret_cast<float*>(smem + L::PT_OFF);
@@ -996,9 +996,10 @@ size_t paged_attention_smem_bytes(int rows, int D, int kv_kind) {
 // k_scale/v_scale (P, Hkv, ps) floats and the 256-entry decode table
 // (unused, and may be null, for fp pools); D in {16, 32, 64, 128}; rows
 // picks the instance (8 or 16: decode, 64 or 128: chunk); the grid has
-// `splits` splits of the position axis per (sequence, KV head, row tile),
-// and the chunk instance sizes its busy splits to one wave of `wave`
-// blocks; the pools' pointers are 16-byte aligned.  With splits > 1,
+// `splits` splits of the position axis per (sequence, KV head, row tile)
+// (chunk: at least the busy splits of the longest sequence the table can
+// hold, as ops.plan computes them); the pools' pointers are 16-byte
+// aligned.  With splits > 1,
 // part_acc/part_ml/busy are scratch of (B*Hkv, splits, G*Q, D) and
 // (B*Hkv, splits, G*Q, 2) floats and (B,) ints, merged by a second launch.
 // Returns the cudaError_t of the launches.
@@ -1009,11 +1010,11 @@ int paged_attention_launch(const float* q, const void* k_pages,
                            const int* lengths, float* out, float* part_acc,
                            float* part_ml, int* busy, int B, int Hq,
                            int Hkv, int Q, int D, int P, int ps, int NB,
-                           int rows, int splits, int wave, void* stream) {
+                           int rows, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args a{q, k_pages, v_pages, k_scale, v_scale, table, bt, lengths, out,
          splits > 1 ? part_acc : nullptr, splits > 1 ? part_ml : nullptr,
-         splits > 1 ? busy : nullptr, Hq, Hkv, Q, P, ps, NB, splits, wave,
+         splits > 1 ? busy : nullptr, Hq, Hkv, Q, P, ps, NB, splits,
          1.0f / sqrtf((float)D)};
   if (kv_kind == 2) return launch_d<int8_t>(a, B, D, rows, s);
   if (kv_kind == 1) return launch_d<__nv_bfloat16>(a, B, D, rows, s);

@@ -8,7 +8,9 @@ tail, so nothing is padded.  The output is float32 in the input's shape.
 The kernel searches the table compiled exactly (``core.acam.AcamMap``):
 the table's own thresholds' map is cached per device (``table_map``);
 caller-given thresholds (noisy ones, say) are compiled on the device per
-call.
+call — with the table's output grid (``acam_apply``) or any grid
+(``acam_apply_grid``, the NAF evaluation's).  ``acam_apply.launches``
+counts the kernel's launches through both.
 """
 from __future__ import annotations
 
@@ -45,22 +47,39 @@ def acam_apply(x: torch.Tensor, table: ACAMTable,
     CUDA tensors launch the kernel (or raise — there is no fallback)."""
     if (lo is None) != (hi is None):
         raise ValueError("acam_apply: pass both lo and hi, or neither")
-    given = lo is not None
-    if not given:
-        lo, hi = table_thresholds(table, x.device)
     out_lo = float(table.out_spec.lo)
     out_step = float(table.out_spec.step)
+    if lo is not None:
+        return acam_apply_grid(x, lo, hi, out_lo, out_step)
+    lo, hi = table_thresholds(table, x.device)
     if x.device.type == "cpu":
         return acam_activation_ref(x, lo, hi, out_lo, out_step)
-    if not (x.is_floating_point() and x.numel() > 0):
-        raise ValueError("acam_apply: x must be a non-empty float tensor")
-    if given and (lo.shape != hi.shape or lo.dtype != torch.float32
-                  or hi.dtype != torch.float32 or lo.device != x.device
-                  or hi.device != x.device):
+    return _launch(x, table_map(table, x.device), out_lo, out_step)
+
+
+def acam_apply_grid(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                    out_lo: float, out_step: float) -> torch.Tensor:
+    """Thresholds (lo, hi) (bits, rows) float32 on ``x``'s device, matched
+    Gray-coded on every element of ``x`` and dequantized on the grid
+    ``code * out_step + out_lo`` — ``eval_table`` — with the map compiled
+    on the device for this call.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return acam_activation_ref(x, lo, hi, out_lo, out_step)
+    if (lo.shape != hi.shape or lo.dtype != torch.float32
+            or hi.dtype != torch.float32 or lo.device != x.device
+            or hi.device != x.device):
         raise ValueError("acam_apply: lo/hi must be float32 (bits, rows) "
                          "on x's device")
-    acam_map = (compile_thresholds(lo, hi) if given
-                else table_map(table, x.device))
+    return _launch(x, compile_thresholds(lo, hi), out_lo, out_step)
+
+
+def _launch(x: torch.Tensor, acam_map, out_lo: float,
+            out_step: float) -> torch.Tensor:
+    """Kernel D on a CUDA tensor through a compiled map; counts the launch
+    in ``acam_apply.launches``."""
+    if not (x.is_floating_point() and x.numel() > 0):
+        raise ValueError("acam_apply: x must be a non-empty float tensor")
     bp, codes = acam_map.breakpoints, acam_map.codes
     lib = _lib()
     if lib.acam_activation_smem_bytes(bp.shape[0]) > 227 * 1024:

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 
@@ -42,13 +41,16 @@ DECODE_MAX_ROWS = 16             # G*Q above this takes the chunk instance
 TABLE_BYTES = 256 * 4            # int8 decode table
 
 # Splits of the position axis.  Decode cuts the table's width into splits
-# of _DEC_STEPS block steps (4 warps x 8 positions); chunk gives the grid
-# splits of _MIN_STEPS stages and sizes the busy ones on the device, to
-# one wave of _CH_BLOCKS_PER_SM blocks per SM.
+# of _DEC_STEPS block steps (4 warps x 8 positions).  Chunk cuts each
+# sequence's positions at absolute boundaries of CH_SPLIT_STAGES[rows]
+# stages, doubled until at most CH_MAX_SPLITS splits cover it
+# (``ch_split_stages`` and ``CH_MAX_SPLITS`` of the CUDA source): nothing
+# of the other sequences, the chunk's start or a row's place in it enters
+# a row's sum order.
 DEC_STEP = DEC_SW * DEC_THREADS // 32
 _DEC_STEPS = 2
-_MIN_STEPS = 2
-_CH_BLOCKS_PER_SM = 1
+CH_SPLIT_STAGES = {64: 2, 128: 3}
+CH_MAX_SPLITS = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,14 +58,12 @@ class Plan:
     """One launch of kernel A: the instance ("decode" or "chunk"), its
     query rows per block, the depth of its cp.async ring, the row tiles
     and the grid's splits of the position axis per (sequence, KV head),
-    the blocks of one wave (chunk), and the shared memory a block
-    needs."""
+    and the shared memory a block needs."""
     instance: str
     rows: int
     stages: int
     tiles: int
     splits: int
-    wave: int
     smem: int
 
 
@@ -98,25 +98,27 @@ def num_splits(units: int, steps: int) -> int:
 
 
 def plan(b: int, hkv: int, n_rows: int, nb: int, ps: int, d: int,
-         kind: int, sms: int) -> Plan:
+         kind: int) -> Plan:
     """Kernel A's launch for ``b`` sequences, ``hkv`` KV heads, ``n_rows``
     = G*Q query rows per (sequence, KV head), a block table of ``nb``
-    pages of ``ps`` positions, head dim ``d`` and pool kind ``kind`` on a
-    card with ``sms`` SMs.  G*Q <= 16 takes the decode instance (rows
+    pages of ``ps`` positions, head dim ``d`` and pool kind ``kind``.  G*Q <= 16 takes the decode instance (rows
     rounded up to 8), more the chunk instance (64 rows up to G*Q = 64,
     else 128).  The host sees only the table's width, not the lengths, so
-    the grid's splits are sized from ``nb * ps``; the chunk kernel sizes
-    each sequence's share from the actual lengths."""
+    the grid's splits are sized from ``nb * ps``: for chunk, the busy
+    splits of the longest sequence the table holds (its last query row
+    reaches fewer than ``nb * ps + n_rows`` positions), of which the
+    kernel takes per sequence what its own length needs."""
     span = nb * ps
     if n_rows <= DECODE_MAX_ROWS:
         rows = 8 if n_rows <= 8 else 16
         return Plan("decode", rows, decode_stages(kind), 1,
-                    num_splits(-(-span // DEC_STEP), _DEC_STEPS), 0,
+                    num_splits(-(-span // DEC_STEP), _DEC_STEPS),
                     smem_bytes(rows, d, kind))
     rows = 64 if n_rows <= 64 else 128
+    stages = -(-(span + n_rows - 1) // CH_S)
     return Plan("chunk", rows, CH_STAGES, -(-n_rows // rows),
-                num_splits(-(-span // CH_S), _MIN_STEPS),
-                _CH_BLOCKS_PER_SM * sms, smem_bytes(rows, d, kind))
+                min(CH_MAX_SPLITS, num_splits(stages, CH_SPLIT_STAGES[rows])),
+                smem_bytes(rows, d, kind))
 
 
 def _lib():
@@ -125,7 +127,7 @@ def _lib():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = [vp, vp, vp, i, vp, vp, vp,
                                                vp, vp, vp, vp, vp, vp, i, i,
-                                               i, i, i, i, i, i, i, i, i, vp]
+                                               i, i, i, i, i, i, i, i, vp]
         lib.paged_attention_launch.restype = i
         lib.paged_attention_smem_bytes.argtypes = [i, i, i]
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
@@ -133,19 +135,14 @@ def _lib():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _launch(lib, q, k_pages, v_pages, block_tables, lengths, k_scale,
-            v_scale, kv_quant, kind_id: int, sms: int, stream) -> torch.Tensor:
+            v_scale, kv_quant, kind_id: int, stream) -> torch.Tensor:
     """Plan and launch kernel A through ``lib`` on checked operands."""
     b, hq, q_len, d = q.shape
     num_pages, hkv, ps, _ = k_pages.shape
     nb = block_tables.shape[1]
     g = hq // hkv
-    pl = plan(b, hkv, g * q_len, nb, ps, d, kind_id, sms)
+    pl = plan(b, hkv, g * q_len, nb, ps, d, kind_id)
     if pl.smem > SMEM_LIMIT:
         raise ValueError(f"paged_attention: {pl} needs {pl.smem} B of "
                          f"shared memory per block (> 227 KB)")
@@ -180,7 +177,7 @@ def _launch(lib, q, k_pages, v_pages, block_tables, lengths, k_scale,
         ptr(k_scale), ptr(v_scale), ptr(table), block_tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), ptr(part_acc), ptr(part_ml),
         ptr(busy), b, hq, hkv, q_len, d, num_pages, ps, nb, pl.rows,
-        pl.splits, pl.wave, stream)
+        pl.splits, stream)
     build.check(err, "paged_attention")
     return out
 
@@ -245,7 +242,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_attention: all operands on one device")
     out = _launch(_lib(), q, k_pages, v_pages, block_tables, lengths,
                   k_scale, v_scale, kv_quant, _POOL_KINDS[kind],
-                  _sm_count(q.device.index),
                   torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention.launches += 1
     paged_attention.pool_launches[kind] += 1

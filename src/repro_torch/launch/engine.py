@@ -92,7 +92,7 @@ from .spec_decode import (build_draft_scan_fn, build_verify_fn,
                           quantize_draft_params)
 
 # PagedServeEngine options of repro's that the port does not have yet
-# (meshes: ROADMAP.md A.7), with the value that leaves each off
+# (meshes: ROADMAP.md A.6), with the value that leaves each off
 _NOT_PORTED = {"mesh": None, "rules": None}
 
 
@@ -708,6 +708,11 @@ class PagedServeEngine(ServeEngine):
     and only committed positions reach the radix index.  ``spec_stats``
     holds the acceptance counters, the analog-fidelity signal.
 
+    **Generations as prefix cache** (``cache_generations``, default True,
+    as in ``repro``): a finished request's committed sequence, prompt plus
+    generations, is published to the radix index at release; False
+    publishes only prompts (at admission).
+
     **Closed-loop fidelity** (DESIGN.md §10; needs ``spec_k``): ``drift``
     (a :class:`~repro_torch.launch.fidelity.DriftInjection`) programs the
     drafter's cells — the caller's float32 master through the log grid,
@@ -739,6 +744,7 @@ class PagedServeEngine(ServeEngine):
                  page_size: int = 16, num_pages: int | None = None,
                  host_cache_pages: int = 0,
                  spec_k: int = 0, spec_draft: NLDPEConfig | None = None,
+                 cache_generations: bool = True,
                  drift: DriftInjection | None = None,
                  fidelity: FidelityPolicy | None = None, **kw):
         asked = [n for n, off in _NOT_PORTED.items()
@@ -746,7 +752,7 @@ class PagedServeEngine(ServeEngine):
         if asked:
             raise NotImplementedError(
                 f"PagedServeEngine: {', '.join(asked)} not ported yet "
-                f"(ROADMAP.md A.3)")
+                f"(ROADMAP.md A.6)")
         if page_size < 1:
             raise ValueError("page_size >= 1")
         if spec_k < 0:
@@ -756,6 +762,7 @@ class PagedServeEngine(ServeEngine):
                 "drift/fidelity act on the analog draft path; they need "
                 "spec_k > 0")
         self.spec_k = int(spec_k)
+        self.cache_generations = cache_generations
         # full analog drafter by default; enabled=False keeps only the
         # log-grid weights
         self.spec_draft = (spec_draft if spec_draft is not None
@@ -1336,14 +1343,14 @@ class PagedServeEngine(ServeEngine):
         return True
 
     def _release_slot(self, sl: int, seq: tuple | None = None) -> None:
-        """A slot's request finished: publish its committed sequence (the
-        prompt plus every generated token whose K/V was written) as prefix
-        cache — only pages every position of which is committed, so draft
-        K/V and the spec slack never enter the index — then drop the
-        slot's page references."""
+        """A slot's request finished: with ``cache_generations``, publish
+        its committed sequence (the prompt plus every generated token whose
+        K/V was written) as prefix cache — only pages every position of
+        which is committed, so draft K/V and the spec slack never enter the
+        index — then drop the slot's page references."""
         pages = self._slot_pages[sl]
         if pages is not None:
-            if seq is not None:
+            if seq is not None and self.cache_generations:
                 self.pool.publish_committed(self._fp, seq, pages)
             self.pool.release(pages)
             self._slot_pages[sl] = None

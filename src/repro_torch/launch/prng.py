@@ -30,6 +30,10 @@ default) and 64-bit types off:
 * ``gumbel(keys, n)`` — ``_gumbel`` in its ``"low"`` mode:
   ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``.
 * ``categorical(keys, logits)`` — ``argmax(gumbel + logits)``.
+* ``randint(key, shape, minval, maxval)`` — ``_randint`` for int32:
+  two 32-bit draws (keys split from ``key``) folded into the span as
+  ``(hi % span * (2^32 % span) + lo % span) % span`` in wrapping uint32
+  arithmetic.
 
 A key is a (2,) tensor; a batch of keys (*B, 2) draws one independent
 ``shape`` per key, as ``jax.vmap`` over the reference's calls gives.
@@ -180,3 +184,16 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """(S, 2) keys, (S, V) float32 logits -> (S,) int64 draws (the first
     maximum on ties, as ``jnp.argmax``)."""
     return torch.argmax(gumbel(keys, logits.shape[-1]) + logits, dim=-1)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """(2,) key -> int32 draws on ``[minval, maxval)`` of ``shape``
+    (``jax.random.randint`` with int32; ``maxval <= minval`` gives
+    ``minval``)."""
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = maxval - minval if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & M32) % span
+    off = ((hi % span) * mult & M32) + lo % span
+    return ((off & M32) % span + minval).to(torch.int32)

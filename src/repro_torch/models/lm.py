@@ -1,5 +1,5 @@
 """Decoder-only LM of the ``("attn",)`` layer pattern (port of the serving
-parts of ``repro.models.lm``).
+and training parts of ``repro.models.lm``).
 
 Parameters keep ``repro``'s tree, names and stacked ``"groups"`` layout
 (leading axis = layer), so ``convert.from_jax`` maps one onto the other
@@ -19,10 +19,17 @@ of each per layer, but every layer's copy holds the same values:
 A config whose ``kv_cache_dtype`` is "int8" or "log8" gets quantized
 caches: K/V hold int8 codes and ``k_scale``/``v_scale`` one float32 scale
 per position and head, stacked on the same leading layer axis.
+
+``forward(mode="train")`` is the differentiable whole-sequence pass of
+training (no cache); with ``cfg.scan_remat`` each layer is recomputed in
+the backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint``
+wraps the reference's scan body.  A stacked leaf may also be a list of
+per-layer tensors (the train step's run copy).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..core.engine import NLDPEConfig, OFF
@@ -161,11 +168,19 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
             nldpe: NLDPEConfig = OFF, write_mask=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) float32; ``cache`` updates in place.
 
-    ``repro``'s modes: "prefill" (the whole prompt at positions (S,),
-    default ``arange(S)``; fills a dense ``cache`` if one is given),
-    "decode" and "chunk" (positions () shared for a lockstep cache, or
-    (B, S) per-slot offsets; ``write_mask`` (B,) bool freezes masked
-    slots' caches)."""
+    ``repro``'s modes: "train" (the whole sequence, differentiable, no
+    cache), "prefill" (the whole prompt at positions (S,), default
+    ``arange(S)``; fills a dense ``cache`` if one is given), "decode" and
+    "chunk" (positions () shared for a lockstep cache, or (B, S) per-slot
+    offsets; ``write_mask`` (B,) bool freezes masked slots' caches)."""
+    if mode == "train":
+        if nldpe.enabled and nldpe.fused_dual_compute:
+            raise NotImplementedError(
+                "training under FUSED numerics: kernels B and C have no "
+                "backward, and no reference path trains through them "
+                "(ROADMAP.md A)")
+        if cache is not None:
+            raise ValueError("mode='train' takes no cache")
     spec = attn_spec(cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -175,7 +190,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
     if cache is not None:
         plan = write_plan(layer_cache(cache, 0), positions, write_mask)
     blocks = params["groups"]["b0"]
-    for i in range(cfg.n_layers):
+
+    def layer(x, i):
         p = {k: {n: t[i] for n, t in v.items()} for k, v in blocks.items()}
         h = rmsnorm_apply(p["norm1"], x)
         a = attn_apply(p["attn"], spec, h, positions=positions, mode=mode,
@@ -183,11 +199,29 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
                        plan=plan, nldpe=nldpe)
         x = x + a.to(x.dtype)
         h2 = rmsnorm_apply(p["norm2"], x)
-        x = x + mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe).to(x.dtype)
+        return x + mlp_apply(p["ffn"], h2, act=cfg.act,
+                             nldpe=nldpe).to(x.dtype)
+
+    remat = mode == "train" and cfg.scan_remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        x = (checkpoint(layer, x, i, use_reentrant=False) if remat
+             else layer(x, i))
     x = rmsnorm_apply(params["final_norm"], x)
     if cfg.tie_embeddings:
         return unembed_apply(params["embed"], x)
     return x.to(torch.float32) @ params["lm_head"]["w"].to(torch.float32)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy (+ z-loss) in float32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(lse ** 2)
+    return loss
 
 
 def decode_step(params: dict, cfg, token: torch.Tensor, pos, cache: dict,

@@ -41,6 +41,11 @@ Attention paths of ``attn_apply``:
   a paged cache runs ``kernels.paged_attention`` (kernel A); over a dense
   cache, ``cached_attention`` (plain, as ``repro`` computes it in lax).
   NL-DPE modes run ``_nldpe_cached`` over the (gathered) dense view.
+* ``"train"`` (whole sequence, no cache, differentiable): under ``OFF``
+  ``blockwise_attention``, the counterpart of ``repro``'s lax function of
+  that name (kernel F has no backward and stays on prefill); under ``ON``
+  ``NLDPEConfig.attention``.  Nothing trains under ``FUSED``
+  (``models.lm.forward`` refuses it).
 """
 from __future__ import annotations
 
@@ -360,6 +365,59 @@ def _nldpe_cached(nldpe: NLDPEConfig, q: torch.Tensor, att: dict,
     return o.reshape(b, hq, nq, d)
 
 
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, q_block: int = 512,
+                        k_block: int = 1024) -> torch.Tensor:
+    """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype:
+    ``repro``'s online-softmax attention over query blocks of ``q_block``
+    and key blocks of ``k_block`` (halved until they divide S), in float32
+    with the reference's masking constant and order of operations, in
+    plain differentiable ops.  The reference recomputes each query block
+    in the backward pass; ``models.lm`` recomputes whole layers instead
+    (``cfg.scan_remat``)."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    qb = min(q_block, sq)
+    while sq % qb:
+        qb //= 2
+    kb = min(k_block, sk)
+    while sk % kb:
+        kb //= 2
+    nq, nk = sq // qb, sk // kb
+    qg = scalar_div(q.reshape(b, hkv, g, nq, qb, d).to(torch.float32),
+                    math.sqrt(d))
+    kg = k.reshape(b, hkv, nk, kb, d).to(torch.float32)
+    vg = v.reshape(b, hkv, nk, kb, d).to(torch.float32)
+    dev = q.device
+    outs = []
+    for iq in range(nq):
+        q_i = qg[:, :, :, iq]                               # (B,Hkv,G,qb,D)
+        q_pos = iq * qb + torch.arange(qb, device=dev)
+        m_run = torch.full((b, hkv, g, qb), NEG_INF, device=dev)
+        l_run = torch.zeros((b, hkv, g, qb), device=dev)
+        acc = torch.zeros((b, hkv, g, qb, d), device=dev)
+        for ik in range(nk):
+            s_ = torch.einsum("bkgqd,bkld->bkgql", q_i, kg[:, :, ik])
+            k_pos = ik * kb + torch.arange(kb, device=dev)
+            if causal:
+                s_ = torch.where(q_pos[:, None] >= k_pos[None, :], s_,
+                                 NEG_INF)
+            m_new = torch.maximum(m_run, torch.amax(s_, dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            pj = torch.exp(s_ - m_safe[..., None])
+            corr = torch.where(torch.isfinite(m_run),
+                               torch.exp(m_run - m_safe), 0.0)
+            l_run = l_run * corr + torch.sum(pj, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgql,bkld->bkgqd", pj, vg[:, :, ik])
+            m_run = m_new
+        l_run = torch.where(l_run == 0.0, 1.0, l_run)
+        outs.append(acc / l_run[..., None])
+    out = torch.stack(outs, dim=3).reshape(b, hkv, g, sq, d)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
 def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
                positions: torch.Tensor, mode: str, cache: dict | None = None,
                plan=None, nldpe: NLDPEConfig = OFF) -> torch.Tensor:
@@ -367,13 +425,19 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
 
     ``mode="prefill"``: the whole prompt at positions (S,), causal over
     the new K/V, then (with a dense ``cache``) the fill at ``plan``.
+    ``"train"``: the same attention without a cache, differentiable.
     ``"decode"`` (S == 1) and ``"chunk"``: the new K/V are written at
     ``plan`` (the forward's ``write_plan``; positions () shared or (B, S)
     per slot), then the queries attend to the cache.
     """
     b, seq, _ = x.shape
     q, k, v = _project_qkv(p, s, x, positions)
-    if mode == "prefill":
+    if mode == "train":
+        if nldpe.enabled:
+            o = nldpe.attention(q, k, v, causal=True, mask=None)
+        else:
+            o = blockwise_attention(q, k, v, causal=True)
+    elif mode == "prefill":
         if positions.ndim != 1:
             raise ValueError("prefill takes shared positions (S,)")
         if nldpe.enabled:

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.quickstart [--device cpu]
 
-The counterpart of ``examples/quickstart.py`` sections 1 and 2, plus an
+The counterpart of ``examples/quickstart.py`` sections 1-3, plus an
 analog-slicing section; it runs on the GPU unless ``--device cpu`` is
 given (the kernels then take their plain versions).
 
@@ -12,11 +12,13 @@ given (the kernels then take their plain versions).
 2. A log-domain DMMul (exp(log a + log b)) in ``nldpe_matmul``'s fused and
    exact modes and through kernel G (``nldpe_matmul_int8``), against a
    float32 matmul.
-3. Program a weight matrix with A-SL and programming noise
+3. Bake one bad programming pass (6x the default noise) into the GELU
+   table's thresholds (``corrupt_table``), then repair it with per-DT
+   Noise-Aware Fine-tuning (``finetune_table``, Algorithm 1's surrogate
+   under 2x noise; every evaluation through kernel D on the card).
+4. Program a weight matrix with A-SL and programming noise
    (``program_linear``), then one crossbar pass with read noise through
    kernel E (``crossbar_matmul``), against the ideal VMM.
-
-Noise-Aware Fine-tuning (the reference's section 3) is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,14 +28,33 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .core import acam, crossbar, dt, logdomain
+from .core import acam, crossbar, dt, logdomain, noise
+from .core.naf import corrupt_table, finetune_table
 from .core.functions import TORCH_FUNCTIONS
 from .kernels import acam_apply, crossbar_matmul, nldpe_matmul_int8
 from .launch import prng
 
 
+NAF_EPOCHS = 5          # section 3's fine-tuning epochs (the reference's)
+
+
+def naf_section(table, dev) -> dict:
+    """Section 3: bake a 6x-noise programming pass into ``table`` and
+    repair it with per-DT NAF under 2x noise; returns the MSEs."""
+    model = noise.DEFAULT.rescale(2.0)
+    bad = corrupt_table(table, prng.prng_key(42), noise.DEFAULT.rescale(6.0),
+                        device=dev)
+    res = finetune_table(bad, rng=prng.prng_key(0), model=model,
+                         epochs=NAF_EPOCHS, samples=2000, device=dev)
+    print(f"ACAM persistent corruption: clean {res.mse_clean:.2e} -> "
+          f"corrupted+noise {res.mse_before:.2e}; after NAF ({NAF_EPOCHS} "
+          f"epochs): {res.mse_after:.2e}")
+    return {"naf_mse_clean": res.mse_clean, "naf_mse_before": res.mse_before,
+            "naf_mse_after": res.mse_after}
+
+
 def main(device=None) -> dict:
-    """Run the three sections on ``device`` (the GPU by default); prints
+    """Run the four sections on ``device`` (the GPU by default); prints
     their errors and returns them with the GELU outputs."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
@@ -67,7 +88,10 @@ def main(device=None) -> dict:
         print(f"DMMul exp(log+log) {name:6s}: relative MSE vs fp32 matmul "
               f"= {rel:.2e}")
 
-    # -- 3. A-SL crossbar with programming and read noise --------------------
+    # -- 3. a bad programming pass breaks it; NAF repairs it --------------------
+    out.update(naf_section(table, dev))
+
+    # -- 4. A-SL crossbar with programming and read noise --------------------
     w = torch.from_numpy((rng.normal(size=(256, 128)) / 16).astype(
         np.float32)).to(dev)
     xw = torch.from_numpy(rng.normal(size=(16, 256)).astype(np.float32)

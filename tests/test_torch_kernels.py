@@ -158,7 +158,7 @@ def test_plan_instance_rows_and_tiles(q_len, g, want):
     """G*Q <= 16 takes the decode instance (rows rounded up to 8), more
     the chunk instance (64 rows up to 64, else 128-row tiles); K/V are
     staged once per tile: ceil(G*Q / rows) times per (sequence, head)."""
-    pl = paged_plan(8, 2, g * q_len, 64, 16, 128, 0, 132)
+    pl = paged_plan(8, 2, g * q_len, 64, 16, 128, 0)
     assert (pl.instance, pl.rows, pl.tiles) == want
 
 
@@ -166,16 +166,23 @@ def test_plan_stages_and_splits_at_full_width():
     """Qwen2.5-3B's kernel-A calls (8 slots, 2 KV heads, 64 pages of 16):
     the decode ring is 2, 3, 4 stages deep for f32, bf16 and code pools,
     the chunk ring 2; decode cuts the table into 16 splits of 64
-    positions; chunk gives the grid 8 splits of 2 stages and a wave of
-    one block per SM, within which the kernel sizes the busy splits."""
+    positions; chunk gives the grid the splits of the longest sequence
+    the table holds (at most 1024 + G*Q - 1 positions: 24 stages at 512
+    rows, 17 at 40), 3 stages a split at 128-row tiles (8 splits) and 2 at
+    64-row ones (9 splits), and the kernel takes each sequence's busy
+    splits from its own length."""
     for kind, stages in ((0, 2), (1, 3), (2, 4)):
-        dec = paged_plan(8, 2, 8, 64, 16, 128, kind, 132)
+        dec = paged_plan(8, 2, 8, 64, 16, 128, kind)
         assert (dec.stages, dec.splits) == (stages, 16)
-        ch = paged_plan(8, 2, 512, 64, 16, 128, kind, 132)
-        assert (ch.stages, ch.splits, ch.wave) == (2, 8, 132)
-    # a short table keeps at least two steps a split
-    assert paged_plan(8, 2, 8, 4, 16, 128, 0, 132).splits == 1
-    assert paged_plan(1, 2, 512, 8, 16, 128, 0, 132).splits == 1
+        ch = paged_plan(8, 2, 512, 64, 16, 128, kind)
+        assert (ch.stages, ch.splits) == (2, 8)
+        verify = paged_plan(8, 2, 40, 64, 16, 128, kind)
+        assert (verify.rows, verify.splits) == (64, 9)
+    # a short table keeps at least two steps a split; a long one at most
+    # CH_MAX_SPLITS splits
+    assert paged_plan(8, 2, 8, 4, 16, 128, 0).splits == 1
+    assert paged_plan(1, 2, 512, 8, 16, 128, 0).splits == 4
+    assert paged_plan(1, 2, 512, 4096, 16, 128, 0).splits == 16
 
 
 @pytest.mark.parametrize("kind", [0, 1, 2], ids=["f32", "bf16", "codes"])
@@ -187,7 +194,7 @@ def test_plan_shared_memory_fits_every_page_size(d, kind):
     largest, 230912 B of 232448."""
     for ps in range(1, 33):
         for n_rows in (1, 8, 9, 16, 17, 40, 64, 65, 512):
-            pl = paged_plan(8, 2, n_rows, -(-1024 // ps), ps, d, kind, 132)
+            pl = paged_plan(8, 2, n_rows, -(-1024 // ps), ps, d, kind)
             assert 0 < pl.smem <= 227 * 1024
     assert smem_bytes(128, 128, 0) == 230912
 

@@ -231,3 +231,42 @@ def test_cli_serves_on_cpu(capsys):
                  "--gen-len", "4", "--prompt-len", "20"])
     assert len(comps) == 3 and all(c.tokens for c in comps)
     assert "prefix hits" in capsys.readouterr().out
+
+
+def test_cache_generations_false_publishes_prompts_only():
+    """``cache_generations`` as in ``repro``'s engine: a later request
+    that extends a finished request's prompt plus its generations hits the
+    prompt's and the generations' full pages by default, and only the
+    prompt's with ``cache_generations=False``; tokens and pool statistics
+    equal ``repro``'s engine's in both settings."""
+    from repro.launch.engine import Request as JRequest
+    prompt = tuple(int(t) for t in np.random.default_rng(12).integers(
+        0, CFG.vocab_size, 9))
+    kw = H.engine_kwargs(page_size=H.PAGE, num_pages=4 * H.NUM_PAGES)
+    hits = {}
+    for flag in (True, False):
+        ref = JPagedServeEngine(H.CFG, H.shared_params(),
+                                cache_generations=flag, **kw)
+        port = PagedServeEngine(CFG, from_jax(H.shared_params(),
+                                              device="cpu"),
+                                cache_generations=flag, device="cpu", **kw)
+        assert port.cache_generations is flag
+        first = {}
+        for name, eng, req in (("ref", ref, JRequest), ("port", port,
+                                                          Request)):
+            c, = eng.run([req(rid=0, tokens=prompt, max_new_tokens=8,
+                              arrival=eng.tick)])
+            first[name] = c.tokens
+        assert first["ref"] == first["port"]
+        longer = prompt + tuple(first["port"]) + (5,)
+        for name, eng, req in (("ref", ref, JRequest), ("port", port,
+                                                          Request)):
+            before = eng.stats["hit_pages"]
+            c, = eng.run([req(rid=1, tokens=longer, max_new_tokens=2,
+                              arrival=eng.tick)])
+            hits[flag, name] = eng.stats["hit_pages"] - before
+        for k in STAT_KEYS:
+            assert port.stats[k] == ref.stats[k], (flag, k)
+    n_prompt = len(prompt) // H.PAGE                       # 2 full pages
+    assert hits[False, "port"] == hits[False, "ref"] == n_prompt
+    assert hits[True, "port"] == hits[True, "ref"] > n_prompt

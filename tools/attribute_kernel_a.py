@@ -110,12 +110,11 @@ def main() -> None:
     (kc, ks), (vc, vs) = _quantize_kv(kf, "log8"), _quantize_kv(vf, "log8")
     pools = {"float32": (kf, vf, None, None, None, 0),
              "log8": (kc, vc, ks, vs, "log8", 2)}
-    sms = ops._sm_count(0)
 
     def call(lib, q, lengths, pool):
         kp, vp, k_sc, v_sc, mode, kind = pools[pool]
         return ops._launch(lib, q, kp, vp, bt, lengths, k_sc, v_sc, mode,
-                           kind, sms, torch.cuda.current_stream().cuda_stream)
+                           kind, torch.cuda.current_stream().cuda_stream)
 
     for q_len in (1, 64):
         q = torch.randn((b, hq, q_len, d), generator=gen, device="cuda")

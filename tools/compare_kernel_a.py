@@ -78,16 +78,14 @@ def main() -> None:
     from chip_smoke import A_TOL, Timer
     from repro_torch.core.quantization import kv_decode, kv_table
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention.ops import (_sm_count,
-                                                         paged_attention,
-                                                         plan)
+    from repro_torch.kernels.paged_attention.ops import paged_attention, plan
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     from repro_torch.nn.attention import _quantize_kv
     build.build_all()
     old = old_kernel(args.old_source)
     timer = Timer(torch)
     b, hq, hkv, d, num_pages, ps, nb = 8, 16, 2, 128, 512, 16, 64
-    sms = _sm_count(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(0)
     bt = torch.tensor(rng.permutation(num_pages).reshape(b, nb),
                       dtype=torch.int32, device="cuda")
@@ -151,7 +149,7 @@ def main() -> None:
             times = [timer.ms(fn, iters=20)[0] for fn in (
                 run_old, lambda: paged_attention(*call, **kw),
                 lambda: paged_attention(*call, **kw), run_old)]
-            pl = plan(b, hkv, n_rows, nb, ps, d, kinds[pool], sms)
+            pl = plan(b, hkv, n_rows, nb, ps, d, kinds[pool])
             line = {"q_len": q_len, "pool": pool, "ok": case_ok,
                     "max_abs_err_new": err_new, "max_abs_err_old": err_old,
                     "max_abs_new_minus_old": err_pair, "tolerance": A_TOL,
