@@ -88,12 +88,22 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    against its plain version and ``nldpe_matmul(mode="fused")``; and
    ``repro_torch.quickstart.main()`` on the card (its NAF section's hard
    evaluations through kernel D) — then times D, E and G like the other
-   kernels;
+   kernels; then ``[cnn]``: ``repro_torch.train_cnn_nldpe.main`` on the
+   full-width CNN (``CNNConfig()``, batch 32): 120 AdamW steps, float32,
+   NL-DPE and 6x-noise accuracies, 50 crossbar-NAF steps — every ``ON``
+   convolution through kernel G (15 launches per forward, each conv shape
+   held against G's plain version and timed), the loss must fall, NAF
+   must not hurt, and the card's ``OFF`` logits at the initial weights
+   must be the CPU's within float32 tolerance (TF32 off);
 9. ``[naf dt]``: NAF step 4 for ``silu`` at ``finetune_table``'s defaults
    from a corrupted table (every hard evaluation through kernel D, which
    must equal its plain version bit for bit): the table must recover by
    half; prints the MSEs, the history, D's launches and ms per evaluation;
 10. ``[naf pipeline]``: ``repro_torch.naf_pipeline.main()`` on the card;
+   ``[train ckpt]``: the train CLI (reduced qwen2_7b) killed at step 7,
+   resumed from its step-5 checkpoint and run uninterrupted — the resumed
+   losses within rtol 1e-4 of the uninterrupted ones — and a timed
+   blocking save and restore of its state onto the card, bit for bit;
 11. ``[train]``: full-width Qwen2.5-3B training on the float32 masters
    (bf16 compute, layers recomputed in the backward pass): one AdamW
    step, then two crossbar-NAF steps — finite losses, the seconds of each
@@ -160,6 +170,11 @@ SPILL_HOST_PAGES = 256
 PORT_KERNELS = ("paged_attention", "fused_crossbar_acam", "logdomain_flash",
                 "log_quantize", "flash_attention", "acam_activation",
                 "crossbar_vmm", "nldpe_qmatmul")
+# [cnn]: CNNConfig() at this batch (M = 32768 at the stem and stage 0);
+# the card's OFF logits against the CPU's at float32 (TF32 off)
+CNN_BATCH = 32
+CNN_OFF_TOL = 1e-4
+CNN_G_TOP = (32768, 144, 16)    # stage 0's 3x3 convs: the row's numbers
 G_SHAPES = ((512, 128, 512),    # one head's QK^T in the lockstep prefill
             (512, 512, 128),    # P . V
             (4096, 2048, 2048))  # 8 x 512 tokens through a d_model product
@@ -1913,49 +1928,85 @@ def crossbar_phase(torch, timer, lib: dict) -> dict:
             "timing": timer.source, "cases": cases}
 
 
-def qmatmul_phase(torch, timer, lib: dict) -> dict:
-    """Kernel G at the three DMMul shapes on the library path's operands,
-    against its plain version (dequantize, cuBLAS)."""
-    from repro_torch.core.logdomain import DEFAULT_CFG
+def qmatmul_case(torch, timer, a, b, *, check_against=None) -> dict:
+    """Kernel G on one pair of DMMul operands: held against its plain
+    version ((2 K + 8) u) and ``nldpe_matmul`` fused ((2 K + 40) u), and
+    timed beside the plain version, ``torch.matmul`` of the dequantized
+    operands and the bound.  ``check_against``: an output the path gave
+    on these operands, which must be G's bit for bit."""
+    from repro_torch.core.logdomain import DEFAULT_CFG, nldpe_matmul
     from repro_torch.kernels.nldpe_qmatmul.ops import (encode_int8,
                                                        nldpe_qmatmul,
                                                        tile_variant)
     from repro_torch.kernels.nldpe_qmatmul.ref import (dequant_ref,
                                                        nldpe_qmatmul_ref)
     spec = DEFAULT_CFG.mag_spec
-    cases = []
+    m, k = a.shape
+    n = b.shape[1]
+    codes = (*encode_int8(a), *encode_int8(b), spec.step, spec.log_lo)
+    out = nldpe_qmatmul(*codes)
+    ref = nldpe_qmatmul_ref(*codes)
+    torch.cuda.synchronize()
+    if check_against is not None:
+        check(torch.equal(out, check_against), f"nldpe_qmatmul {(m, k, n)}: "
+              f"not the path's output")
+    da, db = dequant_ref(*codes[:2], *codes[4:]), \
+        dequant_ref(*codes[2:4], *codes[4:])
+    r = gemm_err(torch, out, ref, da, db)
+    check(r <= 1.0, f"nldpe_qmatmul {(m, k, n)}: error {r:.3g} of the "
+          f"sum-order bound")
+    r_fused = gemm_err(torch, out, nldpe_matmul(a, b, mode="fused"), da, db,
+                       slack_u=40)
+    check(r_fused <= 1.0, f"nldpe_qmatmul {(m, k, n)}: error {r_fused:.3g} "
+          f"of the bound against nldpe_matmul fused")
+    err = (out - ref).abs().max().item()
+    ms, call_ms = timer.ms(lambda: nldpe_qmatmul(*codes), iters=10)
+    plain_ms, _ = timer.ms(lambda: nldpe_qmatmul_ref(*codes), iters=3)
+    lib_ms, _ = timer.ms(lambda: torch.matmul(da, db), iters=10)
+    nbytes, flops = 2 * (m * k + k * n) + 4 * m * n, 2 * m * k * n
+    bms, by = bound(nbytes, flops)
+    return {"shape": [m, k, n], "tile": tile_variant(m, n),
+            "max_abs_err": err, "err_of_bound": r,
+            "err_of_fused_bound": r_fused, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, **achieved(nbytes, flops, ms)}
+
+
+def qmatmul_phase(torch, timer, lib: dict, cnn_res: dict) -> dict:
+    """Kernel G at every conv shape of one ``ON`` CNN forward (its main
+    path, ``[cnn]``: the operands that forward gave it) and at the
+    library path's three DMMul shapes; the row's top numbers are the
+    stage-0 conv's (M 32768, K 144, N 16), and G's device ms per ``ON``
+    forward is the sum over the forward's 15 calls."""
+    cases, by_shape = [], {}
+    for a, b, out in cnn_res["g_calls"]:
+        shape = (a.shape[0], a.shape[1], b.shape[1])
+        if shape not in by_shape:
+            by_shape[shape] = {"path": "cnn", "calls_per_on_forward": 0,
+                               **qmatmul_case(torch, timer, a, b,
+                                              check_against=out)}
+            cases.append(by_shape[shape])
+        by_shape[shape]["calls_per_on_forward"] += 1
+    for case in cases:
+        print("[kernel G] " + json.dumps(case))
     for shape, (a, b) in lib["g_in"].items():
-        m, k, n = shape
-        codes = (*encode_int8(a), *encode_int8(b), spec.step, spec.log_lo)
-        out = nldpe_qmatmul(*codes)
-        ref = nldpe_qmatmul_ref(*codes)
-        torch.cuda.synchronize()
-        check(torch.equal(out, lib["c"][shape]), f"nldpe_qmatmul {shape}: "
-              f"not the library path's output")
-        da, db = dequant_ref(*codes[:2], *codes[4:]), \
-            dequant_ref(*codes[2:4], *codes[4:])
-        r = gemm_err(torch, out, ref, da, db)
-        check(r <= 1.0, f"nldpe_qmatmul {shape}: error {r:.3g} of the "
-              f"sum-order bound")
-        err = (out - ref).abs().max().item()
-        ms, call_ms = timer.ms(lambda: nldpe_qmatmul(*codes), iters=10)
-        plain_ms, _ = timer.ms(lambda: nldpe_qmatmul_ref(*codes), iters=3)
-        lib_ms, _ = timer.ms(lambda: torch.matmul(da, db), iters=10)
-        nbytes, flops = 2 * (m * k + k * n) + 4 * m * n, 2 * m * k * n
-        bms, by = bound(nbytes, flops)
-        case = {"shape": list(shape), "tile": tile_variant(m, n),
-                "max_abs_err": err,
-                "err_of_bound": r, "ms": ms, "call_ms": call_ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bms, "bound_by": by,
-                **achieved(nbytes, flops, ms)}
+        case = {"path": "library",
+                **qmatmul_case(torch, timer, a, b,
+                               check_against=lib["c"][shape])}
         print("[kernel G] " + json.dumps(case))
         cases.append(case)
-    top = cases[-1]
+    top = by_shape[CNN_G_TOP]
+    per_forward = sum(c["ms"] * c["calls_per_on_forward"]
+                      for c in by_shape.values())
+    print(f"[kernel G] {len(cnn_res['g_calls'])} calls per ON CNN forward: "
+          f"{per_forward:.4f} device ms (sum of the calls' event times)")
     return {"name": "nldpe_qmatmul", "route": "cuda",
             "source": "src/repro_torch/csrc/nldpe_qmatmul.cu",
             "replaces": "src/repro/kernels/nldpe_qmatmul/kernel.py:50",
-            "launches": lib["launches"]["nldpe_qmatmul"],
+            "launches": cnn_res["kernel_g_launches"],
+            "launches_per_on_forward": len(cnn_res["g_calls"]),
+            "launches_library": lib["launches"]["nldpe_qmatmul"],
+            "device_ms_per_on_forward": per_forward,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tolerance": "(2K + 8) u (|A^| @ |B^|) per output; against "
                          "nldpe_matmul fused (2K + 40) u",
@@ -1964,6 +2015,169 @@ def qmatmul_phase(torch, timer, lib: dict) -> dict:
             "library_ms": top["library_ms"],
             "library": "torch.matmul of the dequantized f32 operands",
             "timing": timer.source, "cases": cases}
+
+
+def cnn_phase(torch) -> dict:
+    """``[cnn]``: ``repro_torch.train_cnn_nldpe.main`` at full width,
+    ``CNNConfig()`` (stages 16/32/64, 2 blocks, 32 x 32, 10 classes), the
+    example's data at batch ``CNN_BATCH``: 120 AdamW steps under ``OFF``,
+    accuracies in float32, ``ON`` (every conv through kernel G) and under
+    6x crossbar noise, then 50 crossbar-NAF steps.  Every count is set to
+    0 just before ``main`` and read just after: G must launch 15 times per
+    ``ON`` forward; the first ``ON`` forward's 15 calls are kept (operands
+    and outputs) for the kernel phase.  Checks: the card's ``OFF`` logits
+    of the first batch at the initial weights within ``CNN_OFF_TOL`` of
+    the CPU's (both drawn on the CPU generator; cuDNN with TF32 off);
+    losses finite, the last below 0.8 x the first; NAF never hurts
+    (recovered >= degraded - 0.02)."""
+    from repro_torch import train_cnn_nldpe
+    from repro_torch.core.drift import flatten
+    from repro_torch.core.engine import ON
+    from repro_torch.data.images import ImageDataConfig, make_batch_fn
+    from repro_torch.kernels.nldpe_qmatmul import ops as g_ops
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig()
+    data = ImageDataConfig(num_classes=cfg.num_classes, batch=CNN_BATCH,
+                           noise=0.9)
+    first = make_batch_fn(data, device="cpu")(0)["images"]
+    logits = {}
+    with torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            p = cnn.init_params(cfg, device=dev)
+            logits[dev] = cnn.forward(p, first.to(dev), cfg).cpu()
+    off_err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+    check(off_err <= CNN_OFF_TOL, f"cnn: card vs CPU OFF logits {off_err} > "
+          f"{CNN_OFF_TOL}")
+    calls = []
+    launch = g_ops.nldpe_matmul_int8
+
+    def kept(a, b, ld_cfg):
+        out = launch(a, b, ld_cfg)
+        if len(calls) < 15:
+            calls.append((a.clone(), b.clone(), out.clone()))
+        return out
+
+    g_ops.nldpe_matmul_int8 = kept
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = train_cnn_nldpe.main(cfg, data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters()}
+    finally:
+        g_ops.nldpe_matmul_int8 = launch
+    peak = torch.cuda.max_memory_allocated() - base
+    on_forwards = train_cnn_nldpe.EVAL_DRAWS
+    want = {name: 0 for name in launches}
+    want["nldpe_qmatmul"] = 15 * on_forwards
+    check(launches == want, f"cnn: launches {launches}, expected {want} (15 "
+          f"G launches per ON forward, {on_forwards} ON forwards)")
+    check(len(calls) == 15, f"cnn: {len(calls)} G calls kept")
+    losses = res["losses"]
+    check(bool(np.isfinite(losses).all()), "cnn: non-finite loss")
+    check(losses[-1] < 0.8 * losses[0], f"cnn: loss did not fall: "
+          f"{losses[0]} -> {losses[-1]}")
+    check(res["naf_acc"] >= res["noisy_acc"] - 0.02, f"cnn: NAF hurt: "
+          f"{res['noisy_acc']} -> {res['naf_acc']}")
+    # one ON forward timed alone (host clock behind syncs)
+    p = cnn.init_params(cfg, device="cuda")
+    x = first.cuda()
+    with torch.no_grad():
+        cnn.forward(p, x, cfg, nldpe=ON)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cnn.forward(p, x, cfg, nldpe=ON)
+        torch.cuda.synchronize()
+        on_s = time.perf_counter() - t0
+    info = {"model": cfg.name, "stages": list(cfg.stage_channels),
+            "blocks_per_stage": cfg.blocks_per_stage, "batch": CNN_BATCH,
+            "img_size": cfg.img_size, "classes": cfg.num_classes,
+            "parameters": sum(t.numel() for _, t in flatten(p)),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "losses_every_30": losses[::30],
+            **{k: v for k, v in res.items() if k != "losses"},
+            "off_logits_card_vs_cpu": off_err, "off_tolerance": CNN_OFF_TOL,
+            "kernel_g_launches": launches["nldpe_qmatmul"],
+            "kernel_g_launches_per_on_forward":
+                launches["nldpe_qmatmul"] / on_forwards,
+            "on_forward_wall_s": on_s, "seconds": wall,
+            "peak_gb_above_resident": peak / 1e9}
+    print("[cnn] " + json.dumps(info))
+    return {**info, "g_calls": calls}
+
+
+def train_ckpt_phase(torch) -> dict:
+    """``[train ckpt]``: the train CLI on the card at its reduced default
+    arch, ``--steps 10 --batch 2 --seq 16 --ckpt-every 5`` under a
+    temporary ``--ckpt-dir``: killed at step 7 (``--fail-at-step``, must
+    raise), resumed from the step-5 checkpoint, then uninterrupted; the
+    resumed losses must be the uninterrupted run's within rtol 1e-4 (it
+    reports whether they are bitwise).  Then a blocking ``save`` and a
+    ``restore`` of the run's step-10 ``{"params", "opt"}`` onto the card,
+    timed behind syncs; the restored tensors must equal the saved ones bit
+    for bit."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.drift import flatten
+    from repro_torch.launch.train import run
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    argv = ["--steps", "10", "--batch", "2", "--seq", "16", "--ckpt-every",
+            "5"]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ck = str(Path(tmp) / "ck")
+        t0 = time.perf_counter()
+        try:
+            run(argv + ["--ckpt-dir", ck, "--fail-at-step", "7"])
+            fail("train ckpt: --fail-at-step 7 did not raise")
+        except RuntimeError as exc:
+            check("injected failure at step 7" in str(exc),
+                  f"train ckpt: unexpected failure {exc!r}")
+        check(CheckpointManager(ck).latest_step() == 5,
+              "train ckpt: no step-5 checkpoint after the failure")
+        resumed = run(argv + ["--ckpt-dir", ck])
+        clean = run(argv)
+        runs_s = time.perf_counter() - t0
+        check(len(resumed) == 5 and bool(np.isfinite(resumed).all()),
+              f"train ckpt: resumed losses {resumed}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, clean[5:]))
+        check(rel <= 1e-4, f"train ckpt: resumed losses {resumed} vs "
+              f"uninterrupted {clean[5:]}: relative difference {rel}")
+        cfg = get_config("qwen2_7b", reduced=True)
+        params = lm.init_params(cfg, device="cuda")
+        template = {"params": params, "opt": adamw.init(params)}
+        state, step = CheckpointManager(ck).restore_latest(template)
+        check(step == 10, f"train ckpt: latest step {step}")
+        timed = CheckpointManager(str(Path(tmp) / "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed.save(state, 10)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = timed.restore(template, 10)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved = [t for _, t in flatten(state)]
+        got = [t for _, t in flatten(back)]
+        check(len(saved) == len(got) and all(
+            g.device.type == "cuda" and g.dtype == s.dtype
+            and torch.equal(g, s) for s, g in zip(saved, got)),
+            "train ckpt: restored tensors differ from the saved ones")
+        nbytes = sum(t.numel() * t.element_size() for t in saved)
+    info = {"arch": cfg.name, "argv": argv, "resumed_losses": resumed,
+            "uninterrupted_losses": clean[5:],
+            "max_relative_difference": rel,
+            "bitwise": resumed == clean[5:], "runs_s": runs_s,
+            "state_leaves": len(saved), "state_bytes": nbytes,
+            "save_s": save_s, "restore_s": restore_s,
+            "restored_bitwise": True}
+    print("[train ckpt] " + json.dumps(info))
+    return info
 
 
 def naf_dt_phase(torch, timer) -> dict:
@@ -2377,6 +2591,10 @@ def main() -> None:
     print(f"[library] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    cnn_res = cnn_phase(torch)
+    print(f"[cnn] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     timer = Timer(torch)
     kernels = [
         paged_attention_phase(
@@ -2410,8 +2628,8 @@ def main() -> None:
         crossbar_phase(torch, timer, lib),
         flash_phase(torch, timer,
                     lock_off["per_kernel"]["flash_attention"]),
-        qmatmul_phase(torch, timer, lib)]
-    del lib, off_in, log8_in
+        qmatmul_phase(torch, timer, lib, cnn_res)]
+    del lib, off_in, log8_in, cnn_res
     print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2429,6 +2647,10 @@ def main() -> None:
     d_entry["launches_naf_dt"] = naf_dt["kernel_d_launches"]
     d_entry["launches_naf_pipeline"] = pipeline["kernel_d_launches"]
     d_entry["naf_dt_ms_per_evaluation"] = naf_dt["kernel_d_ms_per_evaluation"]
+
+    t0 = time.perf_counter()
+    train_ckpt_phase(torch)
+    print(f"[train ckpt] phase {time.perf_counter() - t0:.1f} s")
 
     # last: it updates the float32 masters in place
     t0 = time.perf_counter()

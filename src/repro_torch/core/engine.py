@@ -72,9 +72,27 @@ class NLDPEConfig:
         return torch.softmax(x, dim=axis)
 
     def dmmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.enabled and self.logdomain_dmmul:
+        """a @ b; on the analog engine ``nldpe_matmul(mode="fused")``:
+        kernel G (``kernels/nldpe_qmatmul``) for CUDA tensors — ``a``'s
+        leading dimensions flattened against a 2-D ``b``; another rank, or
+        a call that needs a gradient (G has no backward), raises — and the
+        plain route for CPU tensors."""
+        if not (self.enabled and self.logdomain_dmmul):
+            return torch.matmul(a, b)
+        if a.device.type == "cpu":
             return nldpe_matmul(a, b, self.logdomain, mode="fused")
-        return torch.matmul(a, b)
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            raise NotImplementedError(
+                "NLDPEConfig.dmmul: kernel G has no backward (no reference "
+                "path trains through the log-domain DMMul)")
+        if a.dim() < 2 or b.dim() != 2:
+            raise ValueError(f"NLDPEConfig.dmmul on {a.device.type}: kernel "
+                             f"G takes a (..., M, K) against a (K, N) b, got "
+                             f"{tuple(a.shape)} and {tuple(b.shape)}")
+        from ..kernels.nldpe_qmatmul import ops
+        out = ops.nldpe_matmul_int8(a.reshape(-1, a.shape[-1]), b,
+                                    self.logdomain)
+        return out.reshape(*a.shape[:-1], b.shape[1])
 
     def elementwise_mul(self, a: torch.Tensor,
                         b: torch.Tensor) -> torch.Tensor:

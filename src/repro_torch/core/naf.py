@@ -274,11 +274,8 @@ def leaf_keys(rng: torch.Tensor, tree) -> list:
     ``(program +, read +, program -, read -)``, as ``inject_crossbar_noise``
     splits them (one key per leaf, then one per polarity, then
     ``readout``'s program/read split)."""
-    out = []
-    for k in prng.split(rng, len(flatten(tree))):
-        kp, kn = prng.split(k)
-        out.append((*prng.split(kp), *prng.split(kn)))
-    return out
+    keys = prng.split(prng.split(prng.split(rng, len(flatten(tree)))))
+    return [(k[0, 0], k[0, 1], k[1, 0], k[1, 1]) for k in keys]
 
 
 def leaf_amax(w: torch.Tensor) -> torch.Tensor:

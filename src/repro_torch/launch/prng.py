@@ -99,9 +99,11 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """(2,) key -> (num, 2) keys (``jax.random.split``)."""
+    """(*B, 2) keys -> (*B, num, 2) keys (``jax.random.split`` per key,
+    in one cipher pass)."""
     i = torch.arange(num, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    y0, y1 = threefry2x32(key[..., 0, None], key[..., 1, None],
+                          torch.zeros_like(i), i)
     return torch.stack([y0, y1], dim=-1)
 
 

@@ -30,12 +30,20 @@ the arg-max elements of ``||W||_inf``.
 
     python -m repro_torch.launch.train [--arch qwen2_7b] [--steps 50]
         [--batch 8] [--seq 64] [--nldpe] [--naf] [--schedule cosine|wsd]
-        [--lr 1e-3] [--seed 0] [--device cpu]
+        [--lr 1e-3] [--seed 0] [--ckpt-dir D] [--ckpt-every 20]
+        [--fail-at-step N] [--device cpu]
 
 runs the reduced config of ``--arch`` (as the reference's CLI always
 does: the synthetic corpus's vocab x vocab transition table fits only at
-reduced vocab) on the GPU unless ``--device cpu``.  ``--ckpt-dir`` and
-``batch_groups > 1`` are not ported yet and raise.
+reduced vocab) on the GPU unless ``--device cpu``.  With ``--ckpt-dir``
+it restores ``{"params", "opt"}`` from the directory's ``LATEST`` on
+start and resumes at that step, saves every ``--ckpt-every`` steps and
+at the end (``checkpoint.manager``); ``--fail-at-step N`` raises at step
+N, as a node failure would.  The batch is a function of the step index
+and the NAF key of the restored ``opt["step"]``, so a resumed run repeats
+and skips nothing: on the CPU its losses and parameters equal an
+uninterrupted run's bit for bit.  ``batch_groups > 1`` is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -277,10 +285,6 @@ def run(argv=None) -> list[float]:
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU)")
     args = p.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpointing (checkpoint/, runtime/"
-            "fault_tolerance.py) is not ported yet (ROADMAP.md A.4)")
     from .. import resolve_device
     dev = resolve_device(args.device)
 
@@ -298,8 +302,20 @@ def run(argv=None) -> list[float]:
     batch_fn = make_batch_fn(data_cfg, device=dev)
     step_fn = build_train_step(cfg, opt_cfg, nldpe=nldpe, naf=args.naf)
 
+    start = 0
+    manager = None
+    if args.ckpt_dir:
+        from ..checkpoint.manager import CheckpointManager
+        manager = CheckpointManager(args.ckpt_dir)
+        restored = manager.restore_latest({"params": params,
+                                           "opt": opt_state})
+        if restored is not None:
+            state, start = restored
+            params, opt_state = state["params"], state["opt"]
+            print(f"[train] restored checkpoint at step {start}")
+
     losses = []
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         if args.fail_at_step is not None and step == args.fail_at_step:
             raise RuntimeError(f"injected failure at step {step}")
         batch = batch_fn(step)
@@ -310,6 +326,10 @@ def run(argv=None) -> list[float]:
         if step % 10 == 0 or step == args.steps - 1:
             print(f"[train] step {step:4d} loss {loss:.4f} "
                   f"({(time.time() - t0) * 1e3:.0f} ms)")
+        if manager and (step + 1) % args.ckpt_every == 0:
+            manager.save({"params": params, "opt": opt_state}, step + 1)
+    if manager:
+        manager.save({"params": params, "opt": opt_state}, args.steps)
     print(f"[train] done: first-10 mean "
           f"{sum(losses[:10]) / max(len(losses[:10]), 1):.4f} "
           f"last-10 mean {sum(losses[-10:]) / max(len(losses[-10:]), 1):.4f}")

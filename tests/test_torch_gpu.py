@@ -1403,3 +1403,157 @@ def test_finetune_table_on_card_matches_cpu(dev):
     assert card.mse_before == pytest.approx(cpu.mse_before, rel=1e-5)
     assert card.mse_clean == pytest.approx(cpu.mse_clean, rel=1e-5)
     assert card.mse_after == pytest.approx(cpu.mse_after, rel=2e-2)
+
+
+# the (M, K, N) of the 15 NL-DPE convolutions of one CNNConfig() forward at
+# batch 32: stem, stage 0, stage 1 (and its 1x1 projection), stage 2 (and
+# its projection)
+CNN_G_SHAPES = [(32768, 27, 16), (32768, 144, 16), (8192, 144, 32),
+                (8192, 288, 32), (8192, 16, 32), (2048, 288, 64),
+                (2048, 576, 64), (2048, 32, 64)]
+
+
+@pytest.mark.parametrize("m,k,n", CNN_G_SHAPES)
+def test_nldpe_qmatmul_at_cnn_conv_shapes(dev, m, k, n):
+    """Kernel G at every CNN conv shape (ragged M, N and K everywhere)
+    against its plain version ((2 K + 8) u) and ``nldpe_matmul`` fused
+    ((2 K + 40) u), through ``ON.dmmul``: one launch a call."""
+    from repro_torch.core.engine import ON
+    from repro_torch.core.logdomain import DEFAULT_CFG, nldpe_matmul
+    from repro_torch.kernels.nldpe_qmatmul.ops import encode_int8, nldpe_qmatmul
+    from repro_torch.kernels.nldpe_qmatmul.ref import (dequant_ref,
+                                                       nldpe_qmatmul_ref)
+    spec = DEFAULT_CFG.mag_spec
+    rng = np.random.default_rng(m + k + n)
+    a = _log_grid_operand(rng, (m, k), dev)
+    b = _log_grid_operand(rng, (k, n), dev)
+    before = nldpe_qmatmul.launches
+    out = ON.dmmul(a, b)
+    torch.cuda.synchronize()
+    assert nldpe_qmatmul.launches == before + 1
+    (ac, as_), (bc, bs) = encode_int8(a), encode_int8(b)
+    ref = nldpe_qmatmul_ref(ac, as_, bc, bs, spec.step, spec.log_lo)
+    da = dequant_ref(ac, as_, spec.step, spec.log_lo)
+    db = dequant_ref(bc, bs, spec.step, spec.log_lo)
+    assert torch.isfinite(out).all()
+    assert _within_sum_order(out, ref, da, db)
+    assert _within_sum_order(out, nldpe_matmul(a, b, mode="fused"), da, db,
+                             slack_u=40)
+
+
+def test_dmmul_on_card_launches_g_and_refuses(dev):
+    """``ON.dmmul`` on CUDA tensors: kernel G once per call (leading
+    dimensions flattened against a 2-D ``b``), never ``torch.matmul``;
+    a call that needs a gradient raises ``NotImplementedError`` and
+    another rank ``ValueError``; under ``no_grad`` grad-requiring inputs
+    run."""
+    from repro_torch.core.engine import OFF, ON
+    from repro_torch.kernels.nldpe_qmatmul.ops import (nldpe_matmul_int8,
+                                                       nldpe_qmatmul)
+    rng = np.random.default_rng(11)
+    a = _log_grid_operand(rng, (2, 37, 100), dev)
+    b = _log_grid_operand(rng, (100, 19), dev)
+    before = nldpe_qmatmul.launches
+    out = ON.dmmul(a, b)
+    assert nldpe_qmatmul.launches == before + 1
+    assert out.shape == (2, 37, 19) and out.dtype == torch.float32
+    flat = nldpe_matmul_int8(a.reshape(-1, 100), b).reshape(2, 37, 19)
+    assert torch.equal(out, flat)
+    before = nldpe_qmatmul.launches
+    assert torch.equal(OFF.dmmul(a, b), torch.matmul(a, b))
+    assert nldpe_qmatmul.launches == before
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ON.dmmul(a.clone().requires_grad_(), b)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ON.dmmul(a, b.clone().requires_grad_())
+    with pytest.raises(ValueError, match="kernel G"):
+        ON.dmmul(a, b[None])
+    with pytest.raises(ValueError, match="kernel G"):
+        ON.dmmul(a[0, 0], b)
+    with torch.no_grad():
+        ON.dmmul(a.clone().requires_grad_(), b)
+    assert nldpe_qmatmul.launches == before + 1
+
+
+def test_cnn_forward_on_card_matches_cpu(dev, capsys):
+    """Full-width ``CNNConfig()`` at batch 8 from the same CPU-drawn
+    weights: ``OFF`` logits on the card (cuDNN with TF32 off) within 1e-4
+    of the CPU's; ``ON`` logits within 3e-2, with 15 launches of G: G sums
+    each output in k order, the CPU's matmul in blocks, so an ACAM ReLU
+    input within an ulp of a threshold may take the other output step and
+    the flip spreads through the log-grid codes after it
+    (tests/test_torch_cnn.py; 1.08e-2 measured on an H100)."""
+    from repro_torch.core.drift import flatten
+    from repro_torch.core.engine import OFF, ON
+    from repro_torch.data.images import ImageDataConfig, make_batch_fn
+    from repro_torch.kernels.nldpe_qmatmul.ops import nldpe_qmatmul
+    from repro_torch.models import cnn
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cnn.CNNConfig()
+    pc = cnn.init_params(cfg, device="cpu")
+    pg = cnn.init_params(cfg, device=dev)
+    for (_, x), (_, y) in zip(flatten(pc), flatten(pg)):
+        assert torch.equal(x, y.cpu())
+    batch = make_batch_fn(ImageDataConfig(batch=8), device="cpu")(0)
+    x = batch["images"]
+    with torch.no_grad():
+        for nldpe, tol in ((OFF, 1e-4), (ON, 3e-2)):
+            before = nldpe_qmatmul.launches
+            got = cnn.forward(pg, x.to(dev), cfg, nldpe=nldpe)
+            torch.cuda.synchronize()
+            assert nldpe_qmatmul.launches - before == (15 if nldpe.enabled
+                                                       else 0)
+            want = cnn.forward(pc, x, cfg, nldpe=nldpe)
+            err = (got.cpu() - want).abs().max().item()
+            with capsys.disabled():
+                print(f"\n[cnn card vs cpu] {'ON' if nldpe.enabled else 'OFF'}"
+                      f" logits max |diff| {err:.3g} (tolerance {tol})")
+            assert err <= tol
+    with pytest.raises(ValueError, match="CPU generator"):
+        cnn.init_params(cfg, generator=torch.Generator(device=dev),
+                        device=dev)
+
+
+def test_checkpoint_restore_onto_cuda_templates(dev, tmp_path):
+    """Leaves saved from the card (float32, bfloat16, int32 step) restore
+    onto CUDA templates on the card, each with its template's dtype, bit
+    for bit; a ``mul_`` after ``save`` does not reach the file."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn((64, 33), generator=g, device=dev),
+            "h": torch.randn(17, generator=g, device=dev).to(torch.bfloat16),
+            "step": torch.tensor(9, dtype=torch.int32, device=dev)}
+    want = {k: v.clone() for k, v in tree.items()}
+    m = CheckpointManager(str(tmp_path), async_write=True)
+    m.save(tree, 3, blocking=False)
+    tree["w"].mul_(-1.0)
+    m.wait()
+    template = {k: torch.zeros_like(v) for k, v in want.items()}
+    out, step = m.restore_latest(template)
+    assert step == 3
+    for k, v in want.items():
+        assert out[k].device.type == "cuda" and out[k].dtype == v.dtype
+        assert torch.equal(out[k], v), k
+
+
+def test_train_cli_restart_on_card(dev, tmp_path, capsys):
+    """The train CLI on the card killed at step 7 and resumed from its
+    step-5 checkpoint: the resumed losses within rtol 1e-4 of an
+    uninterrupted run's (cuBLAS and the embedding backward's atomics may
+    not repeat bit for bit); the largest relative difference is
+    printed."""
+    from repro_torch.launch.train import run
+    argv = ["--steps", "10", "--batch", "2", "--seq", "16", "--ckpt-every",
+            "5"]
+    ck = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="injected failure at step 7"):
+        run(argv + ["--ckpt-dir", ck, "--fail-at-step", "7"])
+    resumed = run(argv + ["--ckpt-dir", ck])
+    clean = run(argv)
+    assert len(resumed) == 5
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, clean[5:]))
+    with capsys.disabled():
+        print(f"\n[train restart on card] resumed vs clean losses: max "
+              f"relative difference {rel:.3g} "
+              f"({'bitwise' if resumed == clean[5:] else 'not bitwise'})")
+    assert rel <= 1e-4

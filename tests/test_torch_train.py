@@ -321,7 +321,7 @@ def test_cli_loss_falls_like_repro(capsys):
     assert mine[0] == pytest.approx(ref[0], rel=0.02)   # both ~log(vocab)
 
 
-def test_refusals():
+def test_refusals(tmp_path):
     _, ct = _cfgs("qwen2_5_3b")
     with pytest.raises(NotImplementedError, match="FUSED"):
         build_train_step(ct, adamw.AdamWConfig(), nldpe=FUSED)
@@ -330,8 +330,9 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="FUSED"):
         lm.forward(_params("qwen2_5_3b")[1], torch.zeros((1, 4), dtype=
                    torch.int32), ct, mode="train", nldpe=FUSED)
-    with pytest.raises(NotImplementedError, match="ckpt"):
-        run(["--ckpt-dir", "x", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="injected failure at step 0"):
+        run(["--ckpt-dir", str(tmp_path), "--fail-at-step", "0",
+             "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run(["--steps", "1"])
