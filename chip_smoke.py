@@ -20,7 +20,9 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    then serves 4 of the requests in ``FUSED`` numerics and checks that the
    fused crossbar->ACAM kernel (B) carried every MLP gate;
 4. serves a lockstep batch (``launch/serve.py``: whole-prompt prefill,
-   then greedy generation) in ``OFF`` numerics — 8 prompts of 512 tokens,
+   then greedy generation; Qwen2.5-3B cut to its first ``CUT_LAYERS``
+   layers, as in step 5 and ``[train]``) in ``OFF`` numerics — 8
+   prompts of 512 tokens,
    32 new tokens, the prefill through the flash-attention kernel (F); the
    generate fn and the per-token loop must give the same tokens — and in
    ``FUSED`` numerics — 4 prompts of 256, 8 new tokens, the prefill
@@ -104,8 +106,9 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    resumed from its step-5 checkpoint and run uninterrupted — the resumed
    losses within rtol 1e-4 of the uninterrupted ones — and a timed
    blocking save and restore of its state onto the card, bit for bit;
-11. ``[train]``: full-width Qwen2.5-3B training on the float32 masters
-   (bf16 compute, layers recomputed in the backward pass): one AdamW
+11. ``[train]``: full-width Qwen2.5-3B (its first ``CUT_LAYERS``
+   layers) training on the float32 masters (bf16 compute, layers
+   recomputed in the backward pass): one AdamW
    step, then two crossbar-NAF steps — finite losses, the seconds of each
    step's noise pass, forward plus backward and update, and the peak
    memory, under 80 GB;
@@ -170,6 +173,19 @@ SPILL_HOST_PAGES = 256
 PORT_KERNELS = ("paged_attention", "fused_crossbar_acam", "logdomain_flash",
                 "log_quantize", "flash_attention", "acam_activation",
                 "crossbar_vmm", "nldpe_qmatmul")
+GEMMA3_LAYERS = 8               # (5 local, 1 global) + the 2-local tail
+# kernel B's M at Gemma3's gate: a prefill chunk (4 x 64, the row's
+# timing), an engine decode tick (4 slots), a lockstep decode step; the
+# lockstep prefill's M (the prompt's length) joins them in the phase
+GEMMA3_B_MS = (256, 4, 1)
+GEMMA3_ATTN_LEN = 1280          # kernels F, C: a prefill within 1100-1400
+B_PLAIN_ELEMENTS = 1 << 24      # outputs per call of B's plain version
+RGEMMA_LAYERS = 5               # (rec, rec, local) + the (rec, rec) tail
+# Qwen2.5-3B's first this many layers (of 36) in [serve lockstep OFF],
+# [serve lockstep FUSED], [serve slotted OFF] and [train], so the whole
+# script stays within its time limit on a slow host
+CUT_LAYERS = 12
+WINDOWED_TOL = 1e-4             # reduced windowed models, card vs CPU OFF
 # [cnn]: CNNConfig() at this batch (M = 32768 at the stem and stage 0);
 # the card's OFF logits against the CPU's at float32 (TF32 off)
 CNN_BATCH = 32
@@ -1224,7 +1240,7 @@ def profile_window(torch, engine, reqs, label: str) -> dict:
 
 def lockstep(torch, cfg, params, nldpe, *, batch: int, prompt_len: int,
              gen_len: int, counters_on_path: list, label: str,
-             compare_loop: bool) -> dict:
+             compare_loop: bool, profile: bool = True) -> dict:
     """The lockstep path of ``launch/serve.py`` on the full-width model:
     whole-prompt prefill of ``batch`` random prompts, then greedy
     generation of ``gen_len`` tokens with the generate fn (and, with
@@ -1263,7 +1279,7 @@ def lockstep(torch, cfg, params, nldpe, *, batch: int, prompt_len: int,
     after_prefill = {fn.__name__: fn.launches for fn in counters()}
     check(bool(torch.isfinite(last).all()), f"{label}: non-finite logits")
     tok = torch.argmax(last, dim=-1).to(torch.int32)
-    spare = {k: v.clone() for k, v in cache.items()} if compare_loop else None
+    spare = lm.clone_cache(cache) if compare_loop else None
     t0 = time.perf_counter()
     gen, cache = generate(sp, cache, tok, prompt_len)
     gen = gen.cpu()
@@ -1305,6 +1321,8 @@ def lockstep(torch, cfg, params, nldpe, *, batch: int, prompt_len: int,
               f"loop tokens differ")
         out["loop_tokens_equal"] = True
     print(f"[{label}] " + json.dumps(out))
+    if not profile:
+        return out
 
     def again():
         c = lm.init_model_cache(cfg, batch, max_len, device="cuda")
@@ -1471,65 +1489,95 @@ def paged_case(torch, timer, inputs: dict, q, kp, vp, qkw: dict, pool: str,
     return case
 
 
-def fused_acam_phase(torch, timer, params, launches: dict) -> dict:
-    """Kernel B at every M the serve paths give the MLP gate: 8 (a paged
-    decode tick over 8 slots), 4 (a lockstep FUSED decode step), 512 (a
-    paged prefill chunk of 8 x 64) and 1024 (the lockstep FUSED prefill,
-    4 x 256), and at M = 1 and 16, the edges of the small tile; K=2048,
-    N=11008, the layer-0 gate weight, the 8-bit silu table and its cached
-    compiled map, as ``fused_linear_acam`` passes them."""
+def fused_acam_cases(torch, timer, w, ms, act: str, gen) -> list:
+    """Kernel B on random (m, K) inputs, for each m of ``ms``, against the
+    weight ``w`` (K, N) programmed once, with the 8-bit ``act`` table and
+    its cached compiled map, as ``fused_linear_acam`` passes them: held
+    against the plain version (one ACAM code on at most
+    ``B_MAX_FLIP_FRACTION`` of the outputs) and timed beside the plain
+    version, ``torch.matmul`` and the bound.  The plain version runs
+    ``B_PLAIN_ELEMENTS // N`` rows a call (each output's interval match
+    broadcasts over the table's thresholds: ~1.6 kB of temporaries an
+    output), the same rows whole."""
     from repro_torch.core.acam import get_table, table_map, table_thresholds
     from repro_torch.kernels.dual_compute.ops import (fused_crossbar_acam,
                                                       program, tile_variant)
     from repro_torch.kernels.dual_compute.ref import (
         effective_weight, fused_crossbar_acam_ref)
-    w = params["groups"]["b0"]["ffn"]["gate"][0]
     k, n = w.shape
-    table = get_table("silu", 8)
+    table = get_table(act, 8)
     lo, hi = table_thresholds(table, "cuda")
     step = float(table.out_spec.step)
     kw = dict(out_lo=float(table.out_spec.lo), out_step=step)
     acam_map = table_map(table, "cuda")
     cells, inv = program(w)
     w_eff = effective_weight(*cells, inv)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = max(1, B_PLAIN_ELEMENTS // n)
+
+    def plain(x):
+        return torch.cat([fused_crossbar_acam_ref(
+            x[i:i + rows], *cells, inv, lo, hi, **kw)
+            for i in range(0, x.shape[0], rows)])
+
     cases = []
-    for m in (8, 4, 512, 1024, 1, 16):
+    for m in ms:
+        t0 = time.perf_counter()
         x = torch.randn((m, k), generator=gen, device="cuda")
         args = (x, *cells, inv, lo, hi)
         out = fused_crossbar_acam(*args, **kw, acam_map=acam_map)
-        ref = fused_crossbar_acam_ref(*args, **kw)
+        ref = plain(x)
         torch.cuda.synchronize()
         diff = (out - ref).abs()
         err = diff.max().item()
         flips = (diff > 0).float().mean().item()
-        check(err <= step * 1.0001, f"fused_crossbar_acam M={m}: max |kernel "
-              f"- plain| {err} > one ACAM code ({step})")
-        check(flips <= B_MAX_FLIP_FRACTION, f"fused_crossbar_acam M={m}: "
-              f"{flips:.2e} of outputs differ (> {B_MAX_FLIP_FRACTION})")
-        ms, call_ms = timer.ms(lambda: fused_crossbar_acam(
+        check(err <= step * 1.0001, f"fused_crossbar_acam {act} M={m} "
+              f"K={k} N={n}: max |kernel - plain| {err} > one ACAM code "
+              f"({step})")
+        check(flips <= B_MAX_FLIP_FRACTION, f"fused_crossbar_acam {act} "
+              f"M={m} K={k} N={n}: {flips:.2e} of outputs differ "
+              f"(> {B_MAX_FLIP_FRACTION})")
+        del out, ref, diff
+        ms_, call_ms = timer.ms(lambda: fused_crossbar_acam(
             *args, **kw, acam_map=acam_map), iters=10)
-        plain_ms, _ = timer.ms(lambda: fused_crossbar_acam_ref(*args, **kw),
-                               iters=3)
+        plain_ms, _ = timer.ms(lambda: plain(x), iters=3)
         lib_ms, _ = timer.ms(lambda: torch.matmul(x, w_eff), iters=10)
         nbytes = 4 * (m * k + 4 * k * n + m * n + 2 * lo.numel() + 1)
         flops = 2 * m * k * n + 5 * k * n
         bms, by = bound(nbytes, flops)
-        case = {"m": m, "k": k, "n": n, "tile": tile_variant(m, n),
-                "max_abs_err": err,
-                "flipped_fraction": flips, "ms": ms, "call_ms": call_ms,
-                "plain_ms": plain_ms,
+        case = {"m": m, "k": k, "n": n, "act": act,
+                "tile": tile_variant(m, n), "max_abs_err": err,
+                "one_code": step, "flipped_fraction": flips, "ms": ms_,
+                "call_ms": call_ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-                **achieved(nbytes, flops, ms)}
+                **achieved(nbytes, flops, ms_),
+                "wall_s": time.perf_counter() - t0}
         print("[kernel B] " + json.dumps(case))
         cases.append(case)
+    return cases
+
+
+def fused_acam_phase(torch, timer, params, launches: dict,
+                     extra_cases=()) -> dict:
+    """Kernel B at every M the Qwen2.5-3B serve paths give the MLP gate: 8
+    (a paged decode tick over 8 slots), 4 (a lockstep FUSED decode step),
+    512 (a paged prefill chunk of 8 x 64) and 1024 (the lockstep FUSED
+    prefill, 4 x 256), and at M = 1 and 16, the edges of the small tile;
+    K=2048, N=11008, the layer-0 gate weight, the 8-bit silu table.
+    ``extra_cases`` (the Gemma3 and RecurrentGemma phases' gelu cases)
+    join the row's cases."""
+    w = params["groups"]["b0"]["ffn"]["gate"][0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = fused_acam_cases(torch, timer, w, (8, 4, 512, 1024, 1, 16),
+                             "silu", gen)
     top = cases[0]                          # paged decode: most launches
+    cases += list(extra_cases)
     return {"name": "fused_crossbar_acam", "route": "cuda",
             "source": "src/repro_torch/csrc/dual_compute.cu",
             "replaces": "src/repro/kernels/dual_compute/kernel.py:80",
             **launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "tolerance": f"one ACAM code ({step:.6g}) on at most "
+            "tolerance": f"one ACAM code of the case's table (silu "
+                         f"{top['one_code']:.6g}) on at most "
                          f"{B_MAX_FLIP_FRACTION:g} of outputs",
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -1551,54 +1599,88 @@ def attention_inputs(torch, shape, dtype, seed):
             for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d))]
 
 
-def flash_phase(torch, timer, launches: dict) -> dict:
-    """Kernel F at the lockstep OFF prefill's shapes, (8, 16, 512, 128)
-    queries over (8, 2, 512, 128) keys and values, and at (1, 16/2, 2048,
-    128); f32 and bf16 inputs, each read in its own dtype."""
+def dense_causal_attention(torch, q, k, v):
+    """Causal GQA attention as one masked softmax in float32, queries at
+    the end of the KV axis: kernel F's reference at a length where
+    ``flash_attention_ref``'s blocks, halved until they divide it, shrink
+    to a few rows (2 at 1110)."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, lq, d) * d ** -0.5
+    s = torch.einsum("bkgqd,bkld->bkgql", qg, k.float())
+    q_pos = torch.arange(lq, device=q.device) + (lk - lq)
+    k_pos = torch.arange(lk, device=q.device)
+    s = s.masked_fill(k_pos[None, :] > q_pos[:, None], -torch.inf)
+    return torch.einsum("bkgql,bkld->bkgqd", torch.softmax(s, -1),
+                        v.float()).reshape(b, hq, lq, d)
+
+
+def flash_case(torch, timer, shape, dtype, seed, dense=False) -> dict:
+    """Kernel F on random (b, hq, lq, d) queries over (b, hkv, lk, d) keys
+    and values in ``dtype``, held against the plain version (with
+    ``dense``, against ``dense_causal_attention``) and timed beside it,
+    SDPA and the bound."""
     from repro_torch.kernels.flash_attention.ops import flash_attention, plan
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    cases = []
-    for shape in ((8, 16, 2, 512, 512, 128), (1, 16, 2, 2048, 2048, 128)):
-        b, hq, hkv, lq, lk, d = shape
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = attention_inputs(torch, shape, dtype, SEED + 3)
-            out = flash_attention(q, k, v)
-            ref = flash_attention_ref(q, k, v)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()) and out.dtype == dtype,
-                  "flash_attention: non-finite or not in q's dtype")
-            err = (out.float() - ref).abs()
-            # bf16 outputs round the same f32 result: one bf16 step allowed
-            slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
-            check(bool((err <= F_TOL + slack * ref.abs()).all()),
-                  f"flash_attention {shape} {dtype}: max |kernel - plain| "
-                  f"{err.max().item()} over {F_TOL} (+ bf16 rounding)")
+    t0 = time.perf_counter()
+    b, hq, hkv, lq, lk, d = shape
+    q, k, v = attention_inputs(torch, shape, dtype, seed)
 
-            def lib():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
+    def plain():
+        if dense:
+            return dense_causal_attention(torch, q, k, v)
+        return flash_attention_ref(q, k, v)
 
-            lib_err = (lib().float() - ref).abs().max().item()
-            ms, call_ms = timer.ms(lambda: flash_attention(q, k, v), iters=10)
-            plain_ms, _ = timer.ms(lambda: flash_attention_ref(q, k, v),
-                                   iters=3)
-            lib_ms, _ = timer.ms(lib, iters=10)
-            esz = q.element_size()
-            nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
-            flops = 4 * d * b * hq * causal_pairs(lq, lk)
-            pl = plan(dtype, d)
-            case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                    "instance": pl.instance, "keys_per_tile": pl.keys,
-                    "smem": pl.smem, "max_abs_err": err.max().item(),
-                    "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "library_max_abs_err": lib_err,
-                    **attn_bound(nbytes, flops,
-                                 2 if dtype == torch.bfloat16 else 3),
-                    **achieved(nbytes, flops, ms)}
-            print("[kernel F] " + json.dumps(case))
-            cases.append(case)
-            del q, k, v, out, ref
+    out = flash_attention(q, k, v)
+    ref = plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()) and out.dtype == dtype,
+          "flash_attention: non-finite or not in q's dtype")
+    err = (out.float() - ref).abs()
+    # bf16 outputs round the same f32 result: one bf16 step allowed
+    slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    check(bool((err <= F_TOL + slack * ref.abs()).all()),
+          f"flash_attention {shape} {dtype}: max |kernel - plain| "
+          f"{err.max().item()} over {F_TOL} (+ bf16 rounding)")
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+
+    lib_err = (lib().float() - ref).abs().max().item()
+    ms, call_ms = timer.ms(lambda: flash_attention(q, k, v), iters=10)
+    plain_ms, _ = timer.ms(plain, iters=3)
+    lib_ms, _ = timer.ms(lib, iters=10)
+    esz = q.element_size()
+    nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
+    flops = 4 * d * b * hq * causal_pairs(lq, lk)
+    pl = plan(dtype, d)
+    case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            "plain": ("dense_causal_attention" if dense
+                      else "flash_attention_ref"),
+            "ragged_keys": lk % pl.keys,
+            "instance": pl.instance, "keys_per_tile": pl.keys,
+            "smem": pl.smem, "max_abs_err": err.max().item(),
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_max_abs_err": lib_err,
+            **attn_bound(nbytes, flops,
+                         2 if dtype == torch.bfloat16 else 3),
+            **achieved(nbytes, flops, ms), "wall_s": time.perf_counter() - t0}
+    print("[kernel F] " + json.dumps(case))
+    return case
+
+
+def flash_phase(torch, timer, launches: dict, extra_cases=()) -> dict:
+    """Kernel F at the lockstep OFF prefill's shapes, (8, 16, 512, 128)
+    queries over (8, 2, 512, 128) keys and values, and at (1, 16/2, 2048,
+    128); f32 and bf16 inputs, each read in its own dtype.
+    ``extra_cases`` (the Gemma3 phase's) join the row's cases."""
+    cases = [flash_case(torch, timer, shape, dtype, SEED + 3)
+             for shape in ((8, 16, 2, 512, 512, 128),
+                           (1, 16, 2, 2048, 2048, 128))
+             for dtype in (torch.float32, torch.bfloat16)]
     top = cases[0]
+    cases += list(extra_cases)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
@@ -1614,63 +1696,74 @@ def flash_phase(torch, timer, launches: dict) -> dict:
             "timing": timer.source, "cases": cases}
 
 
-def logdomain_phase(torch, timer, launches: dict) -> dict:
-    """Kernel C at the lockstep FUSED prefill's shape (4, 16, 256, 128),
-    with f32 inputs and with the bf16 activations that path gives it, at
-    the OFF phase's (8, 16, 512, 128) and at (1, 16/2, 2048, 128) (the
-    two-pass instance), against the materialized NL-DPE attention on the
-    same inputs; and its quantize launch, bit for bit ``log_quantize``."""
+def logdomain_case(torch, timer, shape, dtype, seed) -> dict:
+    """Kernel C on random inputs of ``shape`` in ``dtype`` against the
+    materialized NL-DPE attention on the same inputs, and its quantize
+    launch, bit for bit ``log_quantize``; timed beside the plain version
+    and the bound."""
     from repro_torch.core.logdomain import inv_sqrt, log_quantize
     from repro_torch.kernels.dual_compute.ops import (
         log_quantize_qkv, logdomain_flash_attention, logdomain_kernel,
         logdomain_plan)
     from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
-    cases = []
-    for shape, dtype in (((4, 16, 2, 256, 256, 128), torch.float32),
-                         ((4, 16, 2, 256, 256, 128), torch.bfloat16),
-                         ((8, 16, 2, 512, 512, 128), torch.float32),
-                         ((1, 16, 2, 2048, 2048, 128), torch.float32)):
-        b, hq, hkv, lq, lk, d = shape
-        q, k, v = attention_inputs(torch, shape, dtype, SEED + 4)
-        quantized = log_quantize_qkv(q, k, v)
-        f32 = torch.float32
-        plain_q = (log_quantize(q.to(f32) * inv_sqrt(d)),
-                   log_quantize(k.to(f32)), log_quantize(v.to(f32)))
-        check(all(torch.equal(x, y) for x, y in zip(quantized, plain_q)),
-              f"log_quantize_qkv {shape} {dtype}: not log_quantize's bits")
-        out = logdomain_flash_attention(q, k, v)
-        ref = logdomain_flash_ref(q, k, v)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()) and out.dtype == dtype,
-              "logdomain_flash: non-finite or not in q's dtype")
-        err = (out.float() - ref).abs()
-        # bf16 outputs round the same f32 result: one bf16 step allowed
-        slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
-        check(bool((err <= C_TOL + slack * ref.abs()).all()),
-              f"logdomain_flash {shape} {dtype}: max |kernel - plain| "
-              f"{err.max().item()} over {C_TOL} (+ bf16 rounding)")
-        err = err.max().item()
-        ms, call_ms = timer.ms(lambda: logdomain_flash_attention(q, k, v),
-                               iters=10)
-        quant_ms, _ = timer.ms(lambda: log_quantize_qkv(q, k, v), iters=10)
-        kern_ms, _ = timer.ms(lambda: logdomain_kernel(*quantized, dtype),
-                              iters=10)
-        plain_ms, _ = timer.ms(lambda: logdomain_flash_ref(q, k, v), iters=3)
-        esz = q.element_size()
-        nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
-        flops = 4 * d * b * hq * causal_pairs(lq, lk)
-        pl = logdomain_plan(lk, d)
-        case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                "instance": pl.instance, "rows": pl.rows, "smem": pl.smem,
-                "max_abs_err": err, "quantize_bitwise": True, "ms": ms,
-                "call_ms": call_ms, "quantize_ms": quant_ms,
-                "attention_kernel_ms": kern_ms, "plain_ms": plain_ms,
-                "library_ms": None, **attn_bound(nbytes, flops, 3, 0.5),
-                **achieved(nbytes, flops, ms)}
-        print("[kernel C] " + json.dumps(case))
-        cases.append(case)
-        del q, k, v, out, ref, quantized, plain_q
+    t0 = time.perf_counter()
+    b, hq, hkv, lq, lk, d = shape
+    q, k, v = attention_inputs(torch, shape, dtype, seed)
+    quantized = log_quantize_qkv(q, k, v)
+    f32 = torch.float32
+    plain_q = (log_quantize(q.to(f32) * inv_sqrt(d)),
+               log_quantize(k.to(f32)), log_quantize(v.to(f32)))
+    check(all(torch.equal(x, y) for x, y in zip(quantized, plain_q)),
+          f"log_quantize_qkv {shape} {dtype}: not log_quantize's bits")
+    del plain_q
+    out = logdomain_flash_attention(q, k, v)
+    ref = logdomain_flash_ref(q, k, v)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()) and out.dtype == dtype,
+          "logdomain_flash: non-finite or not in q's dtype")
+    err = (out.float() - ref).abs()
+    # bf16 outputs round the same f32 result: one bf16 step allowed
+    slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    check(bool((err <= C_TOL + slack * ref.abs()).all()),
+          f"logdomain_flash {shape} {dtype}: max |kernel - plain| "
+          f"{err.max().item()} over {C_TOL} (+ bf16 rounding)")
+    err = err.max().item()
+    del out, ref
+    ms, call_ms = timer.ms(lambda: logdomain_flash_attention(q, k, v),
+                           iters=10)
+    quant_ms, _ = timer.ms(lambda: log_quantize_qkv(q, k, v), iters=10)
+    kern_ms, _ = timer.ms(lambda: logdomain_kernel(*quantized, dtype),
+                          iters=10)
+    plain_ms, _ = timer.ms(lambda: logdomain_flash_ref(q, k, v), iters=3)
+    esz = q.element_size()
+    nbytes = esz * 2 * (q.numel() + k.numel())      # q, k, v, out
+    flops = 4 * d * b * hq * causal_pairs(lq, lk)
+    pl = logdomain_plan(lk, d)
+    case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            "instance": pl.instance, "rows": pl.rows, "smem": pl.smem,
+            "max_abs_err": err, "quantize_bitwise": True, "ms": ms,
+            "call_ms": call_ms, "quantize_ms": quant_ms,
+            "attention_kernel_ms": kern_ms, "plain_ms": plain_ms,
+            "library_ms": None, **attn_bound(nbytes, flops, 3, 0.5),
+            **achieved(nbytes, flops, ms), "wall_s": time.perf_counter() - t0}
+    print("[kernel C] " + json.dumps(case))
+    return case
+
+
+def logdomain_phase(torch, timer, launches: dict, extra_cases=()) -> dict:
+    """Kernel C at the lockstep FUSED prefill's shape (4, 16, 256, 128),
+    with f32 inputs and with the bf16 activations that path gives it, at
+    the OFF phase's (8, 16, 512, 128) and at (1, 16/2, 2048, 128) (the
+    two-pass instance).  ``extra_cases`` (the Gemma3 phase's) join the
+    row's cases."""
+    cases = [logdomain_case(torch, timer, shape, dtype, SEED + 4)
+             for shape, dtype in (
+                 ((4, 16, 2, 256, 256, 128), torch.float32),
+                 ((4, 16, 2, 256, 256, 128), torch.bfloat16),
+                 ((8, 16, 2, 512, 512, 128), torch.float32),
+                 ((1, 16, 2, 2048, 2048, 128), torch.float32))]
     top = cases[0]
+    cases += list(extra_cases)
     return {"name": "logdomain_flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/logdomain_flash.cu",
             "replaces": "src/repro/kernels/dual_compute/kernel.py:176",
@@ -2277,8 +2370,9 @@ def naf_pipeline_phase(torch) -> dict:
 
 
 def train_phase(torch, cfg, params) -> dict:
-    """``[train]``: full-width Qwen2.5-3B training steps on the float32
-    masters ``params`` (updated in place), bf16 compute, each layer
+    """``[train]``: full-width Qwen2.5-3B (cut to ``CUT_LAYERS`` layers)
+    training steps on the float32 masters ``params`` (updated in place),
+    bf16 compute, each layer
     recomputed in the backward pass: one AdamW step, then two crossbar-NAF
     steps (``naf=True``, lambda 1e-5) on a batch of 8 x 64 seeded uniform
     tokens.  Prints each step's loss, the seconds of the noise pass, of
@@ -2320,6 +2414,308 @@ def train_phase(torch, cfg, params) -> dict:
     print("[train] " + json.dumps(info))
     del opt
     return info
+
+
+def cut_depth(cfg, params, n_layers: int):
+    """``cfg`` (a one-block pattern, Qwen2.5-3B's) cut to its first
+    ``n_layers`` layers, and ``params`` with every stacked block leaf
+    viewed to its first ``n_layers`` rows: no copy, so an in-place update
+    writes the float32 masters."""
+    check(len(cfg.layer_pattern) == 1 and not params.get("tail"),
+          f"cut_depth: {cfg.name} is not a one-block pattern")
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n_layers]
+
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            {**params, "groups": {"b0": cut(params["groups"]["b0"])}})
+
+
+def cut_config(name: str, n_layers: int):
+    """The full-width config ``name`` cut to ``n_layers`` layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), n_layers=n_layers)
+
+
+def gemma3_trace(cfg, n: int, max_new: int):
+    """``n`` requests of 1100-1400 random tokens (past the 1024 window),
+    two ticks apart."""
+    from repro_torch.launch.engine import Request
+    rng = np.random.default_rng(SEED + 23)
+    return [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(1100, 1401)))),
+        max_new_tokens=max_new, arrival=2 * i) for i in range(n)]
+
+
+def greedy_alone(torch, cfg, sp, prompt, gen_len: int, nldpe) -> tuple:
+    """One request alone through the lockstep path (whole-prompt prefill,
+    then the per-token loop): its greedy tokens and the top-2 logit margin
+    at each."""
+    from repro_torch.launch.serve import build_prefill_step
+    from repro_torch.models import lm
+    cache = lm.init_model_cache(cfg, 1, len(prompt) + gen_len,
+                                device="cuda")
+    logits, cache = build_prefill_step(cfg, nldpe=nldpe)(
+        sp, cache, torch.tensor([prompt], dtype=torch.int32, device="cuda"))
+    toks, margins = [], []
+    for i in range(gen_len):
+        top = torch.topk(logits[0], 2)
+        toks.append(int(top.indices[0]))
+        margins.append(float(top.values[0] - top.values[1]))
+        if i < gen_len - 1:
+            logits = lm.decode_step(
+                sp, cfg, torch.tensor([toks[-1]], dtype=torch.int32,
+                                      device="cuda"),
+                len(prompt) + i, cache, nldpe=nldpe)
+    return toks, margins
+
+
+def window_route_deviation(torch, cfg, sp, prompt, chunk: int) -> float:
+    """D: the largest |logit| difference between the two routes a request
+    takes — the lockstep prefill (kernel F on the global layer, the band
+    on the local ones, rings of ``window`` lines) and the engine's chunked
+    prefill (``chunk`` positions a call over rings of ``window + chunk -
+    1`` lines) — at the prompt's last token and one decode step after it,
+    on the same weights."""
+    from repro_torch.launch.serve import build_prefill_step
+    from repro_torch.models import lm
+    n = len(prompt)
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    lock = lm.init_model_cache(cfg, 1, n + 1, device="cuda")
+    a0, lock = build_prefill_step(cfg)(sp, lock, toks)
+    nxt = torch.argmax(a0, -1).to(torch.int32)
+    a1 = lm.decode_step(sp, cfg, nxt, n, lock)
+    slot = lm.init_model_cache(cfg, 1, n + 1, slotted=True,
+                               ring_slack=chunk - 1, device="cuda")
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        pos = torch.arange(c0, c1, dtype=torch.int32, device="cuda")[None]
+        b0 = lm.forward(sp, toks[:, c0:c1], cfg, mode="chunk", cache=slot,
+                        positions=pos)[:, -1]
+    b1 = lm.decode_step(sp, cfg, nxt, torch.tensor([n], dtype=torch.int32,
+                                                   device="cuda"), slot)
+    return max((a0 - b0).abs().max().item(), (a1 - b1).abs().max().item())
+
+
+def within_near_ties(got: dict, want: dict, margins: dict, d: float,
+                     label: str) -> int:
+    """Tokens of each request equal ``want``'s up to a near-tie: where
+    they first differ, the reference route's top-2 margin must be below
+    2D.  Returns the count of such ties."""
+    ties = 0
+    for rid, toks in want.items():
+        mine = got[rid]
+        if mine == toks:
+            continue
+        i = next(i for i, (a, b) in enumerate(zip(mine, toks)) if a != b)
+        check(margins[rid][i] < 2 * d, f"{label}: rid {rid} diverges at "
+              f"token {i} with a top-2 margin of {margins[rid][i]} (not "
+              f"below 2D = {2 * d})")
+        ties += 1
+    return ties
+
+
+def gemma3_phase(torch, timer) -> dict:
+    """``[gemma3]``: full-width Gemma3-27B cut to ``GEMMA3_LAYERS`` layers
+    (one group of 5 local + 1 global and the 2-local tail, the shape of
+    the 62-layer stack's 10 x 6 + 2), seeded float32 weights, bf16
+    activations.  Serves 4 requests of 1100-1400 tokens (past the 1024
+    window: every ring wraps in prefill) and 32 new tokens through the
+    slotted ``ServeEngine`` (OFF; rings of 1024 + 63 lines) and each alone
+    through the lockstep path (kernel F on the global layer, the band on
+    the local ones): tokens equal up to near-ties under the 2D guard.
+    Then 2 of the requests with 16 new tokens in FUSED through the engine
+    (kernel B with the gelu table on every gate) and alone through the
+    lockstep path (kernel C on the global layer's prefill, B).  Kernels F
+    and C are held against their plain versions at a lockstep prefill of
+    1280 positions and at the first prompt's length, B (gelu) at every M
+    the paths give the gate, N = 21504."""
+    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.kernels.dual_compute.ops import (
+        fused_crossbar_acam, log_quantize_qkv, logdomain_flash_attention)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = cut_config("gemma3_27b", GEMMA3_LAYERS)
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[gemma3] {cfg.name} cut to {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (float32) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    eng_kw = dict(max_slots=4, max_len=2048, prefill_chunk=64,
+                  decode_block=4)
+    reqs = gemma3_trace(cfg, 4, 32)
+    out = {"layers": cfg.n_layers, "params_b": cfg.param_count() / 1e9}
+
+    engine = ServeEngine(cfg, params, nldpe=OFF, **eng_kw)
+    ring = engine.cache["ring"]["k"].shape[-2]
+    res = serve(torch, engine, reqs, None, "gemma3 serve OFF")
+    out["profile_serve_off"] = profile_window(
+        torch, engine, gemma3_trace(cfg, 2, 8), "gemma3 serve OFF")
+    sp = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    zero_counts()
+    alone, margins = {}, {}
+    t1 = time.perf_counter()
+    for r in reqs:
+        alone[r.rid], margins[r.rid] = greedy_alone(
+            torch, cfg, sp, r.tokens, r.max_new_tokens, OFF)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t1
+    f_launches = flash_attention.launches
+    check(f_launches == len(reqs), f"[gemma3] kernel F launched "
+          f"{f_launches} times over {len(reqs)} lockstep prefills, "
+          f"expected one each (the global layer)")
+    d = window_route_deviation(torch, cfg, sp, reqs[0].tokens, 64)
+    ties = within_near_ties(res["tokens"], alone, margins, d,
+                            "[gemma3] engine vs run-alone")
+    del sp
+    torch.cuda.empty_cache()
+    out["serve_off"] = {k: v for k, v in res.items() if k != "tokens"}
+    out.update({"route_deviation_d": d, "near_ties": ties,
+                "alone_s": alone_s, "flash_attention_launches": f_launches,
+                "ring_lines_engine": ring,
+                "positions_past_ring_engine": [
+                    max(0, len(r.tokens) + r.max_new_tokens - 1 - ring)
+                    for r in reqs],
+                "positions_past_ring_lockstep": [
+                    max(0, len(r.tokens) + r.max_new_tokens - 1
+                        - cfg.window) for r in reqs]})
+
+    fused_reqs = gemma3_trace(cfg, 2, 16)
+    engine = ServeEngine(cfg, params, nldpe=FUSED, **eng_kw)
+    res = serve(torch, engine, fused_reqs, fused_crossbar_acam,
+                "gemma3 serve FUSED")
+    sp = engine.params
+    del engine
+    out["serve_fused"] = {k: v for k, v in res.items() if k != "tokens"}
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    for r in fused_reqs:
+        toks, _ = greedy_alone(torch, cfg, sp, r.tokens, r.max_new_tokens,
+                               FUSED)
+        check(len(toks) == r.max_new_tokens and all(
+            0 <= t < cfg.vocab_size for t in toks),
+            f"[gemma3] lockstep FUSED rid {r.rid}: bad tokens")
+    torch.cuda.synchronize()
+    lock_fused = {"wall_s": time.perf_counter() - t1,
+                  "max_memory_allocated_gb":
+                      torch.cuda.max_memory_allocated() / 1e9,
+                  "launches": {fn.__name__: fn.launches
+                               for fn in counters()}}
+    n = len(fused_reqs)
+    check(logdomain_flash_attention.launches == n
+          and log_quantize_qkv.launches == n, f"[gemma3] lockstep FUSED: "
+          f"kernel C launched {logdomain_flash_attention.launches} times "
+          f"(quantize {log_quantize_qkv.launches}), expected {n}")
+    steps = sum(r.max_new_tokens for r in fused_reqs)
+    check(fused_crossbar_acam.launches == cfg.n_layers * steps,
+          f"[gemma3] lockstep FUSED: kernel B launched "
+          f"{fused_crossbar_acam.launches} times, expected one per layer "
+          f"per prefill and decode step ({cfg.n_layers * steps})")
+    out["lockstep_fused"] = lock_fused
+    del sp
+    torch.cuda.empty_cache()
+
+    # the global layer's lockstep prefill at 1280 positions, inside the
+    # trace's 1100-1400, for the row's timing; then at the first prompt's
+    # own length (the lockstep OFF and FUSED prefills of rid 0), whose
+    # last key tile is ragged: F against a dense masked softmax there, as
+    # its plain version follows repro's blocking, which halves its blocks
+    # until they divide the length (2 rows at 1110).  B at every M the
+    # paths give the gate: GEMMA3_B_MS and the lockstep prefill's.
+    plen = len(reqs[0].tokens)
+    shape = (1, cfg.n_heads, cfg.n_kv_heads, GEMMA3_ATTN_LEN,
+             GEMMA3_ATTN_LEN, cfg.resolved_head_dim)
+    trace_shape = shape[:3] + (plen, plen) + shape[5:]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    w = params["groups"]["b0"]["ffn"]["gate"][0]
+    cases = {"flash_attention": [
+                 flash_case(torch, timer, shape, torch.bfloat16, SEED + 6),
+                 flash_case(torch, timer, trace_shape, torch.bfloat16,
+                            SEED + 6, dense=True)],
+             "logdomain_flash_attention": [
+                 logdomain_case(torch, timer, s_, torch.bfloat16, SEED + 7)
+                 for s_ in (shape, trace_shape)],
+             "fused_crossbar_acam": fused_acam_cases(
+                 torch, timer, w, GEMMA3_B_MS + (plen,), "gelu", gen)}
+    for c in sum(cases.values(), []):
+        c["phase"] = "gemma3"
+    del params, w
+    torch.cuda.empty_cache()
+    out["launches"] = {
+        "flash_attention": {"lockstep_off": f_launches},
+        "logdomain_flash_attention": {
+            "lockstep_fused": lock_fused["launches"][
+                "logdomain_flash_attention"]},
+        "fused_crossbar_acam": {
+            "serve_fused": out["serve_fused"]["launches"][
+                "fused_crossbar_acam"],
+            "serve_fused_per_prefill_chunk": out["serve_fused"][
+                "launches_per_prefill_chunk"],
+            "serve_fused_per_decode_tick": out["serve_fused"][
+                "launches_per_decode_tick"],
+            "lockstep_fused": lock_fused["launches"][
+                "fused_crossbar_acam"]}}
+    print("[gemma3 summary] " + json.dumps(out))
+    out["kernel_cases"] = cases
+    return out
+
+
+def recurrentgemma_phase(torch, timer) -> dict:
+    """``[recurrentgemma]``: full-width RecurrentGemma-9B cut to
+    ``RGEMMA_LAYERS`` layers (rec, rec, local, then the rec, rec tail: the
+    shape of the 38-layer stack's 12 x 3 + 2), seeded float32 weights,
+    bf16 activations.  The lockstep path over 2 x 2304-token prompts (past
+    the 2048 window: the local layer takes the band) and 32 new tokens in
+    OFF (the generate fn and the per-token loop must give the same tokens)
+    and in FUSED (kernel B with the gelu table on every gate, once per
+    layer per prefill and decode step).  Kernel B (gelu) is held against
+    its plain version at the M the lockstep path gives the gate: 2 x 2304
+    at prefill and 2 at decode, K = 4096, N = 12288."""
+    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = cut_config("recurrentgemma_9b", RGEMMA_LAYERS)
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[recurrentgemma] {cfg.name} cut to {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (float32) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {"layers": cfg.n_layers, "params_b": cfg.param_count() / 1e9}
+    batch, plen = 2, 2304
+    out["off"] = lockstep(torch, cfg, params, OFF, batch=batch,
+                          prompt_len=plen, gen_len=32, counters_on_path=[],
+                          label="recurrentgemma lockstep OFF",
+                          compare_loop=True)
+    out["fused"] = lockstep(torch, cfg, params, FUSED, batch=batch,
+                            prompt_len=plen, gen_len=32,
+                            counters_on_path=[fused_crossbar_acam],
+                            label="recurrentgemma lockstep FUSED",
+                            compare_loop=False, profile=False)
+    w = params["groups"]["b0"]["ffn"]["gate"][0]
+    cases = fused_acam_cases(
+        torch, timer, w, (batch, batch * plen), "gelu",
+        torch.Generator(device="cuda").manual_seed(SEED + 8))
+    for c in cases:
+        c["phase"] = "recurrentgemma"
+    del params, w
+    torch.cuda.empty_cache()
+    out["launches"] = {"fused_crossbar_acam": {
+        "lockstep_fused": out["fused"]["launches"]["fused_crossbar_acam"]}}
+    out["kernel_cases"] = {"fused_crossbar_acam": cases}
+    return out
 
 
 def small_model_agrees(torch) -> None:
@@ -2373,6 +2769,49 @@ def small_model_agrees(torch) -> None:
               f"logits {err} > {tol}")
         print(f"[reference] small model lockstep {name}: card vs CPU last "
               f"logits max |diff| {err:.3g} (tolerance {tol})")
+    windowed_models_agree(torch, rng)
+
+
+def windowed_models_agree(torch, rng) -> None:
+    """The reduced Gemma3 and RecurrentGemma (float32 activations, window
+    16) through the lockstep path on the card and on the CPU (plain
+    versions): a 2 x 40-token prefill (the band on the local layers,
+    kernel F on Gemma3's global layer) and 6 decode steps over the
+    wrapping rings, ``OFF`` logits within ``WINDOWED_TOL``; and on the
+    card, ``decode_step`` logits against the whole-sequence ``forward``
+    within the same tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_prefill_step
+    from repro_torch.models import lm
+    for name in ("gemma3_27b", "recurrentgemma_9b"):
+        cfg = dataclasses.replace(get_config(name, reduced=True),
+                                  activation_dtype=torch.float32)
+        cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(
+            SEED), device="cpu")
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 46)),
+                               dtype=torch.int32)
+        logits = {}
+        for dev in ("cpu", "cuda"):
+            p = lm.serving_params(_to(cpu, dev), cfg)
+            cache = lm.init_model_cache(cfg, 2, 48, device=dev)
+            out = [build_prefill_step(cfg)(p, cache, toks[:, :40].to(dev))[0]]
+            for t in range(40, 46):
+                out.append(lm.decode_step(p, cfg, toks[:, t].to(dev), t,
+                                          cache))
+            logits[dev] = torch.stack([o.cpu() for o in out])
+        err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+        check(err <= WINDOWED_TOL, f"reduced {name}: card vs CPU OFF logits "
+              f"{err} > {WINDOWED_TOL}")
+        full = lm.forward(p, toks.to("cuda"), cfg, mode="train")
+        cache = lm.init_model_cache(cfg, 2, 48, device="cuda")
+        steps = torch.stack([lm.decode_step(p, cfg, toks[:, t].to("cuda"), t,
+                                            cache) for t in range(46)], 1)
+        step_err = (steps - full).abs().max().item()
+        check(step_err <= WINDOWED_TOL, f"reduced {name}: decode_step vs "
+              f"forward on the card {step_err} > {WINDOWED_TOL}")
+        print(f"[reference] reduced {name}: card vs CPU OFF logits max "
+              f"|diff| {err:.3g}; decode_step vs forward on the card "
+              f"{step_err:.3g} (tolerance {WINDOWED_TOL})")
 
 
 def _to(tree, dev):
@@ -2516,22 +2955,24 @@ def main() -> None:
     print(f"[serve FUSED] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    lock_off = lockstep(torch, cfg, params, OFF, batch=8, prompt_len=512,
+    cut_cfg, cut_params = cut_depth(cfg, params, CUT_LAYERS)
+    lock_off = lockstep(torch, cut_cfg, cut_params, OFF, batch=8,
+                        prompt_len=512,
                         gen_len=32, counters_on_path=[flash_attention],
                         label="serve lockstep OFF", compare_loop=True)
     print(f"[serve lockstep OFF] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    lock_fused = lockstep(torch, cfg, params, FUSED, batch=4, prompt_len=256,
-                          gen_len=8, counters_on_path=[
+    lock_fused = lockstep(torch, cut_cfg, cut_params, FUSED, batch=4,
+                          prompt_len=256, gen_len=8, counters_on_path=[
                               logdomain_flash_attention, log_quantize_qkv,
                               fused_crossbar_acam],
                           label="serve lockstep FUSED", compare_loop=False)
     print(f"[serve lockstep FUSED] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    slotted = ServeEngine(cfg, params, max_slots=8, max_len=1024, nldpe=OFF,
-                          prefill_chunk=64, decode_block=4)
+    slotted = ServeEngine(cut_cfg, cut_params, max_slots=8, max_len=1024,
+                          nldpe=OFF, prefill_chunk=64, decode_block=4)
     # 4 requests and a 2-request window (8 and 4 before the tier phases
     # came), for their time
     serve(torch, slotted, make_trace(cfg, 4, 32, 0), None,
@@ -2586,6 +3027,14 @@ def main() -> None:
     print(f"[serve spec drift] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    gemma3 = gemma3_phase(torch, Timer(torch))
+    print(f"[gemma3] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rgemma = recurrentgemma_phase(torch, Timer(torch))
+    print(f"[recurrentgemma] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     lib = library_phase(torch, params)
     library_checks(torch, lib)
     print(f"[library] phase {time.perf_counter() - t0:.1f} s")
@@ -2620,14 +3069,24 @@ def main() -> None:
                     "paged_attention"],
                 "launches_serve_async": async_res["launches"][
                     "paged_attention"]}),
-        fused_acam_phase(torch, timer, params,
-                         path_launches(fused_res, "fused_crossbar_acam")),
-        logdomain_phase(torch, timer, lock_fused["per_kernel"][
-            "logdomain_flash_attention"]),
+        fused_acam_phase(torch, timer, params, {
+            **path_launches(fused_res, "fused_crossbar_acam"),
+            "launches_gemma3": gemma3["launches"]["fused_crossbar_acam"],
+            "launches_recurrentgemma": rgemma["launches"][
+                "fused_crossbar_acam"]},
+            gemma3["kernel_cases"]["fused_crossbar_acam"]
+            + rgemma["kernel_cases"]["fused_crossbar_acam"]),
+        logdomain_phase(torch, timer, {
+            **lock_fused["per_kernel"]["logdomain_flash_attention"],
+            "launches_gemma3": gemma3["launches"][
+                "logdomain_flash_attention"]},
+            gemma3["kernel_cases"]["logdomain_flash_attention"]),
         acam_phase(torch, timer, lib),
         crossbar_phase(torch, timer, lib),
-        flash_phase(torch, timer,
-                    lock_off["per_kernel"]["flash_attention"]),
+        flash_phase(torch, timer, {
+            **lock_off["per_kernel"]["flash_attention"],
+            "launches_gemma3": gemma3["launches"]["flash_attention"]},
+            gemma3["kernel_cases"]["flash_attention"]),
         qmatmul_phase(torch, timer, lib, cnn_res)]
     del lib, off_in, log8_in, cnn_res
     print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
@@ -2654,7 +3113,7 @@ def main() -> None:
 
     # last: it updates the float32 masters in place
     t0 = time.perf_counter()
-    train_phase(torch, cfg, params)
+    train_phase(torch, cut_cfg, cut_params)
     print(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

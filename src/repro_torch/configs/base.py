@@ -1,9 +1,11 @@
 """ArchConfig — the port's copy of ``repro.configs.base`` (field names kept).
 
-Only the dense attention family is ported (``qwen2_5_3b``, ``qwen2_7b``,
-``minicpm_2b``: the ``("attn",)`` pattern); the other families' fields
-stay so configs round-trip by name, and the model rejects patterns it
-cannot run.
+Ported families: the dense attention pattern ``("attn",)`` (``qwen2_5_3b``,
+``qwen2_7b``, ``minicpm_2b``), Gemma3's local:global sliding-window
+pattern (``gemma3_27b``) and RecurrentGemma's RG-LRU hybrid
+(``recurrentgemma_9b``).  The MoE, RWKV6 and frontend fields of
+``repro``'s config are not here yet (``ROADMAP.md`` A.5); the model
+rejects block types it cannot run.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     layer_pattern: tuple = ("attn",)
     window: int | None = None
+    d_rnn: int | None = None          # RG-LRU width ("rec" blocks)
     qk_norm: bool = False
     attn_softcap: float | None = None
     logit_softcap: float | None = None
@@ -47,17 +50,31 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense attention pattern
-        (embeddings + blocks + head), as ``repro``'s for ``("attn",)``."""
+        """Analytic parameter count (embeddings + blocks + head), as
+        ``repro``'s for the block types the port has."""
         d, v = self.d_model, self.vocab_size
         hd = self.resolved_head_dim
         total = v * d
         if not self.tie_embeddings:
             total += d * v
-        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
-            + self.n_heads * hd * d
-        ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
-        return total + self.n_layers * (attn + ffn + 2 * d)
+        pat = self.layer_pattern
+        counts = {t: 0 for t in pat}
+        for i in range(self.n_layers):
+            counts[pat[i % len(pat)]] += 1
+        for t, n in counts.items():
+            ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
+            if t in ("attn", "local", "global"):
+                blk = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                    + self.n_heads * hd * d
+            elif t == "rec":
+                dr = self.d_rnn or d
+                blk = 2 * d * dr + 3 * dr * dr + dr * d
+            else:
+                raise NotImplementedError(
+                    f"param_count: block type {t!r} is not ported "
+                    f"(ROADMAP.md A.5)")
+            total += n * (blk + ffn + 2 * d)
+        return total
 
 
 def get_config(name: str, reduced: bool = False) -> ArchConfig:

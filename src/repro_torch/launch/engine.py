@@ -3,7 +3,10 @@
 
 * **Slots** — ``max_slots`` independent sequences share one batch.
   ``ServeEngine`` gives each a row of a slotted dense cache
-  (``lm.init_model_cache(..., slotted=True)``); ``PagedServeEngine`` maps a
+  (``lm.init_model_cache(..., slotted=True)``; windowed layers keep rings
+  of ``window + prefill_chunk - 1`` lines, so it serves Gemma3's
+  local:global pattern; recurrent blocks are refused, as in ``repro``);
+  ``PagedServeEngine`` (attention without windows) maps a
   slot's logical blocks onto physical pages of a per-layer pool through its
   block-table row (``launch/kvpool.py`` owns the page metadata).
 * **Admission** — a wave of requests takes free slots and is prefilled in
@@ -175,10 +178,15 @@ class ServeEngine:
                  dtype=torch.float32, kv_quant: str | None = None,
                  device=None, telemetry: Telemetry | bool | None = None,
                  prefill_buckets=None):
-        if any(t != "attn" for t in cfg.layer_pattern):
+        bad = [t for t in cfg.layer_pattern if t not in lm.ATTN_TYPES]
+        if bad:
             raise NotImplementedError(
-                f"the serve engines serve attention blocks only; "
-                f"{cfg.name} pattern is {cfg.layer_pattern}")
+                f"continuous batching needs attention-block caches; "
+                f"{cfg.name} pattern has {bad}")
+        if "moe" in cfg.layer_pattern:
+            raise NotImplementedError(
+                f"{cfg.name}: 'moe' blocks are not ported yet "
+                f"(ROADMAP.md A.5)")
         if prefill_chunk < 1 or decode_block < 1 or max_slots < 1:
             raise ValueError("max_slots, prefill_chunk, decode_block >= 1")
         if kv_quant not in (None, "int8", "log8"):
@@ -253,8 +261,12 @@ class ServeEngine:
             self.metrics.register_group("latency", self.telemetry.summary)
 
     def _init_cache(self) -> dict:
+        # windowed rings get prefill_chunk - 1 slack lines: a chunk's
+        # writes land before its queries attend, so the chunk's first query
+        # still needs the full window behind it (nn.attention.cache_length)
         return lm.init_model_cache(self.cfg, self.max_slots, self.max_len,
                                    slotted=True, dtype=self.dtype,
+                                   ring_slack=self.prefill_chunk - 1,
                                    device=self.device)
 
     def _bucket_table(self, spec) -> list[int]:
@@ -747,6 +759,10 @@ class PagedServeEngine(ServeEngine):
                  cache_generations: bool = True,
                  drift: DriftInjection | None = None,
                  fidelity: FidelityPolicy | None = None, **kw):
+        if "local" in cfg.layer_pattern:
+            raise NotImplementedError(
+                "paged KV cache needs non-windowed attention layers: ring "
+                "wrap history would break prefix sharing (got 'local')")
         asked = [n for n, off in _NOT_PORTED.items()
                  if kw.pop(n, off) not in (off, False)]
         if asked:

@@ -39,7 +39,10 @@ first N ticks with ``--profile-ticks``) and ``--metrics`` (the registry
 as Prometheus text).  A config whose ``kv_cache_dtype`` names
 a grid gives every path quantized caches.  The model is the
 reduced config of ``--arch`` (as the JAX CLI runs it) with seeded random
-weights, on the GPU unless ``--device cpu``.
+weights, on the GPU unless ``--device cpu``: ``qwen2_5_3b`` (default),
+``qwen2_7b``, ``minicpm_2b``, ``gemma3_27b`` (sliding-window rings; every
+path but ``--paged``) or ``recurrentgemma_9b`` (RG-LRU; the lockstep
+path only, as in ``repro``).
 """
 from __future__ import annotations
 
@@ -78,19 +81,30 @@ def build_decode_step(cfg, *, nldpe: NLDPEConfig = OFF):
     return decode
 
 
+def cache_capacity(cache: dict) -> int:
+    """The longest position track of a model cache (== max_len whenever
+    the model has a full-length attention layer)."""
+    return max((t.shape[-1] for t in lm.position_tracks(cache)), default=0)
+
+
 def build_generate_fn(cfg, gen_len: int, *, nldpe: NLDPEConfig = OFF):
     """Greedy decode of ``gen_len`` tokens (the first is ``tok0``).
 
     generate(params, cache, tok0, start_pos) -> (tokens (B, gen_len),
     cache).  Overflow guard: generating past the cache capacity would wrap
-    the ring of every (non-windowed) layer and attend to overwritten
-    positions, so the call checks ``start_pos + gen_len - 1`` against the
-    cache's length and raises instead.
+    the ring of every non-windowed layer and attend to overwritten
+    positions, so when the pattern has an ``attn``, ``global`` or ``moe``
+    layer the call checks ``start_pos + gen_len - 1`` against the cache's
+    capacity and raises instead.  Purely windowed (and recurrent) stacks
+    wrap their rings by design and are exempt, as in ``repro``.
     """
+    wraps_garbage = any(t in ("attn", "global", "moe")
+                        for t in cfg.layer_pattern)
+
     def generate(params, cache, tok0, start_pos):
-        limit = cache["pos"].shape[-1]
+        limit = cache_capacity(cache)
         sp = int(start_pos)
-        if sp + gen_len - 1 > limit:
+        if wraps_garbage and sp + gen_len - 1 > limit:
             raise ValueError(
                 f"generate overflows the KV cache: start_pos={sp} + "
                 f"gen_len={gen_len} needs {sp + gen_len - 1} positions but "

@@ -45,13 +45,14 @@ from . import prng
 def clip_positions(cache: dict, mask: torch.Tensor,
                    bound) -> dict:
     """On masked slots, make every position-track entry ``>= bound``
-    never-valid (-1), in place; ``bound`` () or (S,).  The admission reset
-    of the serve engines and the speculative rollback: entries past the new
-    tip are unverified draft state."""
-    pos = cache["pos"]
-    bound = torch.as_tensor(bound, dtype=torch.int32, device=pos.device)
-    b = bound[:, None] if bound.ndim else bound
-    pos.masked_fill_(mask[:, None] & (pos >= b), -1)
+    never-valid (-1), in place, in every attention stack of the cache
+    (full-length and windowed rings); ``bound`` () or (S,).  The admission
+    reset of the serve engines and the speculative rollback: entries past
+    the new tip are unverified draft state."""
+    for pos in lm.position_tracks(cache):
+        bound = torch.as_tensor(bound, dtype=torch.int32, device=pos.device)
+        b = bound[:, None] if bound.ndim else bound
+        pos.masked_fill_(mask[:, None] & (pos >= b), -1)
     return cache
 
 

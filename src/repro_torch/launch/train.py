@@ -199,7 +199,8 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     """``train_step(params, opt_state, batch)`` for ``cfg`` (see the
     module docstring).  ``timed`` adds ``metrics["seconds"]``: the noise
     pass, forward plus backward and the update, each behind a device
-    sync.  FUSED numerics and ``batch_groups > 1`` raise."""
+    sync.  FUSED numerics, ``batch_groups > 1`` and layer patterns other
+    than ``("attn",)`` raise."""
     if batch_groups != 1:
         raise NotImplementedError(
             "build_train_step: batch_groups > 1 (grouped GQA batches under "
@@ -208,6 +209,10 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
         raise NotImplementedError(
             "build_train_step: training under FUSED numerics (kernels B "
             "and C have no backward; ROADMAP.md A)")
+    if any(t != "attn" for t in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"build_train_step: {cfg.name}'s {cfg.layer_pattern} pattern "
+            f"is served, not trained, by the port yet (ROADMAP.md A.5)")
 
     def dtype_of(w: torch.Tensor) -> torch.dtype:
         return (cfg.activation_dtype if cast_compute_dtype

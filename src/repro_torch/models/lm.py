@@ -1,24 +1,40 @@
-"""Decoder-only LM of the ``("attn",)`` layer pattern (port of the serving
-and training parts of ``repro.models.lm``).
+"""Decoder-only LM over repeating layer patterns (port of the serving and
+training parts of ``repro.models.lm``).
 
-Parameters keep ``repro``'s tree, names and stacked ``"groups"`` layout
-(leading axis = layer), so ``convert.from_jax`` maps one onto the other
-leaf by leaf.  Where ``repro`` scans over the stacked groups, the port
-loops over layers in Python.
+Block types: ``attn`` (GQA attention + gated MLP), ``local`` (the same
+over a sliding window, Gemma3's local layers), ``global`` (full attention
+with ``rope_theta_global``, Gemma3's global layers) and ``rec`` (the
+RG-LRU recurrent block + MLP, RecurrentGemma).  ``repro``'s ``moe`` and
+``rwkv`` blocks are not ported yet (``ROADMAP.md`` A.5).
 
-The model cache stacks every layer's K/V on a leading layer axis and keeps
-ONE position track (and, paged, one block table) — ``repro`` keeps a copy
-of each per layer, but every layer's copy holds the same values:
+Parameters keep ``repro``'s tree, names and layout: ``groups.b0 ...
+b{P-1}`` for the P block types of ``cfg.layer_pattern``, each leaf stacked
+over ``n_layers // P`` repetitions, then ``tail.b0 ...`` (unstacked) for
+the remainder, so ``convert.from_jax`` maps one onto the other leaf by
+leaf.  Layers run in ``repro``'s order: every group's b0 ... b{P-1}, group
+after group, then the tail.  Where ``repro`` scans over the stacked
+groups, the port loops over layers in Python.
 
-* lockstep ``{"k", "v", "pos"}``: K/V (L, B, Hkv, max_len, D), pos
-  (max_len,);
-* slotted: the same with pos (B, max_len);
-* paged ``{"k", "v", "pos", "bt"}``: pools (L, P, Hkv, page_size, D), pos
-  (B, max_len), block table (B, NB).
+The model cache keeps one stack per kind of layer state, each stacked on
+a leading layer axis in run order (``cache_slots`` maps a layer onto its
+stack and row):
 
-A config whose ``kv_cache_dtype`` is "int8" or "log8" gets quantized
-caches: K/V hold int8 codes and ``k_scale``/``v_scale`` one float32 scale
-per position and head, stacked on the same leading layer axis.
+* the **full-length** attention layers (``attn``, ``global``) at the top
+  level, as the ``("attn",)`` models have always had it: lockstep ``{"k",
+  "v", "pos"}`` with K/V (L, B, Hkv, max_len, D) and pos (max_len,);
+  slotted: pos (B, max_len); paged ``{"k", "v", "pos", "bt"}``: pools (L,
+  P, Hkv, page_size, D), pos (B, max_len), block table (B, NB);
+* the **windowed** layers (``local``) under ``"ring"``: the same dense
+  layouts over rings of ``min(max_len, window + ring_slack)`` lines;
+* the **recurrent** layers (``rec``) under ``"rec"``: ``{"h": (L, B,
+  d_rnn), "conv": (L, B, 3, d_rnn)}`` float32.
+
+Each attention stack has ONE position track — ``repro`` keeps a copy per
+layer, but every layer of a stack holds the same values — so a forward
+computes one write plan per stack (per distinct cache length).  A config
+whose ``kv_cache_dtype`` is "int8" or "log8" gets quantized K/V in every
+attention stack.  Paged caches hold full-length layers only, as in
+``repro``.
 
 ``forward(mode="train")`` is the differentiable whole-sequence pass of
 training (no cache); with ``cfg.scan_remat`` each layer is recomputed in
@@ -33,11 +49,17 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..core.engine import NLDPEConfig, OFF
-from ..core.quantization import KV_QUANT_MODES
+from ..core.quantization import KV_QUANT_MODES, scalar_div
 from ..nn.attention import (AttnSpec, attn_apply, init_cache, kv_leaves,
                             write_plan)
 from ..nn.basic import embedding_apply, rmsnorm_apply, unembed_apply
 from ..nn.mlp import mlp_apply
+from ..nn.rglru import recurrent_block_apply, recurrent_state_init
+
+ATTN_TYPES = ("attn", "local", "global", "moe")
+BLOCK_TYPES = ("attn", "local", "global", "rec")     # the port's
+POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
+CONV_WIDTH = 4
 
 
 def kv_quant_of(cfg) -> str | None:
@@ -46,65 +68,141 @@ def kv_quant_of(cfg) -> str | None:
             else None)
 
 
-def attn_spec(cfg) -> AttnSpec:
+def attn_spec(cfg, btype: str = "attn") -> AttnSpec:
+    """The attention of a ``btype`` block: ``local`` takes the window,
+    ``global`` the global rope theta (where the config has one)."""
+    theta = cfg.rope_theta
+    if btype == "global" and cfg.rope_theta_global:
+        theta = cfg.rope_theta_global
     return AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                    head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                    head_dim=cfg.resolved_head_dim, rope_theta=theta,
+                    window=cfg.window if btype == "local" else None,
+                    qk_norm=cfg.qk_norm, softcap=cfg.attn_softcap,
                     kv_quant=kv_quant_of(cfg))
 
 
 def _check_cfg(cfg) -> None:
-    bad = [t for t in cfg.layer_pattern if t != "attn"]
-    if bad or cfg.window or cfg.qk_norm or cfg.attn_softcap \
-            or cfg.logit_softcap or cfg.embed_scale:
+    bad = sorted({t for t in cfg.layer_pattern if t not in BLOCK_TYPES})
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the plain ('attn',) pattern only "
-            f"(no windows, qk-norm, softcaps or embedding scale)")
+            f"{cfg.name}: block types {bad} are not ported yet (MoE and "
+            f"RWKV6: ROADMAP.md A.5); the port runs {BLOCK_TYPES}")
+
+
+def _pattern_split(cfg):
+    pat = cfg.layer_pattern
+    n_groups = cfg.n_layers // len(pat)
+    tail = pat[: cfg.n_layers % len(pat)]
+    return pat, n_groups, tail
+
+
+def layer_order(cfg) -> list[tuple[str, str, str, int | None]]:
+    """Every layer in run order as (block type, "groups" or "tail", block
+    key "b{i}", group index or None)."""
+    pat, n_groups, tail = _pattern_split(cfg)
+    out = [(t, "groups", f"b{i}", g)
+           for g in range(n_groups) for i, t in enumerate(pat)]
+    out += [(t, "tail", f"b{i}", None) for i, t in enumerate(tail)]
+    return out
+
+
+def _stack_of(cfg, btype: str) -> str:
+    """The cache stack a ``btype`` layer lives in: "full", "ring" or
+    "rec"."""
+    if btype == "rec":
+        return "rec"
+    return "ring" if attn_spec(cfg, btype).window else "full"
+
+
+def cache_slots(cfg) -> list[tuple[str, int]]:
+    """Per layer in run order, its cache stack and row in that stack."""
+    seen: dict[str, int] = {}
+    out = []
+    for btype, *_ in layer_order(cfg):
+        st = _stack_of(cfg, btype)
+        out.append((st, seen.get(st, 0)))
+        seen[st] = seen.get(st, 0) + 1
+    return out
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def init_params(cfg, *, generator: torch.Generator | None = None,
                 device=None) -> dict:
     """Random parameters with ``repro``'s tree and init distributions
     (``nn/module.py:58``): normal scaled by fan_in^-1/2 for projections,
-    0.02 for the embedding, (Hq*Dh)^-1/2 for the output projection, zero
-    biases and unit norm scales.  Drawn from ``generator`` on ``device``
-    (the card unless ``device="cpu"``)."""
+    0.02 for the embedding, (Hq*Dh)^-1/2 for the output projection, 0.1
+    for the RG-LRU conv and 0.5 for its Lambda, zero biases and unit norm
+    scales.  Drawn from ``generator`` on ``device`` (the card unless
+    ``device="cpu"``)."""
     _check_cfg(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
-    d, n = cfg.d_model, cfg.n_layers
-    s = attn_spec(cfg)
+    d = cfg.d_model
+    pat, n_groups, tail = _pattern_split(cfg)
 
-    def normal(shape, scale):
-        x = torch.randn((n, *shape), generator=generator, device=device,
+    def normal(lead, shape, scale):
+        x = torch.randn((*lead, *shape), generator=generator, device=device,
                         dtype=torch.float32)
         return x.mul_(scale)
 
-    def const(shape, value, layers=True):
-        return torch.full(((n,) if layers else ()) + tuple(shape), value,
-                          dtype=torch.float32, device=device)
+    def const(lead, shape, value):
+        return torch.full((*lead, *shape), value, dtype=torch.float32,
+                          device=device)
 
-    attn = {"wq": normal((d, s.n_heads, s.head_dim), d ** -0.5),
-            "wk": normal((d, s.n_kv_heads, s.head_dim), d ** -0.5),
-            "wv": normal((d, s.n_kv_heads, s.head_dim), d ** -0.5),
-            "wo": normal((s.n_heads, s.head_dim, d),
-                         (s.n_heads * s.head_dim) ** -0.5)}
-    if cfg.qkv_bias:
-        attn.update(bq=const((s.n_heads, s.head_dim), 0.0),
-                    bk=const((s.n_kv_heads, s.head_dim), 0.0),
-                    bv=const((s.n_kv_heads, s.head_dim), 0.0))
-    ffn = {"up": normal((d, cfg.d_ff), d ** -0.5),
-           "down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
-    if cfg.gated_mlp:
-        ffn["gate"] = normal((d, cfg.d_ff), d ** -0.5)
+    def block(btype, lead):
+        p = {"norm1": {"scale": const(lead, (d,), 1.0)},
+             "norm2": {"scale": const(lead, (d,), 1.0)}}
+        if btype == "rec":
+            dr = cfg.d_rnn or d
+            p["rec"] = {
+                "in_gate": normal(lead, (d, dr), d ** -0.5),
+                "in_x": normal(lead, (d, dr), d ** -0.5),
+                "conv": normal(lead, (CONV_WIDTH, dr), 0.1),
+                "rglru": {"w_a": normal(lead, (dr, dr), dr ** -0.5),
+                          "b_a": const(lead, (dr,), 0.0),
+                          "w_x": normal(lead, (dr, dr), dr ** -0.5),
+                          "b_x": const(lead, (dr,), 0.0),
+                          "lam": normal(lead, (dr,), 0.5)},
+                "out": normal(lead, (dr, d), dr ** -0.5)}
+        else:
+            s = attn_spec(cfg, btype)
+            attn = {"wq": normal(lead, (d, s.n_heads, s.head_dim), d ** -0.5),
+                    "wk": normal(lead, (d, s.n_kv_heads, s.head_dim),
+                                 d ** -0.5),
+                    "wv": normal(lead, (d, s.n_kv_heads, s.head_dim),
+                                 d ** -0.5),
+                    "wo": normal(lead, (s.n_heads, s.head_dim, d),
+                                 (s.n_heads * s.head_dim) ** -0.5)}
+            if cfg.qkv_bias:
+                attn.update(bq=const(lead, (s.n_heads, s.head_dim), 0.0),
+                            bk=const(lead, (s.n_kv_heads, s.head_dim), 0.0),
+                            bv=const(lead, (s.n_kv_heads, s.head_dim), 0.0))
+            if cfg.qk_norm:
+                attn["q_norm"] = {"scale": const(lead, (s.head_dim,), 1.0)}
+                attn["k_norm"] = {"scale": const(lead, (s.head_dim,), 1.0)}
+            p["attn"] = attn
+        ffn = {"up": normal(lead, (d, cfg.d_ff), d ** -0.5),
+               "down": normal(lead, (cfg.d_ff, d), cfg.d_ff ** -0.5)}
+        if cfg.gated_mlp:
+            ffn["gate"] = normal(lead, (d, cfg.d_ff), d ** -0.5)
+        p["ffn"] = ffn
+        return p
+
     table = torch.randn((cfg.vocab_size, d), generator=generator,
                         device=device, dtype=torch.float32).mul_(0.02)
     params = {"embed": {"table": table},
-              "groups": {"b0": {"norm1": {"scale": const((d,), 1.0)},
-                                "norm2": {"scale": const((d,), 1.0)},
-                                "attn": attn, "ffn": ffn}},
-              "final_norm": {"scale": const((d,), 1.0, layers=False)}}
+              "groups": {f"b{i}": block(t, (n_groups,))
+                         for i, t in enumerate(pat)},
+              "final_norm": {"scale": const((), (d,), 1.0)}}
+    if tail:
+        params["tail"] = {f"b{i}": block(t, ()) for i, t in enumerate(tail)}
     if not cfg.tie_embeddings:
         w = torch.randn((d, cfg.vocab_size), generator=generator,
                         device=device, dtype=torch.float32) * d ** -0.5
@@ -112,55 +210,144 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
     return params
 
 
+# leaves the model reads in float32 whatever the activation dtype
+_F32_LEAVES = ("q_norm", "k_norm", "lam")
+
+
 def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
-    """The parameter tree a server runs from: every matmul weight and bias
-    cast once to the activation dtype — the values ``x @ w.astype(x.dtype)``
-    gives per call in ``repro`` — except the MLP gate under ``FUSED``,
-    which the crossbar->ACAM kernel programs from the float32 master."""
+    """The parameter tree a server runs from: every block's matmul weights
+    and biases (attention, MLP, recurrent block) cast once to the
+    activation dtype — the values ``x @ w.astype(x.dtype)`` gives per call
+    in ``repro`` — except what the model reads in float32 (the qk-norm
+    scales, RG-LRU's Lambda) and the MLP gates under ``FUSED``, which the
+    crossbar->ACAM kernel programs from the float32 master."""
     act = cfg.activation_dtype
-    blk = params["groups"]["b0"]
     fused = (nldpe.enabled and nldpe.acam_activations
              and nldpe.fused_dual_compute)
-    ffn = {k: (v if k == "gate" and fused else v.to(act))
-           for k, v in blk["ffn"].items()}
+
+    def cast(tree, keep=()):
+        if isinstance(tree, dict):
+            return {k: v if k in keep or k in _F32_LEAVES else cast(v)
+                    for k, v in tree.items()}
+        return tree.to(act)
+
+    def block(blk):
+        out = dict(blk)
+        for name in ("attn", "rec"):
+            if name in blk:
+                out[name] = cast(blk[name])
+        out["ffn"] = cast(blk["ffn"], keep=("gate",) if fused else ())
+        return out
+
     out = dict(params)
-    out["groups"] = {"b0": dict(blk, ffn=ffn, attn={
-        k: v.to(act) for k, v in blk["attn"].items()})}
+    for where in ("groups", "tail"):
+        if where in params:
+            out[where] = {k: block(v) for k, v in params[where].items()}
     return out
 
 
 def init_model_cache(cfg, batch: int, max_len: int, *,
                      paged: tuple[int, int] | None = None,
-                     slotted: bool = False, dtype=torch.float32,
-                     device=None) -> dict:
-    """Every layer's cache: dense lockstep (default), dense ``slotted``, or
-    ``paged=(num_pages, page_size)`` (unmapped block-table entries hold the
-    sentinel ``num_pages``); int8 codes and float32 scales in place of
-    ``dtype`` values when ``cfg.kv_cache_dtype`` names a grid."""
+                     slotted: bool = False, ring_slack: int = 0,
+                     dtype=torch.float32, device=None) -> dict:
+    """Every layer's cache (the module docstring's stacks): dense lockstep
+    (default), dense ``slotted``, or ``paged=(num_pages, page_size)``
+    (unmapped block-table entries hold the sentinel ``num_pages``; full-
+    length attention layers only); windowed rings of ``min(max_len,
+    window + ring_slack)`` lines; int8 codes and float32 scales in place
+    of ``dtype`` values when ``cfg.kv_cache_dtype`` names a grid."""
     _check_cfg(cfg)
     device = resolve_device(device)
-    s = attn_spec(cfg)
-    if paged is None:
-        return init_cache(s, batch, max_len, layers=cfg.n_layers,
-                          dtype=dtype, slotted=slotted, device=device)
-    num_pages, page_size = paged
-    kv = (cfg.n_layers, num_pages, s.n_kv_heads, page_size, s.head_dim)
-    n_blocks = -(-max_len // page_size)
-    cache = kv_leaves(kv, dtype, s.kv_quant, device)
-    cache["pos"] = torch.full((batch, max_len), -1, dtype=torch.int32,
-                              device=device)
-    cache["bt"] = torch.full((batch, n_blocks), num_pages, dtype=torch.int32,
-                             device=device)
+    order = layer_order(cfg)
+    count = {"full": 0, "ring": 0, "rec": 0}
+    first = {}
+    for btype, *_ in order:
+        st = _stack_of(cfg, btype)
+        count[st] += 1
+        first.setdefault(st, btype)
+    if paged is not None and (count["ring"] or count["rec"]):
+        raise NotImplementedError(
+            "paged KV cache supports non-windowed attention layers only")
+    cache: dict = {}
+    if count["full"]:
+        s = attn_spec(cfg, first["full"])
+        if paged is None:
+            cache = init_cache(s, batch, max_len, layers=count["full"],
+                               dtype=dtype, slotted=slotted, device=device)
+        else:
+            num_pages, page_size = paged
+            kv = (count["full"], num_pages, s.n_kv_heads, page_size,
+                  s.head_dim)
+            cache = kv_leaves(kv, dtype, s.kv_quant, device)
+            cache["pos"] = torch.full((batch, max_len), -1,
+                                      dtype=torch.int32, device=device)
+            cache["bt"] = torch.full((batch, -(-max_len // page_size)),
+                                     num_pages, dtype=torch.int32,
+                                     device=device)
+    if count["ring"]:
+        cache["ring"] = init_cache(attn_spec(cfg, first["ring"]), batch,
+                                   max_len, layers=count["ring"], dtype=dtype,
+                                   slotted=slotted, ring_slack=ring_slack,
+                                   device=device)
+    if count["rec"]:
+        cache["rec"] = recurrent_state_init(batch, cfg.d_rnn or cfg.d_model,
+                                            CONV_WIDTH, layers=count["rec"],
+                                            device=device)
     return cache
 
 
-POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
+def stacks(cache: dict) -> dict:
+    """The attention stacks of a model cache by name ("full", "ring")."""
+    out = {}
+    if "pos" in cache:
+        out["full"] = cache
+    if "ring" in cache:
+        out["ring"] = cache["ring"]
+    return out
 
 
-def layer_cache(cache: dict, i: int) -> dict:
-    """Layer ``i``'s view of the model cache (K/V and scales are views:
-    writes land in the model cache)."""
-    return dict(cache, **{n: cache[n][i] for n in POOL_LEAVES if n in cache})
+def position_tracks(cache: dict) -> list:
+    """Every attention stack's position track."""
+    return [st["pos"] for st in stacks(cache).values()]
+
+
+def layer_cache(stack: dict, i: int) -> dict:
+    """Layer ``i``'s view of an attention stack (the model cache for the
+    full-length layers): K/V and scales are views, so writes land in the
+    stack; the position track and block table are the stack's own."""
+    return {n: t[i] if n in POOL_LEAVES else t for n, t in stack.items()
+            if torch.is_tensor(t)}
+
+
+def clone_cache(cache: dict) -> dict:
+    """A copy of a model cache, every tensor cloned."""
+    return {k: clone_cache(v) if isinstance(v, dict) else v.clone()
+            for k, v in cache.items()}
+
+
+def apply_block(p: dict, cfg, btype: str, x: torch.Tensor, *,
+                positions: torch.Tensor, mode: str, cache=None, plan=None,
+                nldpe: NLDPEConfig = OFF) -> torch.Tensor:
+    """One block: x (B, S, d) -> x.  ``cache`` is the layer's view of its
+    attention stack (written in place at ``plan``) or, for ``rec``, its
+    state ``{"h", "conv"}`` (views of the stack, overwritten in place)."""
+    h = rmsnorm_apply(p["norm1"], x)
+    if btype == "rec":
+        if mode == "chunk":
+            raise NotImplementedError("chunked serve prefill supports "
+                                      "attention blocks only (got 'rec')")
+        a, st = recurrent_block_apply(p["rec"], h, cache, mode=mode,
+                                      nldpe=nldpe)
+        if cache is not None:
+            cache["h"].copy_(st["h"])
+            cache["conv"].copy_(st["conv"])
+    else:
+        a = attn_apply(p["attn"], attn_spec(cfg, btype), h,
+                       positions=positions, mode=mode, cache=cache,
+                       plan=plan, nldpe=nldpe)
+    x = x + a.to(x.dtype)
+    h2 = rmsnorm_apply(p["norm2"], x)
+    return x + mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe).to(x.dtype)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
@@ -181,35 +368,47 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
                 "(ROADMAP.md A)")
         if cache is not None:
             raise ValueError("mode='train' takes no cache")
-    spec = attn_spec(cfg)
+    _check_cfg(cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
     x = embedding_apply(params["embed"], tokens, dtype=cfg.activation_dtype)
-    plan = None
-    if cache is not None:
-        plan = write_plan(layer_cache(cache, 0), positions, write_mask)
-    blocks = params["groups"]["b0"]
+    if cfg.embed_scale:
+        # repro rounds the scale to the activation dtype first
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    attn_stacks = {} if cache is None else stacks(cache)
+    plans = {name: write_plan(layer_cache(st, 0), positions, write_mask)
+             for name, st in attn_stacks.items()}
+    order = layer_order(cfg)
+    slots = cache_slots(cfg)
 
     def layer(x, i):
-        p = {k: {n: t[i] for n, t in v.items()} for k, v in blocks.items()}
-        h = rmsnorm_apply(p["norm1"], x)
-        a = attn_apply(p["attn"], spec, h, positions=positions, mode=mode,
-                       cache=None if cache is None else layer_cache(cache, i),
-                       plan=plan, nldpe=nldpe)
-        x = x + a.to(x.dtype)
-        h2 = rmsnorm_apply(p["norm2"], x)
-        return x + mlp_apply(p["ffn"], h2, act=cfg.act,
-                             nldpe=nldpe).to(x.dtype)
+        btype, where, key, g = order[i]
+        st, j = slots[i]
+        c = None
+        if cache is not None:
+            c = (_index(cache["rec"], j) if st == "rec"
+                 else layer_cache(attn_stacks[st], j))
+        p = params[where][key]
+        return apply_block(p if g is None else _index(p, g), cfg, btype, x,
+                           positions=positions, mode=mode, cache=c,
+                           plan=plans.get(st), nldpe=nldpe)
 
     remat = mode == "train" and cfg.scan_remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
+    for i in range(len(order)):
         x = (checkpoint(layer, x, i, use_reentrant=False) if remat
              else layer(x, i))
     x = rmsnorm_apply(params["final_norm"], x)
     if cfg.tie_embeddings:
-        return unembed_apply(params["embed"], x)
-    return x.to(torch.float32) @ params["lm_head"]["w"].to(torch.float32)
+        logits = unembed_apply(params["embed"], x)
+    else:
+        logits = (x.to(torch.float32)
+                  @ params["lm_head"]["w"].to(torch.float32))
+    if cfg.logit_softcap:
+        logits = torch.tanh(scalar_div(logits, cfg.logit_softcap)) \
+            * cfg.logit_softcap
+    return logits
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,8 +1,8 @@
-"""GQA attention against dense and paged KV caches (port of the serving parts
-of ``repro.nn.attention``).
+"""GQA attention against dense and paged KV caches, with sliding windows
+(port of the serving parts of ``repro.nn.attention``).
 
-Cache layouts of one layer (the model cache stacks K/V on a leading layer
-axis and keeps ONE position track for every layer, ``models/lm.py``):
+Cache layouts of one stack of layers (the model cache stacks K/V on a
+leading layer axis and keeps ONE position track per stack, ``models/lm.py``):
 
 * **lockstep** ``{"k", "v", "pos"}``: K/V (B, Hkv, L, D), ``pos`` (L,) —
   the ring a fixed batch prefills and decodes in step (``init_cache``);
@@ -11,6 +11,13 @@ axis and keeps ONE position track for every layer, ``models/lm.py``):
 * **paged** ``{"k", "v", "pos", "bt"}``: K/V page pools (P, Hkv, ps, D),
   ``pos`` (B, max_len) and a block table (B, NB) mapping a slot's logical
   block ``j`` onto a physical page (``num_pages`` = unmapped sentinel).
+
+A windowed layer (``AttnSpec.window``, Gemma3's "local" layers) keeps a
+dense ring of ``min(max_len, window + ring_slack)`` lines instead of
+``max_len``: position ``p`` lives at line ``p % L`` and the window mask
+keeps every query inside its window.  Engines that write C positions a
+call pass ``ring_slack = C - 1`` (``init_cache``).  Paged caches hold no
+windowed layer, as in ``repro``.
 
 Quantized caches (``AttnSpec.kv_quant`` "int8" or "log8", DESIGN.md §11)
 hold int8 codes in ``k``/``v`` and one float32 scale per (row, head,
@@ -26,25 +33,32 @@ is the only validity information attention reads.  Writes follow
 page ``bt[slot, p // ps]`` at offset ``p % ps`` in paged ones; masked,
 out-of-range and sentinel-mapped writes are dropped.  ``repro`` scatters
 with ``mode="drop"``; PyTorch raises on the CPU and asserts on the device
-instead, so the port computes the kept writes once per forward
+instead, so the port computes the kept writes once per forward and stack
 (``write_plan``) and scatters only those.  Caches update in place (the
 JAX package donates its buffers instead).
 
 Attention paths of ``attn_apply``:
 
-* ``mode="prefill"`` (whole prompt, positions (S,)): causal attention
-  over the new K/V alone — ``kernels.flash_attention`` (kernel F) under
-  ``OFF``, ``NLDPEConfig.attention`` (kernel C under ``FUSED``) otherwise —
-  then a ring-consistent fill of a dense cache;
+* ``mode="prefill"`` (whole prompt, positions (S,)): attention over the
+  new K/V alone, then a ring-consistent fill of a dense cache.  Under
+  ``OFF``: a windowed layer longer than its window takes
+  ``banded_attention``; a softcapped layer, or a windowed one at a head
+  dim kernel F has no instance for, the windowed ``blockwise_attention``
+  (both ``repro``'s lax routes); every other layer kernel F
+  (``kernels.flash_attention``).  Under ``ON``/``FUSED``: a plain causal
+  layer ``NLDPEConfig.attention`` without a mask (kernel C under
+  ``FUSED``), a windowed one the materialized masked NL-DPE attention.
 * ``"decode"`` and ``"chunk"``: the new K/V are written first, then the
-  queries attend to the whole cache under validity masking.  ``OFF`` over
-  a paged cache runs ``kernels.paged_attention`` (kernel A); over a dense
-  cache, ``cached_attention`` (plain, as ``repro`` computes it in lax).
-  NL-DPE modes run ``_nldpe_cached`` over the (gathered) dense view.
-* ``"train"`` (whole sequence, no cache, differentiable): under ``OFF``
-  ``blockwise_attention``, the counterpart of ``repro``'s lax function of
-  that name (kernel F has no backward and stays on prefill); under ``ON``
-  ``NLDPEConfig.attention``.  Nothing trains under ``FUSED``
+  queries attend to the whole cache under validity masking (written,
+  causal, in the window).  ``OFF`` over a paged cache runs
+  ``kernels.paged_attention`` (kernel A; a softcapped layer, which no
+  config has, the gathered dense view, as ``repro``'s kernel opt-in
+  does); over a dense cache, ``cached_attention`` (plain, as ``repro``
+  computes it in lax).  NL-DPE modes run ``_nldpe_cached`` over the
+  (gathered) dense view.
+* ``"train"`` (whole sequence, no cache, differentiable): the prefill's
+  routes with the band or ``blockwise_attention`` in place of kernel F
+  (F has no backward); nothing trains under ``FUSED``
   (``models.lm.forward`` refuses it).
 """
 from __future__ import annotations
@@ -57,9 +71,10 @@ import torch
 from ..core.engine import NLDPEConfig, OFF
 from ..core.quantization import (KV_LOG_SPEC, KV_QUANT_MODES, kv_decode,
                                  scalar_div)
+from ..kernels.flash_attention.ops import HEAD_DIMS as FLASH_HEAD_DIMS
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
-from .basic import apply_rope
+from .basic import apply_rope, rmsnorm_apply
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -70,6 +85,9 @@ class AttnSpec:
     n_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
+    window: int | None = None          # sliding-window size (None = global)
+    qk_norm: bool = False              # Gemma3-style per-head RMS on q/k
+    softcap: float | None = None       # tanh cap of the attention scores
     kv_quant: str | None = None        # KV cache storage grid: "int8"/"log8"
 
     @property
@@ -79,7 +97,9 @@ class AttnSpec:
 
 def _project_qkv(p: dict, s: AttnSpec, x: torch.Tensor,
                  positions: torch.Tensor):
-    """x (B, S, d) -> q (B, Hq, S, Dh), k/v (B, Hkv, S, Dh), rope applied."""
+    """x (B, S, d) -> q (B, Hq, S, Dh), k/v (B, Hkv, S, Dh): the per-head
+    RMS norm of q and k where the layer has one (``q_norm``/``k_norm``),
+    then rope."""
     q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(x.dtype))
@@ -87,6 +107,9 @@ def _project_qkv(p: dict, s: AttnSpec, x: torch.Tensor,
         q = q + p["bq"].to(x.dtype)[None, :, None, :]
         k = k + p["bk"].to(x.dtype)[None, :, None, :]
         v = v + p["bv"].to(x.dtype)[None, :, None, :]
+    if "q_norm" in p:
+        q = rmsnorm_apply(p["q_norm"], q)
+        k = rmsnorm_apply(p["k_norm"], k)
     return (apply_rope(q, positions, s.rope_theta),
             apply_rope(k, positions, s.rope_theta), v)
 
@@ -95,16 +118,27 @@ def _project_qkv(p: dict, s: AttnSpec, x: torch.Tensor,
 # KV caches
 # ---------------------------------------------------------------------------
 
+def cache_length(s: AttnSpec, max_len: int, ring_slack: int = 0) -> int:
+    """Lines of a dense cache: ``max_len``, or for a windowed layer a ring
+    of ``min(max_len, window + ring_slack)``.  A chunk of C positions is
+    written before its queries attend, so its first query still needs the
+    ``window`` keys behind it: engines writing C positions a call pass
+    ``ring_slack = C - 1``.  The window mask is the same either way, so
+    attention gives what the tight ring gives."""
+    return min(max_len, s.window + ring_slack) if s.window else max_len
+
+
 def init_cache(s: AttnSpec, batch: int, max_len: int, *, layers: int,
                dtype=torch.float32, slotted: bool = False,
-               device=None) -> dict:
-    """Dense K/V of ``layers`` layers, (layers, B, Hkv, max_len, D), and one
-    position track: (max_len,) lockstep, or (B, max_len) with
-    ``slotted=True`` so slots sit at different offsets.  With
-    ``s.kv_quant`` set, K/V are int8 codes beside (layers, B, Hkv,
-    max_len) float32 scales (``dtype`` is then unused)."""
-    kv = (layers, batch, s.n_kv_heads, max_len, s.head_dim)
-    pos = (batch, max_len) if slotted else (max_len,)
+               ring_slack: int = 0, device=None) -> dict:
+    """Dense K/V of ``layers`` layers, (layers, B, Hkv, L, D) with ``L =
+    cache_length(s, max_len, ring_slack)``, and one position track: (L,)
+    lockstep, or (B, L) with ``slotted=True`` so slots sit at different
+    offsets.  With ``s.kv_quant`` set, K/V are int8 codes beside (layers,
+    B, Hkv, L) float32 scales (``dtype`` is then unused)."""
+    length = cache_length(s, max_len, ring_slack)
+    kv = (layers, batch, s.n_kv_heads, length, s.head_dim)
+    pos = (batch, length) if slotted else (length,)
     cache = kv_leaves(kv, dtype, s.kv_quant, device)
     cache["pos"] = torch.full(pos, -1, dtype=torch.int32, device=device)
     return cache
@@ -315,10 +349,12 @@ def paged_dense_view(cache: dict) -> dict:
     return view
 
 
-def cache_valid_mask(kp: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+def cache_valid_mask(kp: torch.Tensor, q_pos: torch.Tensor,
+                     window: int | None = None) -> torch.Tensor:
     """Which cache lines each query may attend to: kp (L,) lockstep or
     (B, L) per-slot line positions; q_pos () scalar, (Q,) shared or (B, Q)
-    per-slot query positions -> bool (B|1, Q, L): written and causal."""
+    per-slot query positions -> bool (B|1, Q, L): written, causal and,
+    with a ``window``, less than ``window`` positions behind the query."""
     if kp.ndim == 1:
         kp = kp[None]
     q_pos = q_pos.to(torch.int32)
@@ -328,22 +364,48 @@ def cache_valid_mask(kp: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
         q_pos = q_pos[None, :]
     kpe = kp[:, None, :]
     qpe = q_pos[:, :, None]
-    return (kpe >= 0) & (kpe <= qpe)
+    valid = (kpe >= 0) & (kpe <= qpe)
+    if window:
+        valid = valid & (qpe - kpe < window)
+    return valid
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+          window: int | None) -> torch.Tensor:
+    """q_pos (..., Q), k_pos (..., K) -> bool (..., Q, K): causal and
+    in-window pairs."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    m = (qp >= kp) if causal else torch.ones(
+        torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool,
+        device=qp.device)
+    if window is not None:
+        m = m & (qp - kp < window)
+    return m
+
+
+def _capped(scores: torch.Tensor, softcap: float | None) -> torch.Tensor:
+    """``tanh(scores / softcap) * softcap`` (the division as ``jit``
+    divides by a constant), or the scores as they are."""
+    if not softcap:
+        return scores
+    return torch.tanh(scalar_div(scores, softcap)) * softcap
 
 
 def cached_attention(q: torch.Tensor, cache: dict, q_pos: torch.Tensor,
                      s: AttnSpec) -> torch.Tensor:
-    """q (B, Hq, Q, D) against a dense cache under validity masking, float
-    numerics (``repro`` computes it in lax, outside any kernel).  Masked
-    scores take the finite f32 minimum, as in ``repro``."""
+    """q (B, Hq, Q, D) against a dense cache under validity masking (the
+    layer's window too) and its softcap, float numerics (``repro``
+    computes it in lax, outside any kernel).  Masked scores take the
+    finite f32 minimum, as in ``repro``."""
     b, hq, nq, d = q.shape
     g = s.group
     qg = q.reshape(b, s.n_kv_heads, g, nq, d).to(torch.float32)
     k = _dequantize_kv(cache, "k", s.kv_quant)
     v = _dequantize_kv(cache, "v", s.kv_quant)
-    scores = scalar_div(torch.einsum("bkgqd,bkld->bkgql", qg, k),
-                        math.sqrt(d))
-    valid = cache_valid_mask(cache["pos"], q_pos)
+    scores = _capped(scalar_div(torch.einsum("bkgqd,bkld->bkgql", qg, k),
+                                math.sqrt(d)), s.softcap)
+    valid = cache_valid_mask(cache["pos"], q_pos, s.window)
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgql,bkld->bkgqd", p, v)
@@ -366,43 +428,43 @@ def _nldpe_cached(nldpe: NLDPEConfig, q: torch.Tensor, att: dict,
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, q_block: int = 512,
+                        *, causal: bool = True, window: int | None = None,
+                        softcap: float | None = None, q_block: int = 512,
                         k_block: int = 1024) -> torch.Tensor:
     """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype:
     ``repro``'s online-softmax attention over query blocks of ``q_block``
-    and key blocks of ``k_block`` (halved until they divide S), in float32
-    with the reference's masking constant and order of operations, in
-    plain differentiable ops.  The reference recomputes each query block
-    in the backward pass; ``models.lm`` recomputes whole layers instead
-    (``cfg.scan_remat``)."""
+    and key blocks of ``k_block`` rows, causal and in-``window`` pairs,
+    scores under the optional ``softcap``, in float32 with the reference's
+    masking constant and order of operations, in plain differentiable ops.
+    The last block of each axis is ragged; ``repro`` halves its blocks
+    until they divide S instead (down to 1 row at an odd S), so the blocks
+    are the same wherever they divide it.  The reference recomputes each
+    query block in the backward pass; ``models.lm`` recomputes whole layers
+    instead (``cfg.scan_remat``)."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     g = hq // hkv
-    qb = min(q_block, sq)
-    while sq % qb:
-        qb //= 2
-    kb = min(k_block, sk)
-    while sk % kb:
-        kb //= 2
-    nq, nk = sq // qb, sk // kb
-    qg = scalar_div(q.reshape(b, hkv, g, nq, qb, d).to(torch.float32),
+    qb, kb = min(q_block, sq), min(k_block, sk)
+    qg = scalar_div(q.reshape(b, hkv, g, sq, d).to(torch.float32),
                     math.sqrt(d))
-    kg = k.reshape(b, hkv, nk, kb, d).to(torch.float32)
-    vg = v.reshape(b, hkv, nk, kb, d).to(torch.float32)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
     dev = q.device
     outs = []
-    for iq in range(nq):
-        q_i = qg[:, :, :, iq]                               # (B,Hkv,G,qb,D)
-        q_pos = iq * qb + torch.arange(qb, device=dev)
-        m_run = torch.full((b, hkv, g, qb), NEG_INF, device=dev)
-        l_run = torch.zeros((b, hkv, g, qb), device=dev)
-        acc = torch.zeros((b, hkv, g, qb, d), device=dev)
-        for ik in range(nk):
-            s_ = torch.einsum("bkgqd,bkld->bkgql", q_i, kg[:, :, ik])
-            k_pos = ik * kb + torch.arange(kb, device=dev)
-            if causal:
-                s_ = torch.where(q_pos[:, None] >= k_pos[None, :], s_,
-                                 NEG_INF)
+    for q0 in range(0, sq, qb):
+        q_i = qg[:, :, :, q0:q0 + qb]                       # (B,Hkv,G,qb,D)
+        n = q_i.shape[3]
+        q_pos = torch.arange(q0, q0 + n, device=dev)
+        m_run = torch.full((b, hkv, g, n), NEG_INF, device=dev)
+        l_run = torch.zeros((b, hkv, g, n), device=dev)
+        acc = torch.zeros((b, hkv, g, n, d), device=dev)
+        for k0 in range(0, sk, kb):
+            s_ = _capped(torch.einsum("bkgqd,bkld->bkgql", q_i,
+                                      kf[:, :, k0:k0 + kb]), softcap)
+            k_pos = torch.arange(k0, k0 + s_.shape[-1], device=dev)
+            if causal or window is not None:
+                s_ = torch.where(_mask(q_pos, k_pos, causal=causal,
+                                       window=window), s_, NEG_INF)
             m_new = torch.maximum(m_run, torch.amax(s_, dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
             pj = torch.exp(s_ - m_safe[..., None])
@@ -410,12 +472,76 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                torch.exp(m_run - m_safe), 0.0)
             l_run = l_run * corr + torch.sum(pj, dim=-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bkgql,bkld->bkgqd", pj, vg[:, :, ik])
+                "bkgql,bkld->bkgqd", pj, vf[:, :, k0:k0 + kb])
             m_run = m_new
         l_run = torch.where(l_run == 0.0, 1.0, l_run)
         outs.append(acc / l_run[..., None])
-    out = torch.stack(outs, dim=3).reshape(b, hkv, g, sq, d)
+    out = torch.cat(outs, dim=3)
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int, q_block: int = 512,
+                     softcap: float | None = None) -> torch.Tensor:
+    """Sliding-window causal attention in O(S * window): q (B, Hq, S, D),
+    k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
+
+    What ``repro``'s ``banded_attention`` computes — each query's masked
+    softmax over the keys at most ``window - 1`` positions behind it, in
+    float32, scores under the optional ``softcap`` — blocked the port's
+    way: query blocks of ``q_block`` rows (the last one ragged; ``repro``
+    halves its block until it divides S, down to 1 row for an odd S),
+    each against its band of keys ``[start - window + 1, end)``.  The
+    masked columns of a band add exact zeros, so a row's softmax is the
+    same whatever band it shares."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    qg = scalar_div(q.reshape(b, hkv, g, sq, d).to(torch.float32),
+                    math.sqrt(d))
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    dev = q.device
+    outs = []
+    for s0 in range(0, sq, q_block):
+        s1 = min(s0 + q_block, sq)
+        k0 = max(0, s0 - window + 1)
+        sc = _capped(torch.einsum("bkgqd,bkld->bkgql", qg[:, :, :, s0:s1],
+                                  kf[:, :, k0:s1]), softcap)
+        msk = _mask(torch.arange(s0, s1, device=dev),
+                    torch.arange(k0, s1, device=dev), causal=True,
+                    window=window)
+        p = torch.softmax(torch.where(msk, sc, NEG_INF), dim=-1)
+        outs.append(torch.einsum("bkgql,bkld->bkgqd", p, vf[:, :, k0:s1]))
+    out = torch.cat(outs, dim=3)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       s: AttnSpec, positions: torch.Tensor, mode: str,
+                       nldpe: NLDPEConfig) -> torch.Tensor:
+    """Whole-sequence attention over the new K/V alone ("prefill" and
+    "train"), routed as ``repro`` routes it (the module docstring)."""
+    seq = q.shape[2]
+    if nldpe.enabled:
+        if s.window is None:
+            # plain causal with no mask: FUSED streams it through the
+            # log-domain flash kernel (GQA-aware, K/V stay grouped)
+            return nldpe.attention(q, k, v, causal=True, mask=None)
+        msk = _mask(positions, positions, causal=True, window=s.window)
+        return nldpe.attention(q, k, v, causal=False, mask=msk)
+    if s.window is not None and seq > s.window:
+        return banded_attention(q, k, v, window=s.window, softcap=s.softcap)
+    # kernel F for every other prefill: exact for a windowed layer with
+    # seq <= window too, since qp - kp < window holds for every causal
+    # pair there.  F has no softcap, no backward and no head-dim-256
+    # instance; those layers take the windowed blockwise attention, as
+    # repro does for every prefill
+    if mode == "prefill" and s.softcap is None and (
+            s.window is None or s.head_dim in FLASH_HEAD_DIMS):
+        return flash_attention(q, k, v, causal=True)
+    return blockwise_attention(q, k, v, causal=True, window=s.window,
+                               softcap=s.softcap)
 
 
 def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
@@ -423,30 +549,19 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
                plan=None, nldpe: NLDPEConfig = OFF) -> torch.Tensor:
     """x (B, S, d) -> y (B, S, d); the layer's cache is updated in place.
 
-    ``mode="prefill"``: the whole prompt at positions (S,), causal over
-    the new K/V, then (with a dense ``cache``) the fill at ``plan``.
-    ``"train"``: the same attention without a cache, differentiable.
-    ``"decode"`` (S == 1) and ``"chunk"``: the new K/V are written at
-    ``plan`` (the forward's ``write_plan``; positions () shared or (B, S)
-    per slot), then the queries attend to the cache.
+    ``mode="prefill"``: the whole prompt at positions (S,), over the new
+    K/V, then (with a dense ``cache``) the fill at ``plan``.  ``"train"``:
+    the same attention without a cache, differentiable.  ``"decode"``
+    (S == 1) and ``"chunk"``: the new K/V are written at ``plan`` (the
+    forward's ``write_plan`` of this layer's stack; positions () shared or
+    (B, S) per slot), then the queries attend to the cache.
     """
-    b, seq, _ = x.shape
     q, k, v = _project_qkv(p, s, x, positions)
-    if mode == "train":
-        if nldpe.enabled:
-            o = nldpe.attention(q, k, v, causal=True, mask=None)
-        else:
-            o = blockwise_attention(q, k, v, causal=True)
-    elif mode == "prefill":
+    if mode in ("train", "prefill"):
         if positions.ndim != 1:
-            raise ValueError("prefill takes shared positions (S,)")
-        if nldpe.enabled:
-            # plain causal with no mask: FUSED streams it through the
-            # log-domain flash kernel (GQA-aware, K/V stay grouped)
-            o = nldpe.attention(q, k, v, causal=True, mask=None)
-        else:
-            o = flash_attention(q, k, v, causal=True)
-        if cache is not None:
+            raise ValueError(f"{mode} takes shared positions (S,)")
+        o = _prefill_attention(q, k, v, s, positions, mode, nldpe)
+        if mode == "prefill" and cache is not None:
             if "bt" in cache:
                 raise ValueError("paged caches are filled in 'chunk' or "
                                  "'decode' mode, not by whole-prompt prefill")
@@ -454,7 +569,7 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
     elif mode in ("decode", "chunk"):
         update_cache(cache, k, v, plan, s.kv_quant)
         qpos = positions if positions.ndim == 2 else positions.reshape(-1)
-        if "bt" in cache and not nldpe.enabled:
+        if "bt" in cache and not nldpe.enabled and s.softcap is None:
             # the queries sit at consecutive per-slot offsets, so query j
             # of slot b attends to [0, positions[b, 0] + j]: the kernel's
             # ragged staircase with base lengths positions[:, 0] + 1
@@ -467,8 +582,8 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
         else:
             att = paged_dense_view(cache) if "bt" in cache else cache
             if nldpe.enabled:
-                o = _nldpe_cached(nldpe, q, att,
-                                  cache_valid_mask(att["pos"], qpos), s)
+                o = _nldpe_cached(nldpe, q, att, cache_valid_mask(
+                    att["pos"], qpos, s.window), s)
             else:
                 o = cached_attention(q, att, qpos, s)
     else:

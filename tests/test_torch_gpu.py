@@ -1557,3 +1557,114 @@ def test_train_cli_restart_on_card(dev, tmp_path, capsys):
               f"relative difference {rel:.3g} "
               f"({'bitwise' if resumed == clean[5:] else 'not bitwise'})")
     assert rel <= 1e-4
+
+
+# -- sliding windows and the RG-LRU block (Gemma3, RecurrentGemma) --------
+
+@pytest.mark.parametrize("m,k,n", [(256, 5376, 21504), (4, 5376, 21504),
+                                   (1, 5376, 21504), (2, 4096, 12288),
+                                   (37, 100, 130), (130, 2047, 11001)])
+def test_fused_crossbar_acam_gelu_matches_plain(dev, m, k, n):
+    """Kernel B with the non-monotonic gelu table (Gemma3's and
+    RecurrentGemma's MLP gates) at both models' gate widths and ragged
+    shapes: one ACAM code on at most 1e-4 of the outputs, as with silu."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(m, k)), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.normal(size=(k, n)) * k ** -0.5,
+                     dtype=torch.float32, device=dev)
+    table = get_table("gelu", 8)
+    cells, inv = program(w)
+    lo, hi = table_thresholds(table, dev)
+    kw = dict(out_lo=float(table.out_spec.lo),
+              out_step=float(table.out_spec.step))
+    out = fused_crossbar_acam(x, *cells, inv, lo, hi, **kw)
+    ref = fused_crossbar_acam_ref(x, *cells, inv, lo, hi, **kw)
+    diff = (out - ref).abs()
+    assert diff.max().item() <= float(table.out_spec.step) * 1.0001
+    assert (diff > 0).float().mean().item() <= 1e-4
+    assert torch.equal(fused_linear_acam(x, w, "gelu"), out)
+
+
+@pytest.mark.parametrize("arch", ["gemma3_27b", "recurrentgemma_9b"])
+@pytest.mark.parametrize("fused", [False, True], ids=["OFF", "FUSED"])
+def test_windowed_lockstep_on_card_matches_cpu_plain_path(dev, arch, fused):
+    """The reduced windowed models (window 16) through the lockstep path,
+    40-token prompts (the band on the local layers; kernel F, or kernels
+    C and B, on Gemma3's global layer and every gate) and 8 greedy tokens
+    over wrapping rings, card against CPU plain path, f32 activations:
+    last prefill logits within 1e-4 OFF and 1e-2 FUSED, equal tokens."""
+    import dataclasses
+
+    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.launch.serve import build_generate_fn, build_prefill_step
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              activation_dtype=torch.float32)
+    nldpe = FUSED if fused else OFF
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(4),
+                            device="cpu")
+    prompts = torch.tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = lm.serving_params(from_jax(_np(params), device=where), cfg, nldpe)
+        cache = lm.init_model_cache(cfg, 2, 48, device=where)
+        last, cache = build_prefill_step(cfg, nldpe=nldpe)(
+            p, cache, prompts.to(where))
+        tok = torch.argmax(last, dim=-1).to(torch.int32)
+        gen, _ = build_generate_fn(cfg, 8, nldpe=nldpe)(p, cache, tok, 40)
+        out[where] = (last.cpu(), gen.cpu())
+    tol = 1e-2 if fused else 1e-4
+    assert (out["cpu"][0] - out["cuda"][0]).abs().max().item() <= tol
+    assert torch.equal(out["cpu"][1], out["cuda"][1])
+
+
+def test_windowed_engine_on_card_matches_cpu_plain_path(dev):
+    """``ServeEngine`` over the reduced Gemma3 (rings of 16 + 7 lines at
+    prefill_chunk 8, prompts of 32-48 tokens that wrap them) on the card
+    and on the CPU, f32 activations: the same greedy tokens."""
+    import dataclasses
+
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("gemma3_27b", reduced=True),
+                              activation_dtype=torch.float32)
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(5),
+                            device="cpu")
+    rng = np.random.default_rng(9)
+    reqs = [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(32, 49)))), max_new_tokens=6,
+        arrival=i) for i in range(4)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, from_jax(_np(params), device=where),
+                          max_slots=2, max_len=64, prefill_chunk=8,
+                          decode_block=2, device=where)
+        out[where] = {c.rid: c.tokens for c in eng.run(reqs)}
+    assert out["cpu"] == out["cuda"]
+
+
+def test_rglru_scan_on_card_matches_step_loop(dev):
+    """The odd/even scan on the card against the per-step recurrence on
+    the card (1e-5) and against the scan on the CPU (1e-5)."""
+    from repro_torch.models import lm
+    from repro_torch.nn import rglru
+    cfg = get_config("recurrentgemma_9b", reduced=True)
+    p = lm.init_params(cfg, generator=torch.Generator().manual_seed(6),
+                       device="cpu")["groups"]["b0"]["rec"]["rglru"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.tensor(np.random.default_rng(10).normal(size=(2, 333, 64)),
+                     dtype=torch.float32)
+    y_cpu, h_cpu = rglru.rglru_scan(p, x)
+    pc = {k: v.to(dev) for k, v in p.items()}
+    y, h_last = rglru.rglru_scan(pc, x.to(dev))
+    h = torch.zeros((2, 64), device=dev)
+    ys = []
+    for t in range(333):
+        y_t, h = rglru.rglru_step(pc, x[:, t:t + 1].to(dev), h)
+        ys.append(y_t)
+    assert (torch.cat(ys, 1) - y).abs().max().item() <= 1e-5
+    assert (h - h_last).abs().max().item() <= 1e-5
+    assert (y.cpu() - y_cpu).abs().max().item() <= 1e-5
+    assert (h_last.cpu() - h_cpu).abs().max().item() <= 1e-5
