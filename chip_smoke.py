@@ -70,6 +70,18 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    tokens must be paged OFF's up to near-ties of the routes the phase
    runs, and it reports the drift state's bytes, the programming and
    reprogramming seconds and the per-tick read time;
+   then ``[gemma3]`` and ``[recurrentgemma]`` (the windowed and RG-LRU
+   families, cut in depth), ``[qwen3moe]``: full-width Qwen3-30B-A3B cut
+   to ``QWEN3MOE_LAYERS`` MoE layers through ``PagedServeEngine`` at the
+   published capacity factor (kernel A on every layer, dropped
+   assignments of live tokens and of padding rows counted, none at
+   decode), its dropless twin through both engines and each request alone
+   through the lockstep path (kernel F; tokens equal up to near-ties under
+   2D; the routing flips between the routes counted) and the lockstep
+   FUSED path
+   (kernel C on every layer), and ``[rwkv6]``: full-width RWKV6-3B
+   through the lockstep path in ``OFF`` (generate fn == per-token loop)
+   and ``ON`` — no port kernel lies on that path;
 6. holds each kernel against its plain PyTorch version on the card at the
    shapes the serve paths launch, and times kernel, plain version and a
    PyTorch library call beside the card's bound (the crossbar kernels B,
@@ -81,7 +93,9 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    kernels' bounds name the f32 FMA and the split-TF32 tensor-core bound;
 7. serves a small model on the card and on the CPU (plain versions): the
    paged engine's greedy tokens must agree, with fp, int8 and log8 pools,
-   and the lockstep prefill's last logits within a stated tolerance;
+   and the lockstep prefill's last logits within a stated tolerance; the
+   reduced windowed models' logits, the reduced Qwen3-MoE's paged tokens
+   and the reduced RWKV6's lockstep tokens too;
 8. ``[library]``: drives the public NL-DPE kernel library at full width —
    the layer-0 MLP gate (2048 x 11008) programmed with A-SL programming
    noise, then ``crossbar_matmul`` with read noise (kernel E) and
@@ -181,10 +195,21 @@ GEMMA3_B_MS = (256, 4, 1)
 GEMMA3_ATTN_LEN = 1280          # kernels F, C: a prefill within 1100-1400
 B_PLAIN_ELEMENTS = 1 << 24      # outputs per call of B's plain version
 RGEMMA_LAYERS = 5               # (rec, rec, local) + the (rec, rec) tail
+QWEN3MOE_LAYERS = 8             # Qwen3-30B-A3B's first 8 of 48 MoE layers
+QWEN3MOE_ATTN = (2, 32, 4, 512, 512, 128)   # F, C: the lockstep prefill
+# the dropless twin: float32 activations (see qwen3moe_phase); a dropless
+# expert buffer holds every assignment of the forward for each of the 128
+# experts, so its cost grows with the rows a chunk carries, pad rows of
+# idle slots included: 2 slots, chunks of 16
+QWEN3MOE_TWIN = dict(max_slots=2, max_len=1024, page_size=16,
+                     prefill_chunk=16, decode_block=4)
+# [rwkv6]: RWKV6-3B at its full 32 layers (the phase stays within ~30 s)
+RWKV6_LAYERS = 32
 # Qwen2.5-3B's first this many layers (of 36) in [serve lockstep OFF],
 # [serve lockstep FUSED], [serve slotted OFF] and [train], so the whole
-# script stays within its time limit on a slow host
-CUT_LAYERS = 12
+# script stays within its time limit on a slow host (12 before the
+# [qwen3moe] and [rwkv6] phases came)
+CUT_LAYERS = 8
 WINDOWED_TOL = 1e-4             # reduced windowed models, card vs CPU OFF
 # [cnn]: CNNConfig() at this batch (M = 32768 at the stem and stage 0);
 # the card's OFF logits against the CPU's at float32 (TF32 off)
@@ -341,6 +366,7 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
         engine.telemetry.reset()        # the trace's events alone
     engine.prefill_seconds = engine.decode_seconds = 0.0
     engine.decode_ticks = 0
+    engine.reset_moe_stats()            # the trace's MoE drops alone
     if getattr(engine, "spec_k", 0):
         engine.reset_window()           # the trace's spec counters alone
         engine.spec_draft_seconds = 0.0
@@ -412,6 +438,8 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
            "launches_per_decode_tick": split["decode_tick"][1]
            / max(split["decode_tick"][0], 1),
            "paged_attention_by_shape": by_shape}
+    if engine.moe_stats:
+        out["moe"] = engine.moe_stats
     print(f"[{label}] " + json.dumps(out))
     out["tokens"] = {c.rid: c.tokens for c in comps}
     return out
@@ -1346,7 +1374,7 @@ def kernel_a_inputs(engine) -> dict:
 
 def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
                           q_in: dict, qlaunches: dict,
-                          spec_launches: dict) -> dict:
+                          spec_launches: dict, extra_cases=()) -> dict:
     """Kernel A on the OFF engine's own layer-0 pools and block tables
     (``kernel_a_inputs``): decode (Q=1), the spec verify (Q=2, the analog
     phase's and spec_k 1's; Q=3, spec_k 2's; Q=5, spec_k 4's) and chunk
@@ -1354,7 +1382,9 @@ def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
     pools; then on the log8 engine's own layer-0 code and scale pools and
     block tables (Q=1, 64), the log8 pools as served and the same K/V
     re-encoded on the int8 grid.  Sentinel entries are written into each
-    block table.  ``spec_launches`` are the spec phases' counts."""
+    block table.  ``spec_launches`` are the spec phases' counts (and
+    other phases'); ``extra_cases`` (the MoE phase's) join the row's
+    cases."""
     from repro_torch.core.quantization import kv_decode
     from repro_torch.nn.attention import _quantize_kv
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1383,6 +1413,7 @@ def paged_attention_phase(torch, timer, fp_in: dict, launches: dict,
                 dict(k_scale=ks, v_scale=vs, kv_quant=mode), mode,
                 launches=qlaunches["paged_attention_by_pool"].get(mode, 0)))
     top = cases[0]                          # decode, f32 pool: the hot case
+    cases += list(extra_cases)
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:114",
@@ -2472,28 +2503,94 @@ def greedy_alone(torch, cfg, sp, prompt, gen_len: int, nldpe) -> tuple:
     return toks, margins
 
 
-def window_route_deviation(torch, cfg, sp, prompt, chunk: int) -> float:
+def recording_routes(calls: list):
+    """While active, append each MoE layer's routed experts
+    (``nn.moe.route``'s ``expert_idx``, as (tokens, k)) to ``calls``."""
+    import contextlib
+
+    import repro_torch.nn.moe as moe
+    plain = moe.route
+
+    def route(probs, s, cap):
+        r = plain(probs, s, cap)
+        calls.append(r["expert_idx"].reshape(-1, s.top_k))
+        return r
+
+    @contextlib.contextmanager
+    def active():
+        moe.route = route
+        try:
+            yield
+        finally:
+            moe.route = plain
+    return active()
+
+
+def route_flips(routes: tuple) -> dict:
+    """Routing flips between two prefills of one prompt: ``routes`` holds
+    each route's per-layer (tokens, k) experts.  A token-layer flips where
+    the top-k sets differ; ``one_expert``: one expert swapped;
+    ``last_place``: the first route's k-th choice swapped, the others kept
+    (a near-tie at the edge of the top k)."""
+    a_calls, b_calls = routes
+    flips = one = last = total = 0
+    for a, b in zip(a_calls, b_calls):
+        member = (a[:, :, None] == b[:, None, :]).any(-1)       # (n, k)
+        missing = a.shape[1] - member.sum(-1)
+        flips += int((missing > 0).sum())
+        one += int((missing == 1).sum())
+        last += int(((missing == 1) & ~member[:, -1]).sum())
+        total += a.shape[0]
+    return {"token_layers": total, "flips": flips, "one_expert": one,
+            "last_place": last}
+
+
+def window_route_deviation(torch, cfg, sp, prompt, chunk: int,
+                           page_size: int | None = None,
+                           routes: list | None = None) -> float:
     """D: the largest |logit| difference between the two routes a request
     takes — the lockstep prefill (kernel F on the global layer, the band
     on the local ones, rings of ``window`` lines) and the engine's chunked
     prefill (``chunk`` positions a call over rings of ``window + chunk -
-    1`` lines) — at the prompt's last token and one decode step after it,
-    on the same weights."""
+    1`` lines; with ``page_size``, over a paged cache through kernel A) —
+    at the prompt's last token and one decode step after it, on the same
+    weights.  With ``routes`` (MoE), appends the two prefills' per-layer
+    routed experts (lockstep, chunked) for ``route_flips``."""
+    import contextlib
+
     from repro_torch.launch.serve import build_prefill_step
     from repro_torch.models import lm
     n = len(prompt)
+    calls = ([], [])
+
+    def record(i):
+        return (contextlib.nullcontext() if routes is None
+                else recording_routes(calls[i]))
     toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
     lock = lm.init_model_cache(cfg, 1, n + 1, device="cuda")
-    a0, lock = build_prefill_step(cfg)(sp, lock, toks)
+    with record(0):
+        a0, lock = build_prefill_step(cfg)(sp, lock, toks)
     nxt = torch.argmax(a0, -1).to(torch.int32)
     a1 = lm.decode_step(sp, cfg, nxt, n, lock)
-    slot = lm.init_model_cache(cfg, 1, n + 1, slotted=True,
-                               ring_slack=chunk - 1, device="cuda")
-    for c0 in range(0, n, chunk):
-        c1 = min(c0 + chunk, n)
-        pos = torch.arange(c0, c1, dtype=torch.int32, device="cuda")[None]
-        b0 = lm.forward(sp, toks[:, c0:c1], cfg, mode="chunk", cache=slot,
-                        positions=pos)[:, -1]
+    if page_size:
+        nb = -(-(n + 1) // page_size)
+        slot = lm.init_model_cache(cfg, 1, n + 1, paged=(nb, page_size),
+                                   device="cuda")
+        slot["bt"][0] = torch.arange(nb, dtype=torch.int32, device="cuda")
+    else:
+        slot = lm.init_model_cache(cfg, 1, n + 1, slotted=True,
+                                   ring_slack=chunk - 1, device="cuda")
+    with record(1):
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            pos = torch.arange(c0, c1, dtype=torch.int32,
+                               device="cuda")[None]
+            b0 = lm.forward(sp, toks[:, c0:c1], cfg, mode="chunk",
+                            cache=slot, positions=pos)[:, -1]
+    if routes is not None:
+        layers = len(calls[0])
+        routes.append((calls[0], [torch.cat(calls[1][i::layers])
+                                  for i in range(layers)]))
     b1 = lm.decode_step(sp, cfg, nxt, torch.tensor([n], dtype=torch.int32,
                                                    device="cuda"), slot)
     return max((a0 - b0).abs().max().item(), (a1 - b1).abs().max().item())
@@ -2718,6 +2815,315 @@ def recurrentgemma_phase(torch, timer) -> dict:
     return out
 
 
+def qwen3moe_phase(torch, timer) -> dict:
+    """``[qwen3moe]``: full-width Qwen3-30B-A3B (128 experts, top 8,
+    d_expert_ff 768, 32/4 heads of 128) cut to ``QWEN3MOE_LAYERS`` MoE
+    layers, seeded float32 weights, bf16 activations.  Serves paged OFF's
+    trace and settings through ``PagedServeEngine`` at the published
+    capacity factor 1.25 (kernel A on every layer; dropped assignments
+    counted per prefill chunk and per decode tick, live tokens' apart
+    from padding rows', none at decode: 8 tokens give an expert at most 8
+    assignments, the minimum capacity), profiles a window (``moe_profile``:
+    the expert FFN's and the write-masked rows' dense attention's share of
+    busy time) and holds kernel A against its plain version on the
+    engine's own pool.  Then a dropless twin (capacity factor 0) over 4
+    requests, 16 new tokens, through ``PagedServeEngine``, ``ServeEngine``
+    and each request alone through the lockstep path (kernel F on every
+    layer): equal tokens up to near-ties under 2D.  The twin runs float32
+    activations: at bf16 the routes' logits part by ~2, where a near-tie
+    guard means nothing; the routing flips between the chunked and the
+    lockstep prefill of the first request, counted at bf16 and at
+    float32, show why (a flipped expert in an early layer moves every
+    later one).
+    Last, the lockstep FUSED path, 2 x 512 and 8 new (kernel C on every
+    layer, kernel B on none: the experts never reach it), and F and C at
+    ``QWEN3MOE_ATTN``."""
+    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.kernels.dual_compute.ops import (
+        fused_crossbar_acam, log_quantize_qkv, logdomain_flash_attention)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.engine import PagedServeEngine, ServeEngine
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = cut_config("qwen3_moe_30b_a3b", QWEN3MOE_LAYERS)
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[qwen3moe] {cfg.name} cut to {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (float32; "
+          f"{cfg.active_param_count() / 1e9:.3f} B active a token) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {"layers": cfg.n_layers, "params_b": cfg.param_count() / 1e9,
+           "active_params_b": cfg.active_param_count() / 1e9,
+           "capacity_factor": cfg.moe.capacity_factor}
+    paged_kw = dict(max_slots=8, max_len=1024, page_size=16,
+                    prefill_chunk=64, decode_block=4)
+    engine = PagedServeEngine(cfg, params, nldpe=OFF, **paged_kw)
+    res = serve(torch, engine, make_trace(cfg, 8, 32, 0), paged_attention,
+                "qwen3moe serve OFF")
+    n = cfg.n_layers
+    check(res["launches_per_prefill_chunk"] == n
+          and res["launches_per_decode_tick"] == n * paged_kw[
+              "decode_block"], f"[qwen3moe] kernel A launched "
+          f"{res['launches_per_prefill_chunk']} times a prefill chunk and "
+          f"{res['launches_per_decode_tick']} a decode tick, expected one "
+          f"per MoE layer and step")
+    moe = res["moe"]
+    check(moe["dropped_decode"] == 0, f"[qwen3moe] {moe['dropped_decode']} "
+          f"assignments dropped at decode (8 tokens a step cannot "
+          f"overflow the minimum capacity of 8)")
+    out["serve_off"] = {k: v for k, v in res.items() if k != "tokens"}
+    out["dropped_per_prefill_chunk"] = moe["dropped_per_prefill_forward"]
+    out["dropped_pad_per_prefill_chunk"] = moe[
+        "dropped_pad_per_prefill_forward"]
+    out["dropped_per_decode_tick"] = (moe["dropped_decode"]
+                                      / max(res["decode_ticks"], 1))
+    # a 2-request window: with the host's ops recorded, reading back the
+    # trace of 4 took ~40 s
+    out["profile_serve_off"] = moe_profile(
+        torch, engine, make_trace(cfg, 2, 32, 0), "qwen3moe serve OFF")
+    a_in = kernel_a_inputs(engine)
+    del engine
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    a_cases = []
+    for q_len in (1, 64):
+        q = torch.randn((a_in["bt"].shape[0], cfg.n_heads, q_len,
+                         cfg.resolved_head_dim), generator=gen,
+                        device="cuda")
+        a_cases.append(paged_case(torch, timer, a_in, q, a_in["k"],
+                                  a_in["v"], {}, "float32"))
+    del a_in
+
+    # the dropless twin: every token's output its own, so the paged, the
+    # slotted and the run-alone routes differ by float rounding only
+    cfg0 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.0))
+    reqs = make_trace(cfg0, 4, 16, 0)
+    sp = lm.serving_params(params, cfg0)
+    chunk = QWEN3MOE_TWIN["prefill_chunk"]
+    bf16_routes = []
+    bf16_d = max(window_route_deviation(torch, cfg0, sp, reqs[0].tokens,
+                                        chunk, routes=bf16_routes),
+                 window_route_deviation(torch, cfg0, sp, reqs[0].tokens,
+                                        chunk, page_size=16,
+                                        routes=bf16_routes))
+    del sp
+    cfg0 = dataclasses.replace(cfg0, activation_dtype=torch.float32)
+    twin_kw = dict(QWEN3MOE_TWIN)
+    engine = PagedServeEngine(cfg0, params, nldpe=OFF, **twin_kw)
+    paged_res = serve(torch, engine, reqs, paged_attention,
+                      "qwen3moe dropless serve paged")
+    del engine
+    torch.cuda.empty_cache()
+    twin_kw.pop("page_size")
+    engine = ServeEngine(cfg0, params, nldpe=OFF, **twin_kw)
+    slot_res = serve(torch, engine, reqs, None,
+                     "qwen3moe dropless serve slotted")
+    sp = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    zero_counts()
+    alone, margins = {}, {}
+    t1 = time.perf_counter()
+    for r in reqs:
+        alone[r.rid], margins[r.rid] = greedy_alone(
+            torch, cfg0, sp, r.tokens, r.max_new_tokens, OFF)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t1
+    f_launches = flash_attention.launches
+    check(f_launches == n * len(reqs), f"[qwen3moe] kernel F launched "
+          f"{f_launches} times over {len(reqs)} lockstep prefills, "
+          f"expected one per layer ({n * len(reqs)})")
+    f32_routes = []
+    d = max(window_route_deviation(torch, cfg0, sp, reqs[0].tokens, chunk,
+                                   routes=f32_routes),
+            window_route_deviation(torch, cfg0, sp, reqs[0].tokens, chunk,
+                                   page_size=16, routes=f32_routes))
+    flips = {f"{dt}_{route}_vs_alone": route_flips(r)
+             for dt, rs in (("bf16", bf16_routes), ("float32", f32_routes))
+             for route, r in zip(("slotted", "paged"), rs)}
+    print(f"[qwen3moe routes] rid {reqs[0].rid}: " + json.dumps(flips))
+    ties = {"paged": within_near_ties(paged_res["tokens"], alone, margins, d,
+                                      "[qwen3moe] dropless paged vs alone"),
+            "slotted": within_near_ties(
+                slot_res["tokens"], alone, margins, d,
+                "[qwen3moe] dropless slotted vs alone")}
+    del sp
+    torch.cuda.empty_cache()
+    out["dropless"] = {
+        "paged": {k: v for k, v in paged_res.items() if k != "tokens"},
+        "slotted": {k: v for k, v in slot_res.items() if k != "tokens"},
+        "activations": "float32", "prefill_chunk": chunk,
+        "route_deviation_d": d, "bf16_route_deviation_d": bf16_d,
+        "routing_flips": flips,
+        "near_ties": ties, "alone_s": alone_s,
+        "flash_attention_launches": f_launches,
+        "paged_equals_slotted": paged_res["tokens"] == slot_res["tokens"],
+        "paged_equals_alone": paged_res["tokens"] == alone}
+    print("[qwen3moe dropless] " + json.dumps(out["dropless"]))
+
+    lock_fused = lockstep(torch, cfg, params, FUSED, batch=2, prompt_len=512,
+                          gen_len=8, counters_on_path=[
+                              logdomain_flash_attention, log_quantize_qkv],
+                          label="qwen3moe lockstep FUSED",
+                          compare_loop=False, profile=False)
+    check(lock_fused["launches"]["fused_crossbar_acam"] == 0,
+          "[qwen3moe] lockstep FUSED launched kernel B: the experts' gate "
+          "is an einsum then an ACAM activation, never kernel B")
+    out["lockstep_fused"] = {k: v for k, v in lock_fused.items()
+                             if k != "per_kernel"}
+    del params
+    torch.cuda.empty_cache()
+    cases = {"paged_attention": a_cases,
+             "flash_attention": [flash_case(torch, timer, QWEN3MOE_ATTN, dt,
+                                            SEED + 12)
+                                 for dt in (torch.bfloat16, torch.float32)],
+             "logdomain_flash_attention": [logdomain_case(
+                 torch, timer, QWEN3MOE_ATTN, torch.bfloat16, SEED + 13)]}
+    for c in sum(cases.values(), []):
+        c["phase"] = "qwen3moe"
+    out["launches"] = {
+        "paged_attention": {
+            "serve_off": res["launches"]["paged_attention"],
+            "serve_off_per_prefill_chunk": res["launches_per_prefill_chunk"],
+            "serve_off_per_decode_tick": res["launches_per_decode_tick"],
+            "dropless_paged": paged_res["launches"]["paged_attention"]},
+        "flash_attention": {"lockstep_off_alone": f_launches},
+        "logdomain_flash_attention": {
+            "lockstep_fused": lock_fused["launches"][
+                "logdomain_flash_attention"],
+            "lockstep_fused_per_prefill": lock_fused["per_kernel"][
+                "logdomain_flash_attention"]["launches_per_prefill"]}}
+    print("[qwen3moe summary] " + json.dumps(out))
+    out["kernel_cases"] = cases
+    return out
+
+
+def moe_profile(torch, engine, reqs, label: str) -> dict:
+    """``profile_window``'s window and outputs (busy and idle share, top
+    kernels, the port's kernels) with the host's ops recorded too, and two
+    functions each under a ``record_function`` range:
+    ``nn.moe.expert_ffn`` (the experts' three batched matmuls and their
+    activation) and ``nn.attention.cached_attention`` (on this path only
+    the masked dense route of the write-masked rows, ``dense_rows``).  A
+    range's device time is the sum of the durations CUPTI gives the
+    kernels launched inside it (no idle gaps), its share that of the
+    window's busy time."""
+    import repro_torch.nn.attention as attention
+    import repro_torch.nn.moe as moe
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    spans = {"expert_ffn": (moe, "expert_ffn"),
+             "dense_rows_attention": (attention, "cached_attention")}
+    plain = {tag: getattr(mod, name) for tag, (mod, name) in spans.items()}
+
+    def ranged(tag):
+        def call(*args, **kwargs):
+            with record_function(tag):
+                return plain[tag](*args, **kwargs)
+        return call
+
+    again = [dataclasses.replace(r, rid=100 + r.rid, arrival=engine.tick)
+             for r in reqs]
+    for tag, (mod, name) in spans.items():
+        setattr(mod, name, ranged(tag))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            engine.run(again)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for tag, (mod, name) in spans.items():
+            setattr(mod, name, plain[tag])
+    events = p.events()
+    # device events alone: the host ops carry their kernels' time too
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in spans:
+            by_name[e.name] = by_name.get(e.name, 0) + e.device_time_total
+    busy = sum(by_name.values()) / 1e6
+    port = {}
+    for name in PORT_KERNELS:
+        ms = sum(us for k, us in by_name.items()
+                 if f"{name}_kernel" in k) / 1e3
+        if ms:
+            port[name] = {"ms": ms, "share_of_busy": ms / 1e3 / busy}
+    out = {"wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall,
+           "top_kernels_ms": [[k[:90], us / 1e3] for k, us in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:8]],
+           "port_kernels": port, "host_ops_recorded": True}
+    print(f"[{label} profile] " + json.dumps(out))
+    for tag in spans:
+        ranges = [e for e in events
+                  if e.device_type == DeviceType.CPU and e.name == tag]
+        ms = sum(e.device_time_total for e in ranges) / 1e3
+        out[tag] = {"calls": len(ranges), "device_ms": ms,
+                    "share_of_busy": ms / 1e3 / busy}
+        print(f"[{label} {tag}] " + json.dumps(out[tag]))
+    ffn = out["expert_ffn"]
+    check(ffn["calls"] > 0 and 0 < ffn["device_ms"] <= busy * 1e3,
+          f"[{label}] the profiler gave the expert FFN's ranges "
+          f"{ffn['device_ms']} ms of kernels in {busy * 1e3} ms busy")
+    return out
+
+
+def rwkv6_phase(torch) -> dict:
+    """``[rwkv6]``: full-width RWKV6-3B (d 2560, 40 heads of 64, d_ff 8960,
+    vocab 65536) at ``RWKV6_LAYERS`` layers, seeded float32 weights, bf16
+    activations, through the lockstep path: ``OFF`` over 2 x 2048-token
+    prompts (16 chunks of 128) and 32 new tokens, the generate fn and the
+    per-token loop giving the same tokens; then ``ON`` (the lerps' and
+    gate's products through log-domain DMMul, the decay through two ACAM
+    exp tables) over 1 x 1024 and 8 new.  No port kernel lies on this
+    path: every count must stay 0."""
+    from repro_torch.core.engine import OFF, ON
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = cut_config("rwkv6_3b", RWKV6_LAYERS)
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[rwkv6] {cfg.name} at {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (float32) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {"layers": cfg.n_layers, "params_b": cfg.param_count() / 1e9,
+           "port_kernels_on_path": "none (plain PyTorch: the chunked WKV, "
+                                   "the projections, the ACAM tables' "
+                                   "piecewise path)"}
+    out["off"] = lockstep(torch, cfg, params, OFF, batch=2, prompt_len=2048,
+                          gen_len=32, counters_on_path=[],
+                          label="rwkv6 lockstep OFF", compare_loop=True,
+                          profile=False)
+    out["on"] = lockstep(torch, cfg, params, ON, batch=1, prompt_len=1024,
+                         gen_len=8, counters_on_path=[],
+                         label="rwkv6 lockstep ON", compare_loop=False,
+                         profile=False)
+    for mode in ("off", "on"):
+        launched = {k: v for k, v in out[mode]["launches"].items() if v}
+        check(not launched, f"[rwkv6] {mode}: port kernels launched on an "
+              f"attention-free path: {launched}")
+    del params
+    torch.cuda.empty_cache()
+    print("[rwkv6 summary] " + json.dumps(
+        {"layers": cfg.n_layers, "port_kernels_on_path": "none",
+         "off_prefill_s": out["off"]["prefill_s"],
+         "off_decode_ms_per_step": out["off"]["decode_ms_per_step"],
+         "off_loop_tokens_equal": out["off"]["loop_tokens_equal"],
+         "on_prefill_s": out["on"]["prefill_s"],
+         "on_decode_ms_per_step": out["on"]["decode_ms_per_step"],
+         "max_memory_allocated_gb": max(
+             out[m]["max_memory_allocated_gb"] for m in ("off", "on"))}))
+    return out
+
+
 def small_model_agrees(torch) -> None:
     """The reduced model (float32 activations) served on the card through
     the kernels and on the CPU through the plain versions gives the same
@@ -2770,6 +3176,52 @@ def small_model_agrees(torch) -> None:
         print(f"[reference] small model lockstep {name}: card vs CPU last "
               f"logits max |diff| {err:.3g} (tolerance {tol})")
     windowed_models_agree(torch, rng)
+    moe_rwkv_models_agree(torch, rng)
+
+
+def moe_rwkv_models_agree(torch, rng) -> None:
+    """The reduced Qwen3-MoE (dropless) through ``PagedServeEngine``
+    (kernel A on every layer) and the reduced RWKV6 through the lockstep
+    path, float32 activations, on the card and on the CPU (plain
+    versions): equal greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    from repro_torch.launch.serve import build_generate_fn, build_prefill_step
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen3_moe_30b_a3b", reduced=True),
+                              activation_dtype=torch.float32)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    reqs = [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(5, 30)))), max_new_tokens=8,
+        arrival=i) for i in range(6)]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        eng = PagedServeEngine(cfg, _to(cpu, dev), max_slots=3, max_len=48,
+                               page_size=4, prefill_chunk=8, decode_block=2,
+                               device=dev)
+        tokens[dev] = {c.rid: c.tokens for c in eng.run(reqs)}
+    check(tokens["cpu"] == tokens["cuda"], f"reduced qwen3_moe_30b_a3b: card "
+          f"and CPU paged tokens differ: {tokens}")
+    print("[reference] reduced qwen3_moe_30b_a3b (paged): card tokens == "
+          "CPU plain-path tokens")
+    cfg = dataclasses.replace(get_config("rwkv6_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 150)),
+                              dtype=torch.int32)
+    gen = {}
+    for dev in ("cpu", "cuda"):
+        p = lm.serving_params(_to(cpu, dev), cfg)
+        cache = lm.init_model_cache(cfg, 2, 160, device=dev)
+        last, cache = build_prefill_step(cfg)(p, cache, prompts.to(dev))
+        gen[dev] = build_generate_fn(cfg, 8)(
+            p, cache, torch.argmax(last, -1).to(torch.int32), 150)[0].cpu()
+    check(torch.equal(gen["cpu"], gen["cuda"]), f"reduced rwkv6_3b: card "
+          f"and CPU lockstep tokens differ: {gen}")
+    print("[reference] reduced rwkv6_3b (lockstep): card tokens == CPU "
+          "plain-path tokens")
 
 
 def windowed_models_agree(torch, rng) -> None:
@@ -3035,6 +3487,14 @@ def main() -> None:
     print(f"[recurrentgemma] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    qmoe = qwen3moe_phase(torch, Timer(torch))
+    print(f"[qwen3moe] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rwkv6_phase(torch)
+    print(f"[rwkv6] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     lib = library_phase(torch, params)
     library_checks(torch, lib)
     print(f"[library] phase {time.perf_counter() - t0:.1f} s")
@@ -3068,7 +3528,9 @@ def main() -> None:
                 "launches_serve_preempt": preempt_res["launches"][
                     "paged_attention"],
                 "launches_serve_async": async_res["launches"][
-                    "paged_attention"]}),
+                    "paged_attention"],
+                "launches_qwen3moe": qmoe["launches"]["paged_attention"]},
+            qmoe["kernel_cases"]["paged_attention"]),
         fused_acam_phase(torch, timer, params, {
             **path_launches(fused_res, "fused_crossbar_acam"),
             "launches_gemma3": gemma3["launches"]["fused_crossbar_acam"],
@@ -3079,14 +3541,19 @@ def main() -> None:
         logdomain_phase(torch, timer, {
             **lock_fused["per_kernel"]["logdomain_flash_attention"],
             "launches_gemma3": gemma3["launches"][
+                "logdomain_flash_attention"],
+            "launches_qwen3moe": qmoe["launches"][
                 "logdomain_flash_attention"]},
-            gemma3["kernel_cases"]["logdomain_flash_attention"]),
+            gemma3["kernel_cases"]["logdomain_flash_attention"]
+            + qmoe["kernel_cases"]["logdomain_flash_attention"]),
         acam_phase(torch, timer, lib),
         crossbar_phase(torch, timer, lib),
         flash_phase(torch, timer, {
             **lock_off["per_kernel"]["flash_attention"],
-            "launches_gemma3": gemma3["launches"]["flash_attention"]},
-            gemma3["kernel_cases"]["flash_attention"]),
+            "launches_gemma3": gemma3["launches"]["flash_attention"],
+            "launches_qwen3moe": qmoe["launches"]["flash_attention"]},
+            gemma3["kernel_cases"]["flash_attention"]
+            + qmoe["kernel_cases"]["flash_attention"]),
         qmatmul_phase(torch, timer, lib, cnn_res)]
     del lib, off_in, log8_in, cnn_res
     print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")

@@ -2,10 +2,11 @@
 
 Ported families: the dense attention pattern ``("attn",)`` (``qwen2_5_3b``,
 ``qwen2_7b``, ``minicpm_2b``), Gemma3's local:global sliding-window
-pattern (``gemma3_27b``) and RecurrentGemma's RG-LRU hybrid
-(``recurrentgemma_9b``).  The MoE, RWKV6 and frontend fields of
-``repro``'s config are not here yet (``ROADMAP.md`` A.5); the model
-rejects block types it cannot run.
+pattern (``gemma3_27b``), RecurrentGemma's RG-LRU hybrid
+(``recurrentgemma_9b``), the MoE pattern ``("moe",)``
+(``qwen3_moe_30b_a3b``, ``llama4_scout_17b_a16e``) and RWKV6
+(``rwkv6_3b``).  The frontend fields of ``repro``'s config (the VLM
+prefix, the audio stub) are not here yet (``ROADMAP.md`` A.5).
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import dataclasses
 import importlib
 
 import torch
+
+from ..nn.moe import MoESpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +37,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     layer_pattern: tuple = ("attn",)
     window: int | None = None
+    moe: MoESpec | None = None        # the expert FFN of "moe" blocks
     d_rnn: int | None = None          # RG-LRU width ("rec" blocks)
     qk_norm: bool = False
     attn_softcap: float | None = None
@@ -51,7 +55,7 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks + head), as
-        ``repro``'s for the block types the port has."""
+        ``repro``'s."""
         d, v = self.d_model, self.vocab_size
         hd = self.resolved_head_dim
         total = v * d
@@ -63,18 +67,32 @@ class ArchConfig:
             counts[pat[i % len(pat)]] += 1
         for t, n in counts.items():
             ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
-            if t in ("attn", "local", "global"):
+            if t in ("attn", "local", "global", "moe"):
                 blk = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
                     + self.n_heads * hd * d
             elif t == "rec":
                 dr = self.d_rnn or d
                 blk = 2 * d * dr + 3 * dr * dr + dr * d
+            elif t == "rwkv":
+                blk = 0
+                ffn = 2 * d * self.d_ff + 6 * d * d   # cm + tm projections
             else:
-                raise NotImplementedError(
-                    f"param_count: block type {t!r} is not ported "
-                    f"(ROADMAP.md A.5)")
+                raise ValueError(t)
+            if t == "moe":
+                m = self.moe
+                ffn = m.n_experts * (3 * d * m.d_expert_ff) + d * m.n_experts
             total += n * (blk + ffn + 2 * d)
         return total
+
+    def active_param_count(self) -> int:
+        """MoE: the parameters one token routes through (``top_k`` of the
+        experts), as ``repro``'s; the whole count otherwise."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert_ff
+        return (self.param_count() - self.n_layers * m.n_experts * per_expert
+                + self.n_layers * m.top_k * per_expert)
 
 
 def get_config(name: str, reduced: bool = False) -> ArchConfig:

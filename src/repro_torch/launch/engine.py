@@ -5,7 +5,8 @@
   ``ServeEngine`` gives each a row of a slotted dense cache
   (``lm.init_model_cache(..., slotted=True)``; windowed layers keep rings
   of ``window + prefill_chunk - 1`` lines, so it serves Gemma3's
-  local:global pattern; recurrent blocks are refused, as in ``repro``);
+  local:global pattern; recurrent and RWKV6 blocks are refused, as in
+  ``repro``);
   ``PagedServeEngine`` (attention without windows) maps a
   slot's logical blocks onto physical pages of a per-layer pool through its
   block-table row (``launch/kvpool.py`` owns the page metadata).
@@ -61,6 +62,14 @@ publication).
   mesh (``aot_prefill`` is False).
 * **Async serving** — ``launch/async_engine.AsyncServeEngine`` runs
   ``_dispatch_tick`` and ``_harvest`` on separate threads (DESIGN.md §14).
+* **MoE** — both engines serve the ``moe`` pattern (Qwen3-MoE,
+  Llama4-Scout) in every numerics mode, pool grid and spec setting, each
+  forward's tokens one routing group.  Under a capacity factor an
+  assignment may drop, and which ones do depends on the tokens batched
+  together (padding rows of a chunk included), as in ``repro``;
+  ``moe_stats`` (the ``"moe"`` metrics group) counts the dropped
+  assignments of the prefill chunks and of the plain decode steps (a spec
+  tick's draft and verify forwards are not counted).
 
 Not ported yet (``ROADMAP.md`` queue A): meshes.  The paged engine raises
 ``NotImplementedError`` when given ``mesh`` or ``rules``.
@@ -183,10 +192,6 @@ class ServeEngine:
             raise NotImplementedError(
                 f"continuous batching needs attention-block caches; "
                 f"{cfg.name} pattern has {bad}")
-        if "moe" in cfg.layer_pattern:
-            raise NotImplementedError(
-                f"{cfg.name}: 'moe' blocks are not ported yet "
-                f"(ROADMAP.md A.5)")
         if prefill_chunk < 1 or decode_block < 1 or max_slots < 1:
             raise ValueError("max_slots, prefill_chunk, decode_block >= 1")
         if kv_quant not in (None, "int8", "log8"):
@@ -209,6 +214,14 @@ class ServeEngine:
         self.eos_id = eos_id
         self.dtype = dtype
         self.cache = self._init_cache()
+        # MoE: dropped assignments (device counters, read by moe_stats:
+        # live tokens' at 0, padding rows' at 1) and the forwards they
+        # were counted over
+        self._moe_drops = ({k: torch.zeros((2,), dtype=torch.int64,
+                                           device=self.device)
+                            for k in ("prefill", "decode")}
+                           if "moe" in cfg.layer_pattern else None)
+        self._moe_forwards = {"prefill": 0, "decode": 0}
 
         s, dev = max_slots, self.device
         self._tok = torch.zeros((s,), dtype=torch.int32, device=dev)
@@ -257,6 +270,8 @@ class ServeEngine:
         # ran
         me = weakref.ref(self)
         self.metrics.register_group("engine", lambda: me()._engine_stats())
+        if self._moe_drops is not None:
+            self.metrics.register_group("moe", lambda: me().moe_stats)
         if self.telemetry is not None:
             self.metrics.register_group("latency", self.telemetry.summary)
 
@@ -306,9 +321,47 @@ class ServeEngine:
             c, dtype=torch.int32, device=self.device)
         logits = lm.forward(self.params, tokens, self.cfg,
                             cache=self.cache, positions=positions,
-                            nldpe=self.nldpe, write_mask=mask)
+                            nldpe=self.nldpe, write_mask=mask,
+                            moe_drops=self._moe_count("prefill"),
+                            moe_live=mask[:, None] & (positions
+                                                      < limit[:, None]))
         clip_positions(self.cache, mask, limit)
         return logits
+
+    def _moe_count(self, kind: str) -> torch.Tensor | None:
+        """The dropped-assignment counter a forward of ``kind`` adds to
+        (None without MoE layers), counting the forward."""
+        if self._moe_drops is None:
+            return None
+        self._moe_forwards[kind] += 1
+        return self._moe_drops[kind]
+
+    @property
+    def moe_stats(self) -> dict:
+        """MoE assignments dropped for capacity in the prefill chunks and
+        in the plain decode steps, in all and per forward (every MoE layer
+        of one forward together): those of live tokens (a request's prompt
+        or decode tokens) and, as ``dropped_pad_*``, those of padding rows
+        (idle or finished slots, a chunk's tail past the prompt), whose
+        outputs are discarded.  Reading it synchronizes the device."""
+        if self._moe_drops is None:
+            return {}
+        out = {}
+        for kind, t in self._moe_drops.items():
+            (n, pad), calls = t.tolist(), self._moe_forwards[kind]
+            out.update({f"dropped_{kind}": n, f"dropped_pad_{kind}": pad,
+                        f"{kind}_forwards": calls,
+                        f"dropped_per_{kind}_forward": n / max(calls, 1),
+                        f"dropped_pad_per_{kind}_forward":
+                            pad / max(calls, 1)})
+        return out
+
+    def reset_moe_stats(self) -> None:
+        """Zero ``moe_stats``."""
+        if self._moe_drops is not None:
+            for t in self._moe_drops.values():
+                t.zero_()
+            self._moe_forwards = {"prefill": 0, "decode": 0}
 
     def _merge_state(self, sel: np.ndarray, tok, pos, gen, temp, topk,
                      keys) -> None:
@@ -591,7 +644,8 @@ class ServeEngine:
         for _ in range(self.decode_block):
             logits = lm.decode_step(self.params, self.cfg, tok, pos,
                                     self.cache, nldpe=self.nldpe,
-                                    write_mask=active)
+                                    write_mask=active,
+                                    moe_drops=self._moe_count("decode"))
             nxt = sample_tokens(logits, step_keys(self._keys, pos + 1),
                                 self._temp, self._topk)
             emits.append(torch.where(active, nxt, -1))

@@ -41,8 +41,10 @@ a grid gives every path quantized caches.  The model is the
 reduced config of ``--arch`` (as the JAX CLI runs it) with seeded random
 weights, on the GPU unless ``--device cpu``: ``qwen2_5_3b`` (default),
 ``qwen2_7b``, ``minicpm_2b``, ``gemma3_27b`` (sliding-window rings; every
-path but ``--paged``) or ``recurrentgemma_9b`` (RG-LRU; the lockstep
-path only, as in ``repro``).
+path but ``--paged``), ``qwen3_moe_30b_a3b`` or ``llama4_scout_17b_a16e``
+(MoE; every path, the engines printing the assignments dropped for
+capacity), ``recurrentgemma_9b`` (RG-LRU) or ``rwkv6_3b`` (RWKV6; these
+two on the lockstep path only, as in ``repro``).
 """
 from __future__ import annotations
 
@@ -439,6 +441,14 @@ def run(argv=None):
         return _lockstep(args, cfg, params, nldpe, rng, max_len)
     _report_async(runner, eng, args)
     _report_obs(eng, args)
+    if eng.moe_stats:
+        m = eng.moe_stats
+        print(f"  moe: {m['dropped_prefill']} live assignments dropped "
+              f"over {m['prefill_forwards']} prefill chunks "
+              f"({m['dropped_pad_prefill']} of padding rows), "
+              f"{m['dropped_decode']} over {m['decode_forwards']} decode "
+              f"steps ({m['dropped_pad_decode']} of padding rows; capacity "
+              f"factor {cfg.moe.capacity_factor})")
     for c in comps[:4]:
         print(f"  rid={c.rid} admitted@{c.admitted_tick} "
               f"finished@{c.finished_tick} [{c.finish_reason}] "

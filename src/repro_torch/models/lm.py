@@ -3,9 +3,10 @@ training parts of ``repro.models.lm``).
 
 Block types: ``attn`` (GQA attention + gated MLP), ``local`` (the same
 over a sliding window, Gemma3's local layers), ``global`` (full attention
-with ``rope_theta_global``, Gemma3's global layers) and ``rec`` (the
-RG-LRU recurrent block + MLP, RecurrentGemma).  ``repro``'s ``moe`` and
-``rwkv`` blocks are not ported yet (``ROADMAP.md`` A.5).
+with ``rope_theta_global``, Gemma3's global layers), ``moe`` (attention +
+the MoE FFN of ``nn/moe.py``, Qwen3-MoE and Llama4-Scout), ``rec`` (the
+RG-LRU recurrent block + MLP, RecurrentGemma) and ``rwkv`` (RWKV6
+time-mix + channel-mix, ``nn/rwkv6.py``) — all of ``repro``'s.
 
 Parameters keep ``repro``'s tree, names and layout: ``groups.b0 ...
 b{P-1}`` for the P block types of ``cfg.layer_pattern``, each leaf stacked
@@ -19,22 +20,36 @@ The model cache keeps one stack per kind of layer state, each stacked on
 a leading layer axis in run order (``cache_slots`` maps a layer onto its
 stack and row):
 
-* the **full-length** attention layers (``attn``, ``global``) at the top
-  level, as the ``("attn",)`` models have always had it: lockstep ``{"k",
-  "v", "pos"}`` with K/V (L, B, Hkv, max_len, D) and pos (max_len,);
+* the **full-length** attention layers (``attn``, ``global``, ``moe``) at
+  the top level, as the ``("attn",)`` models have always had it:
+  lockstep ``{"k", "v", "pos"}`` with K/V (L, B, Hkv, max_len, D) and pos
+  (max_len,);
   slotted: pos (B, max_len); paged ``{"k", "v", "pos", "bt"}``: pools (L,
   P, Hkv, page_size, D), pos (B, max_len), block table (B, NB);
 * the **windowed** layers (``local``) under ``"ring"``: the same dense
   layouts over rings of ``min(max_len, window + ring_slack)`` lines;
 * the **recurrent** layers (``rec``) under ``"rec"``: ``{"h": (L, B,
-  d_rnn), "conv": (L, B, 3, d_rnn)}`` float32.
+  d_rnn), "conv": (L, B, 3, d_rnn)}`` float32;
+* the **RWKV6** layers (``rwkv``) under ``"rwkv"``: ``{"tm": {"S": (L, B,
+  H, 64, 64), "x_last": (L, B, d)}, "cm_x": (L, B, d)}`` float32, written
+  in place as ``"rec"`` is.  ``repro``'s fresh state is float32 and its
+  carried ``x_last`` rows are in the activation dtype (the token shift's
+  promotion follows the dtype): the whole-prompt prefill reads the stack
+  as float32 (the fresh state), a decode step in the activation dtype
+  (the carried one, which float32 holds exactly).
 
 Each attention stack has ONE position track — ``repro`` keeps a copy per
 layer, but every layer of a stack holds the same values — so a forward
 computes one write plan per stack (per distinct cache length).  A config
 whose ``kv_cache_dtype`` is "int8" or "log8" gets quantized K/V in every
 attention stack.  Paged caches hold full-length layers only, as in
-``repro``.
+``repro``.  Chunked serve prefill (mode "chunk") runs attention blocks
+only (``rec`` and ``rwkv`` raise, as in ``repro``).
+
+Each MoE layer routes the forward's tokens as one group.  ``moe_drops``
+((2,) int64 on the device) counts the expert assignments dropped for
+capacity: those of live tokens (``moe_live``; by default every token of a
+slot the forward writes) and those of padding rows.
 
 ``forward(mode="train")`` is the differentiable whole-sequence pass of
 training (no cache); with ``cfg.scan_remat`` each layer is recomputed in
@@ -54,10 +69,13 @@ from ..nn.attention import (AttnSpec, attn_apply, init_cache, kv_leaves,
                             write_plan)
 from ..nn.basic import embedding_apply, rmsnorm_apply, unembed_apply
 from ..nn.mlp import mlp_apply
+from ..nn.moe import may_drop, moe_apply
 from ..nn.rglru import recurrent_block_apply, recurrent_state_init
+from ..nn.rwkv6 import (HEAD_SIZE, channelmix_apply, rwkv_state_init,
+                        timemix_apply)
 
 ATTN_TYPES = ("attn", "local", "global", "moe")
-BLOCK_TYPES = ("attn", "local", "global", "rec")     # the port's
+BLOCK_TYPES = ("attn", "local", "global", "moe", "rec", "rwkv")
 POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
 CONV_WIDTH = 4
 
@@ -84,9 +102,10 @@ def attn_spec(cfg, btype: str = "attn") -> AttnSpec:
 def _check_cfg(cfg) -> None:
     bad = sorted({t for t in cfg.layer_pattern if t not in BLOCK_TYPES})
     if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: block types {bad} are not ported yet (MoE and "
-            f"RWKV6: ROADMAP.md A.5); the port runs {BLOCK_TYPES}")
+        raise ValueError(f"{cfg.name}: unknown block types {bad}; the "
+                         f"model runs {BLOCK_TYPES}")
+    if "moe" in cfg.layer_pattern and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: 'moe' blocks need cfg.moe")
 
 
 def _pattern_split(cfg):
@@ -107,10 +126,10 @@ def layer_order(cfg) -> list[tuple[str, str, str, int | None]]:
 
 
 def _stack_of(cfg, btype: str) -> str:
-    """The cache stack a ``btype`` layer lives in: "full", "ring" or
-    "rec"."""
-    if btype == "rec":
-        return "rec"
+    """The cache stack a ``btype`` layer lives in: "full", "ring", "rec"
+    or "rwkv"."""
+    if btype in ("rec", "rwkv"):
+        return btype
     return "ring" if attn_spec(cfg, btype).window else "full"
 
 
@@ -134,11 +153,13 @@ def _index(tree, i):
 def init_params(cfg, *, generator: torch.Generator | None = None,
                 device=None) -> dict:
     """Random parameters with ``repro``'s tree and init distributions
-    (``nn/module.py:58``): normal scaled by fan_in^-1/2 for projections,
-    0.02 for the embedding, (Hq*Dh)^-1/2 for the output projection, 0.1
-    for the RG-LRU conv and 0.5 for its Lambda, zero biases and unit norm
-    scales.  Drawn from ``generator`` on ``device`` (the card unless
-    ``device="cpu"``)."""
+    (``nn/module.py:58``): normal scaled by fan_in^-1/2 for projections
+    — the leading axis's size, so the MoE's (E, ., .) expert weights draw
+    at E^-1/2 —, 0.02 for the embedding and the MoE router, (Hq*Dh)^-1/2
+    for the output projection, 0.1 for the RG-LRU conv, RWKV6's lerp
+    ratios and bonus, 0.5 for the RG-LRU Lambda, 0.01 for RWKV6's decay
+    LoRA, zero biases and decay base, unit norm scales.  Drawn from
+    ``generator`` on ``device`` (the card unless ``device="cpu"``)."""
     _check_cfg(cfg)
     device = resolve_device(device)
     if generator is None:
@@ -159,6 +180,23 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
     def block(btype, lead):
         p = {"norm1": {"scale": const(lead, (d,), 1.0)},
              "norm2": {"scale": const(lead, (d,), 1.0)}}
+        if btype == "rwkv":
+            h, rank = d // HEAD_SIZE, 64
+            p["tm"] = {"mu": normal(lead, (5, d), 0.1),
+                       "w_r": normal(lead, (d, d), d ** -0.5),
+                       "w_k": normal(lead, (d, d), d ** -0.5),
+                       "w_v": normal(lead, (d, d), d ** -0.5),
+                       "w_g": normal(lead, (d, d), d ** -0.5),
+                       "w_o": normal(lead, (d, d), d ** -0.5),
+                       "decay_base": const(lead, (d,), 0.0),
+                       "decay_A": normal(lead, (d, rank), 0.01),
+                       "decay_B": normal(lead, (rank, d), 0.01),
+                       "bonus_u": normal(lead, (h, HEAD_SIZE), 0.1)}
+            p["cm"] = {"mu": normal(lead, (2, d), 0.1),
+                       "w_k": normal(lead, (d, cfg.d_ff), d ** -0.5),
+                       "w_v": normal(lead, (cfg.d_ff, d), cfg.d_ff ** -0.5),
+                       "w_r": normal(lead, (d, d), d ** -0.5)}
+            return p
         if btype == "rec":
             dr = cfg.d_rnn or d
             p["rec"] = {
@@ -188,6 +226,14 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
                 attn["q_norm"] = {"scale": const(lead, (s.head_dim,), 1.0)}
                 attn["k_norm"] = {"scale": const(lead, (s.head_dim,), 1.0)}
             p["attn"] = attn
+        if btype == "moe":
+            m = cfg.moe
+            e, f = m.n_experts, m.d_expert_ff
+            p["ffn"] = {"router": normal(lead, (d, e), 0.02),
+                        "gate": normal(lead, (e, d, f), e ** -0.5),
+                        "up": normal(lead, (e, d, f), e ** -0.5),
+                        "down": normal(lead, (e, f, d), e ** -0.5)}
+            return p
         ffn = {"up": normal(lead, (d, cfg.d_ff), d ** -0.5),
                "down": normal(lead, (cfg.d_ff, d), cfg.d_ff ** -0.5)}
         if cfg.gated_mlp:
@@ -211,16 +257,19 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
 
 
 # leaves the model reads in float32 whatever the activation dtype
-_F32_LEAVES = ("q_norm", "k_norm", "lam")
+_F32_LEAVES = ("q_norm", "k_norm", "lam", "router", "decay_base", "decay_A",
+               "decay_B", "bonus_u")
 
 
 def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
     """The parameter tree a server runs from: every block's matmul weights
-    and biases (attention, MLP, recurrent block) cast once to the
-    activation dtype — the values ``x @ w.astype(x.dtype)`` gives per call
-    in ``repro`` — except what the model reads in float32 (the qk-norm
-    scales, RG-LRU's Lambda) and the MLP gates under ``FUSED``, which the
-    crossbar->ACAM kernel programs from the float32 master."""
+    and biases (attention, MLP, MoE experts, recurrent block, RWKV6) cast
+    once to the activation dtype — the values ``x @ w.astype(x.dtype)``
+    gives per call in ``repro`` — except what the model reads in float32
+    (the qk-norm scales, RG-LRU's Lambda, the MoE router, RWKV6's decay
+    LoRA and bonus) and the dense MLP gates under ``FUSED``, which the
+    crossbar->ACAM kernel programs from the float32 master (the MoE's
+    expert gates never reach that kernel, so they are cast too)."""
     act = cfg.activation_dtype
     fused = (nldpe.enabled and nldpe.acam_activations
              and nldpe.fused_dual_compute)
@@ -233,10 +282,13 @@ def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
 
     def block(blk):
         out = dict(blk)
-        for name in ("attn", "rec"):
+        for name in ("attn", "rec", "tm", "cm"):
             if name in blk:
                 out[name] = cast(blk[name])
-        out["ffn"] = cast(blk["ffn"], keep=("gate",) if fused else ())
+        if "ffn" in blk:
+            dense = "router" not in blk["ffn"]
+            out["ffn"] = cast(blk["ffn"],
+                              keep=("gate",) if fused and dense else ())
         return out
 
     out = dict(params)
@@ -259,13 +311,14 @@ def init_model_cache(cfg, batch: int, max_len: int, *,
     _check_cfg(cfg)
     device = resolve_device(device)
     order = layer_order(cfg)
-    count = {"full": 0, "ring": 0, "rec": 0}
+    count = {"full": 0, "ring": 0, "rec": 0, "rwkv": 0}
     first = {}
     for btype, *_ in order:
         st = _stack_of(cfg, btype)
         count[st] += 1
         first.setdefault(st, btype)
-    if paged is not None and (count["ring"] or count["rec"]):
+    if paged is not None and (count["ring"] or count["rec"]
+                              or count["rwkv"]):
         raise NotImplementedError(
             "paged KV cache supports non-windowed attention layers only")
     cache: dict = {}
@@ -293,6 +346,9 @@ def init_model_cache(cfg, batch: int, max_len: int, *,
         cache["rec"] = recurrent_state_init(batch, cfg.d_rnn or cfg.d_model,
                                             CONV_WIDTH, layers=count["rec"],
                                             device=device)
+    if count["rwkv"]:
+        cache["rwkv"] = rwkv_state_init(batch, cfg.d_model,
+                                        layers=count["rwkv"], device=device)
     return cache
 
 
@@ -327,15 +383,21 @@ def clone_cache(cache: dict) -> dict:
 
 def apply_block(p: dict, cfg, btype: str, x: torch.Tensor, *,
                 positions: torch.Tensor, mode: str, cache=None, plan=None,
-                nldpe: NLDPEConfig = OFF) -> torch.Tensor:
+                nldpe: NLDPEConfig = OFF,
+                moe_drops: torch.Tensor | None = None,
+                moe_live: torch.Tensor | None = None,
+                dense_rows: torch.Tensor | None = None) -> torch.Tensor:
     """One block: x (B, S, d) -> x.  ``cache`` is the layer's view of its
-    attention stack (written in place at ``plan``) or, for ``rec``, its
-    state ``{"h", "conv"}`` (views of the stack, overwritten in place)."""
+    attention stack (written in place at ``plan``) or, for ``rec`` and
+    ``rwkv``, its state (views of the stack, overwritten in place).
+    ``dense_rows``: see ``nn.attention.attn_apply``."""
+    if btype in ("rec", "rwkv") and mode == "chunk":
+        raise NotImplementedError("chunked serve prefill supports "
+                                  f"attention blocks only (got '{btype}')")
     h = rmsnorm_apply(p["norm1"], x)
+    if btype == "rwkv":
+        return _rwkv_block(p, x, h, mode=mode, cache=cache, nldpe=nldpe)
     if btype == "rec":
-        if mode == "chunk":
-            raise NotImplementedError("chunked serve prefill supports "
-                                      "attention blocks only (got 'rec')")
         a, st = recurrent_block_apply(p["rec"], h, cache, mode=mode,
                                       nldpe=nldpe)
         if cache is not None:
@@ -344,22 +406,53 @@ def apply_block(p: dict, cfg, btype: str, x: torch.Tensor, *,
     else:
         a = attn_apply(p["attn"], attn_spec(cfg, btype), h,
                        positions=positions, mode=mode, cache=cache,
-                       plan=plan, nldpe=nldpe)
+                       plan=plan, nldpe=nldpe, dense_rows=dense_rows)
     x = x + a.to(x.dtype)
     h2 = rmsnorm_apply(p["norm2"], x)
-    return x + mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe).to(x.dtype)
+    if btype == "moe":
+        f = moe_apply(p["ffn"], h2, cfg.moe, act=cfg.act, nldpe=nldpe,
+                      drops=moe_drops, live=moe_live)
+    else:
+        f = mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe)
+    return x + f.to(x.dtype)
+
+
+def _rwkv_block(p: dict, x: torch.Tensor, h: torch.Tensor, *, mode: str,
+                cache, nldpe: NLDPEConfig) -> torch.Tensor:
+    """RWKV6 time-mix and channel-mix over the normed ``h``.  The stack's
+    float32 rows enter as ``repro``'s state would: float32 (the fresh
+    state) in the whole-prompt prefill, in the activation dtype (the
+    carried state) at decode."""
+    tm_state, cm_x = None, None
+    if cache is not None:
+        dt = x.dtype if mode == "decode" else torch.float32
+        tm_state = {"S": cache["tm"]["S"],
+                    "x_last": cache["tm"]["x_last"].to(dt)}
+        cm_x = cache["cm_x"].to(dt)
+    a, st = timemix_apply(p["tm"], h, tm_state, mode=mode, nldpe=nldpe)
+    x = x + a.to(x.dtype)
+    h2 = rmsnorm_apply(p["norm2"], x)
+    f, x_last = channelmix_apply(p["cm"], h2, cm_x, nldpe=nldpe)
+    if cache is not None:
+        cache["tm"]["S"].copy_(st["S"])
+        cache["tm"]["x_last"].copy_(st["x_last"])
+        cache["cm_x"].copy_(x_last)
+    return x + f.to(x.dtype)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
             cache: dict | None = None, positions: torch.Tensor | None = None,
-            nldpe: NLDPEConfig = OFF, write_mask=None) -> torch.Tensor:
+            nldpe: NLDPEConfig = OFF, write_mask=None,
+            moe_drops: torch.Tensor | None = None,
+            moe_live: torch.Tensor | None = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) float32; ``cache`` updates in place.
 
     ``repro``'s modes: "train" (the whole sequence, differentiable, no
     cache), "prefill" (the whole prompt at positions (S,), default
     ``arange(S)``; fills a dense ``cache`` if one is given), "decode" and
     "chunk" (positions () shared for a lockstep cache, or (B, S) per-slot
-    offsets; ``write_mask`` (B,) bool freezes masked slots' caches)."""
+    offsets; ``write_mask`` (B,) bool freezes masked slots' caches).
+    ``moe_drops`` and ``moe_live`` (B, S) bool: see the module docstring."""
     if mode == "train":
         if nldpe.enabled and nldpe.fused_dual_compute:
             raise NotImplementedError(
@@ -378,6 +471,20 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
     attn_stacks = {} if cache is None else stacks(cache)
+    if moe_live is None and write_mask is not None:
+        moe_live = write_mask[:, None].expand(tokens.shape)
+    # a paged cache's write-masked slots (idle or finished) read, through
+    # kernel A, another tenant's or no pages; their outputs are discarded,
+    # except where an MoE layer may drop assignments for capacity: there
+    # they compete for expert slots, so they must carry repro's values
+    # (nn.attention.attn_apply).  Finding them syncs the device.
+    dense_rows = None
+    if (write_mask is not None and cache is not None and "bt" in cache
+            and "moe" in cfg.layer_pattern
+            and may_drop(tokens.numel(), cfg.moe)):
+        dense_rows = torch.nonzero(~write_mask).flatten()
+        if not dense_rows.numel():
+            dense_rows = None
     plans = {name: write_plan(layer_cache(st, 0), positions, write_mask)
              for name, st in attn_stacks.items()}
     order = layer_order(cfg)
@@ -388,12 +495,14 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
         st, j = slots[i]
         c = None
         if cache is not None:
-            c = (_index(cache["rec"], j) if st == "rec"
+            c = (_index(cache[st], j) if st in ("rec", "rwkv")
                  else layer_cache(attn_stacks[st], j))
         p = params[where][key]
         return apply_block(p if g is None else _index(p, g), cfg, btype, x,
                            positions=positions, mode=mode, cache=c,
-                           plan=plans.get(st), nldpe=nldpe)
+                           plan=plans.get(st), nldpe=nldpe,
+                           moe_drops=moe_drops, moe_live=moe_live,
+                           dense_rows=dense_rows)
 
     remat = mode == "train" and cfg.scan_remat and torch.is_grad_enabled()
     for i in range(len(order)):
@@ -424,11 +533,13 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def decode_step(params: dict, cfg, token: torch.Tensor, pos, cache: dict,
-                nldpe: NLDPEConfig = OFF, write_mask=None) -> torch.Tensor:
+                nldpe: NLDPEConfig = OFF, write_mask=None,
+                moe_drops: torch.Tensor | None = None) -> torch.Tensor:
     """token (B,); pos () shared (lockstep cache) or (B,) per slot ->
     logits (B, V)."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
     logits = forward(params, token[:, None], cfg, mode="decode", cache=cache,
-                     positions=positions, nldpe=nldpe, write_mask=write_mask)
+                     positions=positions, nldpe=nldpe, write_mask=write_mask,
+                     moe_drops=moe_drops)
     return logits[:, 0]

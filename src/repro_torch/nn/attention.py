@@ -546,7 +546,8 @@ def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
                positions: torch.Tensor, mode: str, cache: dict | None = None,
-               plan=None, nldpe: NLDPEConfig = OFF) -> torch.Tensor:
+               plan=None, nldpe: NLDPEConfig = OFF,
+               dense_rows: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, S, d) -> y (B, S, d); the layer's cache is updated in place.
 
     ``mode="prefill"``: the whole prompt at positions (S,), over the new
@@ -555,6 +556,15 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
     (S == 1) and ``"chunk"``: the new K/V are written at ``plan`` (the
     forward's ``write_plan`` of this layer's stack; positions () shared or
     (B, S) per slot), then the queries attend to the cache.
+
+    Kernel A's staircase (query j of slot b attends to ``[0, positions[b,
+    0] + j]``) is the cache's validity mask on every slot the forward
+    writes.  A slot it does not write keeps a stale or empty position
+    track, whose mask (``repro``'s masked dense route) may be no prefix at
+    all: an empty one spreads the softmax over every gathered line.  The
+    caller that needs such slots' outputs as ``repro``'s names them in
+    ``dense_rows`` (int64 slot indices): their rows alone are recomputed
+    on that route and replace kernel A's.
     """
     q, k, v = _project_qkv(p, s, x, positions)
     if mode in ("train", "prefill"):
@@ -579,6 +589,12 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
                                 lengths, k_scale=cache.get("k_scale"),
                                 v_scale=cache.get("v_scale"),
                                 kv_quant=s.kv_quant).to(q.dtype)
+            if dense_rows is not None:
+                sub = {**cache, "pos": cache["pos"][dense_rows],
+                       "bt": cache["bt"][dense_rows]}
+                o = o.index_copy(0, dense_rows, cached_attention(
+                    q[dense_rows], paged_dense_view(sub), qpos[dense_rows],
+                    s))
         else:
             att = paged_dense_view(cache) if "bt" in cache else cache
             if nldpe.enabled:

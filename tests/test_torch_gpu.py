@@ -1668,3 +1668,131 @@ def test_rglru_scan_on_card_matches_step_loop(dev):
     assert (h - h_last).abs().max().item() <= 1e-5
     assert (y.cpu() - y_cpu).abs().max().item() <= 1e-5
     assert (h_last.cpu() - h_cpu).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the MoE and RWKV6 slice: kernels at Qwen3-30B-A3B's head layout (32 query
+# heads, 4 KV heads, head dim 128), the reduced models card against CPU
+# ---------------------------------------------------------------------------
+
+QWEN3_MOE_PAGED = (8, 32, 4, 512, 64, 16, 128)
+
+
+@pytest.mark.parametrize("q_len", [1, 64])
+@pytest.mark.parametrize("pool", ["float32", "log8"])
+def test_paged_attention_at_qwen3_moe_heads(dev, pool, q_len):
+    """Kernel A at GQA 8 (32/4 heads of 128): decode and a 64-row chunk,
+    over an f32 pool and a log8 code pool, within 1e-4 of the plain
+    version (the same f32 math summed in another order)."""
+    rng = np.random.default_rng(11)
+    args = _paged_case(rng, *QWEN3_MOE_PAGED, q_len, torch.float32, dev)
+    kw = {}
+    if pool == "log8":
+        args, kw = _code_pools(args, "log8")
+    before = paged_attention.launches
+    out = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    ref = paged_attention_ref(*args, **kw)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_and_logdomain_at_qwen3_moe_heads(dev, dtype):
+    """Kernels F and C at (2, 32/4, 512, 128), the lockstep prefill of the
+    MoE phase: F within 1e-4 (plus one bf16 step for bf16 outputs), C
+    within one exp-grid LSB (1/255, plus one bf16 step)."""
+    from repro_torch.kernels.dual_compute.ops import logdomain_flash_attention
+    from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _attn_case(np.random.default_rng(12), 2, 32, 4, 512, 512, 128,
+                         dtype, dev)
+    slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    ref = flash_attention_ref(q, k, v)
+    out = flash_attention(q, k, v)
+    assert bool(((out.float() - ref).abs() <= 1e-4 + slack * ref.abs()).all())
+    ref = logdomain_flash_ref(q, k, v)
+    out = logdomain_flash_attention(q, k, v)
+    assert bool(((out.float() - ref).abs()
+                 <= 1.0 / 255 + slack * ref.abs()).all())
+
+
+def _moe_trace(cfg, seed):
+    from repro_torch.launch.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(5, 30)))), max_new_tokens=6,
+        arrival=i) for i in range(5)]
+
+
+@pytest.mark.parametrize("capacity", [0.0, 1.0], ids=["dropless", "drops"])
+def test_moe_engines_on_card_match_cpu_plain_path(dev, capacity):
+    """The reduced Qwen3-MoE (f32 activations) through ``PagedServeEngine``
+    (kernel A on every layer) and ``ServeEngine`` on the card and on the
+    CPU: equal greedy tokens and equal dropped-assignment counts, dropless
+    and at a capacity that drops."""
+    import dataclasses
+
+    from repro_torch.launch.engine import PagedServeEngine, ServeEngine
+    from repro_torch.models import lm
+    cfg = get_config("qwen3_moe_30b_a3b", reduced=True)
+    cfg = dataclasses.replace(cfg, activation_dtype=torch.float32,
+                              moe=dataclasses.replace(
+                                  cfg.moe, capacity_factor=capacity,
+                                  min_capacity=2))
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(7),
+                            device="cpu")
+    reqs = _moe_trace(cfg, 13)
+    for engine, kw in ((PagedServeEngine, dict(page_size=4)),
+                       (ServeEngine, {})):
+        out = {}
+        for where in ("cpu", "cuda"):
+            eng = engine(cfg, from_jax(_np(params), device=where),
+                         max_slots=3, max_len=48, prefill_chunk=8,
+                         decode_block=2, device=where, **kw)
+            out[where] = ({c.rid: c.tokens for c in eng.run(reqs)},
+                          eng.moe_stats)
+        assert out["cpu"] == out["cuda"], engine.__name__
+
+
+@pytest.mark.parametrize("nldpe", ["OFF", "ON"])
+def test_rwkv6_lockstep_on_card_matches_cpu(dev, nldpe):
+    """The reduced RWKV6 (f32 activations) through the lockstep path, a
+    2 x 150-token prefill (a full chunk and a short one) and 8 greedy
+    tokens, card against CPU: last logits within 1e-4 (``OFF``) or 0.1
+    (``ON``, the log-grid rule of tests/test_torch_rwkv6.py), equal
+    tokens ``OFF``; the generate fn equals the per-token loop."""
+    import dataclasses
+
+    from repro_torch.core.engine import OFF, ON
+    from repro_torch.launch.serve import (build_decode_step,
+                                          build_generate_fn,
+                                          build_prefill_step,
+                                          python_loop_decode)
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("rwkv6_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    mode = ON if nldpe == "ON" else OFF
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(8),
+                            device="cpu")
+    prompts = torch.tensor(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (2, 150)), dtype=torch.int32)
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = lm.serving_params(from_jax(_np(params), device=where), cfg, mode)
+        cache = lm.init_model_cache(cfg, 2, 160, device=where)
+        last, cache = build_prefill_step(cfg, nldpe=mode)(
+            p, cache, prompts.to(where))
+        tok = torch.argmax(last, dim=-1).to(torch.int32)
+        spare = lm.clone_cache(cache)
+        gen, _ = build_generate_fn(cfg, 8, nldpe=mode)(p, cache, tok, 150)
+        loop, _ = python_loop_decode(build_decode_step(cfg, nldpe=mode), p,
+                                     spare, tok, 150, 8)
+        assert torch.equal(loop, gen.cpu())
+        out[where] = (last.cpu(), gen.cpu())
+    tol = 0.1 if nldpe == "ON" else 1e-4
+    assert (out["cpu"][0] - out["cuda"][0]).abs().max().item() <= tol
+    if nldpe == "OFF":
+        assert torch.equal(out["cpu"][1], out["cuda"][1])

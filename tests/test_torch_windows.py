@@ -523,9 +523,12 @@ def test_engines_refuse_like_repro():
     with pytest.raises(NotImplementedError, match="attention-block"):
         JServeEngine(dataclasses.replace(J_CFG, layer_pattern=("rec",)),
                      j_params(), max_slots=1, max_len=8)
-    moe = dataclasses.replace(CFG, layer_pattern=("moe",))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ServeEngine(moe, p, max_slots=1, max_len=8, device="cpu")
+    # "moe" blocks are attention blocks: both engines take them, as
+    # repro's do
+    moe = get_config("qwen3_moe_30b_a3b", reduced=True)
+    mp = lm.init_params(moe, device="cpu")
+    for eng in (ServeEngine, PagedServeEngine):
+        assert eng(moe, mp, max_slots=1, max_len=8, device="cpu").moe_stats
     with pytest.raises(NotImplementedError, match="non-windowed"):
         PagedServeEngine(CFG, p, max_slots=1, max_len=8, device="cpu")
     with pytest.raises(NotImplementedError, match="non-windowed"):
