@@ -8,20 +8,20 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
 1. prints the card's name and power limit and builds the port's CUDA
    kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a, one process per
    source, all at once);
-2. serves full-width Qwen2.5-3B (36 layers, seeded random float32 weights)
-   through ``PagedServeEngine`` in ``OFF`` numerics — 8 requests sharing a
+2. serves full-width Qwen2.5-3B (its first ``SERVE_LAYERS`` of 36 layers,
+   seeded random float32 weights) through ``PagedServeEngine`` in ``OFF`` numerics — 8 requests sharing a
    256-token system prompt — and checks that every request completes, that
    the radix cache hit, and that the paged-attention kernel (A) carried it;
 3. ``[serve OFF log8]``: serves the same trace through
    ``PagedServeEngine(kv_quant="log8")`` — int8 code pools with float32
    scale rows, never decoded to an fp pool — and checks that kernel A's
-   code-pool variant carried every attention call (36 per prefill chunk,
-   144 per decode tick) and reports the pool's bytes beside an f32 pool's;
+   code-pool variant carried every attention call (one per layer per
+   forward) and reports the pool's bytes beside an f32 pool's;
    then serves 4 of the requests in ``FUSED`` numerics and checks that the
    fused crossbar->ACAM kernel (B) carried every MLP gate;
 4. serves a lockstep batch (``launch/serve.py``: whole-prompt prefill,
-   then greedy generation; Qwen2.5-3B cut to its first ``CUT_LAYERS``
-   layers, as in step 5 and ``[train]``) in ``OFF`` numerics — 8
+   then greedy generation; Qwen2.5-3B cut further, to its first
+   ``CUT_LAYERS`` layers, as in step 5 and ``[train]``) in ``OFF`` numerics — 8
    prompts of 512 tokens,
    32 new tokens, the prefill through the flash-attention kernel (F); the
    generate fn and the per-token loop must give the same tokens — and in
@@ -79,9 +79,19 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    through the lockstep path (kernel F; tokens equal up to near-ties under
    2D; the routing flips between the routes counted) and the lockstep
    FUSED path
-   (kernel C on every layer), and ``[rwkv6]``: full-width RWKV6-3B
+   (kernel C on every layer), ``[rwkv6]``: full-width RWKV6-3B
    through the lockstep path in ``OFF`` (generate fn == per-token loop)
-   and ``ON`` — no port kernel lies on that path;
+   and ``ON`` — no port kernel lies on that path —, ``[paligemma]``: all
+   18 layers of PaliGemma-3B (8/1 heads of 256): the lockstep path with a
+   256-row image prefix before 256-token prompts (the masked prefix-LM
+   route, never kernel F), ``PagedServeEngine`` on paged OFF's trace
+   (kernel A's head-dim-256 instances) and each request alone through the
+   lockstep path (kernel F at D 256; tokens equal up to near-ties under
+   2D), and the lockstep FUSED path (kernel C at D 256, kernel B on the
+   GeGLU gate), and ``[musicgen]``: MusicGen-large (32/32 heads of 64, a
+   plain GELU MLP) cut to ``MUSICGEN_LAYERS`` layers through the paged
+   engine (A at GQA 1), run alone through the lockstep path (F) and the
+   lockstep FUSED path (C, B on the non-gated up projection);
 6. holds each kernel against its plain PyTorch version on the card at the
    shapes the serve paths launch, and times kernel, plain version and a
    PyTorch library call beside the card's bound (the crossbar kernels B,
@@ -89,13 +99,16 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    kernel A runs f32 and bf16 pools at Q = 1, 2, 3, 5 and 64 (decode, the
    three verify shapes, chunk prefill) and, on the log8 engine's pools, int8
    and log8 code pools; kernels F and C run at 2048 keys too, and C's
-   quantize launch must give ``log_quantize``'s bits); the attention
+   quantize launch must give ``log_quantize``'s bits; A, F and C run their
+   head-dim-256 instances at PaliGemma's and RecurrentGemma's shapes, F
+   there against the windowed ``blockwise_attention`` too); the attention
    kernels' bounds name the f32 FMA and the split-TF32 tensor-core bound;
 7. serves a small model on the card and on the CPU (plain versions): the
    paged engine's greedy tokens must agree, with fp, int8 and log8 pools,
    and the lockstep prefill's last logits within a stated tolerance; the
-   reduced windowed models' logits, the reduced Qwen3-MoE's paged tokens
-   and the reduced RWKV6's lockstep tokens too;
+   reduced windowed models' logits, the reduced Qwen3-MoE's paged tokens,
+   the reduced RWKV6's lockstep tokens, the reduced PaliGemma's logits
+   with an image prefix and the reduced MusicGen's paged tokens too;
 8. ``[library]``: drives the public NL-DPE kernel library at full width —
    the layer-0 MLP gate (2048 x 11008) programmed with A-SL programming
    noise, then ``crossbar_matmul`` with read noise (kernel E) and
@@ -155,8 +168,8 @@ F_TOL = 1e-4                    # flash attention: f32 sums in another order
 C_TOL = 1.0 / 255               # log-domain flash: one exp-grid LSB, as in
                                 # tests/test_fused_dual_compute.py
 U32 = 2.0 ** -24                # float32 unit roundoff
-# [serve spec drift]: the [serve spec] drafter (full width, 3.09 B cells)
-# aging on a virtual clock of DRIFT_DT seconds per spec tick; the values
+# [serve spec drift]: the [serve spec] drafter (full width at
+# SERVE_LAYERS layers: 1.5 B cells; 3.09 B at all 36) aging on a virtual clock of DRIFT_DT seconds per spec tick; the values
 # and why are printed with the phase (``drift_settings``)
 DRIFT_DT = 1.0
 DRIFT_NU = 2.0
@@ -176,12 +189,14 @@ DRIFT_WHY = ("benchmarks/serve_bench.py's FID_POLICY thresholds around the "
              "backoff, then a reprogram inside the run's ~45 ticks. "
              "Faults: a cell's arrival is -log1p(-u) / rate for a float32 "
              "uniform u on a 2^-23 grid, so 2^-23 of the cells (368 of "
-             "3.09 B) draw u = 0 and are stuck from birth, as in the "
+             "3.09 B at 36 layers) draw u = 0 and are stuck from birth, as "
+             "in the "
              "reference, and the next arrivals come at 2^-23 / rate = 1192 "
              "virtual s, past the run: it serves with those stuck cells, "
              "which reprogramming keeps")
 # [serve spill]: four system prompts of this many tokens (24 pages each)
-# and a host tier of this many pages (1.18 MB each at full width, f32)
+# and a host tier of this many pages (0.59 MB each at SERVE_LAYERS = 18,
+# f32)
 SPILL_SYSTEM = 384
 SPILL_HOST_PAGES = 256
 PORT_KERNELS = ("paged_attention", "fused_crossbar_acam", "logdomain_flash",
@@ -205,10 +220,23 @@ QWEN3MOE_TWIN = dict(max_slots=2, max_len=1024, page_size=16,
                      prefill_chunk=16, decode_block=4)
 # [rwkv6]: RWKV6-3B at its full 32 layers (the phase stays within ~30 s)
 RWKV6_LAYERS = 32
-# Qwen2.5-3B's first this many layers (of 36) in [serve lockstep OFF],
-# [serve lockstep FUSED], [serve slotted OFF] and [train], so the whole
-# script stays within its time limit on a slow host (12 before the
-# [qwen3moe] and [rwkv6] phases came)
+# [paligemma]: image prefix rows (SigLIP's 256 patches) and text tokens of
+# the lockstep prefix requests; kernels F and C at a 1280-token prefill
+PALIGEMMA_PREFIX = (256, 256)
+PALIGEMMA_ATTN_LEN = 1280
+# [musicgen]: MusicGen-large's first this many of its 48 layers
+MUSICGEN_LAYERS = 12
+# [recurrentgemma]: a lockstep prefill at the window, where its windowed
+# layers take kernel F (D 256) instead of the band
+RGEMMA_F_LEN = 2048
+# Qwen2.5-3B's first this many layers (of 36) in every phase that serves
+# it, so the whole script stays within its time limit on a slow host (all
+# 36 before the [paligemma] and [musicgen] phases came: one host ran the
+# phases in 1117.5 s, 688 s of them these, against 828.9 s on another)
+SERVE_LAYERS = 18
+# ... and of those, this many in [serve lockstep OFF], [serve lockstep
+# FUSED], [serve slotted OFF] and [train] (12 before the [qwen3moe] and
+# [rwkv6] phases came)
 CUT_LAYERS = 8
 WINDOWED_TOL = 1e-4             # reduced windowed models, card vs CPU OFF
 # [cnn]: CNNConfig() at this batch (M = 32768 at the stem and stage 0);
@@ -448,8 +476,8 @@ def serve(torch, engine, reqs, counter, label: str) -> dict:
 def serve_log8(torch, engine, f32_pool_bytes: int, reqs) -> dict:
     """``[serve OFF log8]``: the paged OFF trace over log8 code pools.
     Every attention call must go through kernel A's code-pool variant —
-    one launch per layer per forward, 36 per prefill chunk and 144 per
-    decode tick, all of them log8 — and no layer may decode its cache to
+    one launch per layer per forward, all of them log8 — and no layer may
+    decode its cache to
     an fp view on the way.  Reports the pools' bytes beside the paged OFF
     engine's f32 pools' (the same slots, pages and widths)."""
     from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -495,11 +523,12 @@ def serve_spec(torch, engine, reqs, off: dict, label: str) -> dict:
     the paged OFF phase's tokens up to near-ties (``spec_tokens_agree``,
     against twice the routes' logit deviation that
     ``verify_route_deviation`` measures on the same weights); kernel A carries
-    the verify chunk of every tick (36 launches at q_len spec_k + 1, the
-    chunk instance above G*Q = 16) and, with the weights-only drafter, the
-    36 x spec_k draft decode steps (q_len 1, decode instance); the ``ON``
+    the verify chunk of every tick (one launch a layer at q_len spec_k +
+    1, the chunk instance above G*Q = 16) and, with the weights-only
+    drafter, the layers x spec_k draft decode steps (q_len 1, decode
+    instance); the ``ON``
     drafter attends through NL-DPE attention and launches none."""
-    from repro_torch.kernels.paged_attention.ops import (DECODE_MAX_ROWS,
+    from repro_torch.kernels.paged_attention.ops import (decode_max_rows,
                                                          paged_attention)
     k, n_layers = engine.spec_k, engine.cfg.n_layers
     res = serve(torch, engine, reqs, paged_attention, label)
@@ -511,7 +540,8 @@ def serve_spec(torch, engine, reqs, off: dict, label: str) -> dict:
           f"per tick, expected {per_tick}")
     ticks = res["decode_ticks"]
     group = engine.cfg.n_heads // engine.cfg.n_kv_heads
-    verify = "decode" if group * (k + 1) <= DECODE_MAX_ROWS else "chunk"
+    verify = ("decode" if group * (k + 1) <= decode_max_rows(
+        engine.cfg.resolved_head_dim) else "chunk")
     want = {f"q_len={k + 1} {verify}": n_layers * ticks}
     if drafts_via_a:
         want["q_len=1 decode"] = n_layers * k * ticks
@@ -821,7 +851,7 @@ def serve_spec_drift(torch, engine, reqs, want: dict, label: str) -> dict:
     per tick, the drift state's bytes, the programming, reprogramming and
     per-tick read times, ms per tick, tokens/s and peak memory."""
     from repro_torch.core import drift as drift_lib
-    from repro_torch.kernels.paged_attention.ops import (DECODE_MAX_ROWS,
+    from repro_torch.kernels.paged_attention.ops import (decode_max_rows,
                                                          paged_attention)
     cfg, n_layers = engine.cfg, engine.cfg.n_layers
     reads0, read_s0 = engine.drift_reads, engine.drift_read_seconds
@@ -842,7 +872,8 @@ def serve_spec_drift(torch, engine, reqs, want: dict, label: str) -> dict:
             add("q_len=1 decode", n_layers * engine.decode_block)
             continue
         add("q_len=1 decode", n_layers * k)
-        inst = "decode" if group * (k + 1) <= DECODE_MAX_ROWS else "chunk"
+        inst = ("decode" if group * (k + 1) <= decode_max_rows(
+            cfg.resolved_head_dim) else "chunk")
         add(f"q_len={k + 1} {inst}", n_layers)
     shapes = {key: v for key, v in res["paged_attention_by_shape"].items()
               if not key.startswith(f"q_len={engine.prefill_chunk} ")}
@@ -1646,11 +1677,14 @@ def dense_causal_attention(torch, q, k, v):
                         v.float()).reshape(b, hq, lq, d)
 
 
-def flash_case(torch, timer, shape, dtype, seed, dense=False) -> dict:
+def flash_case(torch, timer, shape, dtype, seed, dense=False,
+               window=None) -> dict:
     """Kernel F on random (b, hq, lq, d) queries over (b, hkv, lk, d) keys
     and values in ``dtype``, held against the plain version (with
     ``dense``, against ``dense_causal_attention``) and timed beside it,
-    SDPA and the bound."""
+    SDPA and the bound.  With ``window`` (lq == lk <= window), held against
+    the windowed ``blockwise_attention`` too: the route a windowed layer
+    took before F had its head-dim-256 instance."""
     from repro_torch.kernels.flash_attention.ops import flash_attention, plan
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     t0 = time.perf_counter()
@@ -1679,6 +1713,18 @@ def flash_case(torch, timer, shape, dtype, seed, dense=False) -> dict:
             q, k, v, is_causal=True, enable_gqa=True)
 
     lib_err = (lib().float() - ref).abs().max().item()
+    extra = {}
+    if window is not None:
+        from repro_torch.nn.attention import blockwise_attention
+        check(lq == lk <= window, "flash_case: window route needs lq == lk "
+              "<= window")
+        bw = blockwise_attention(q, k, v, window=window).float()
+        werr = (out.float() - bw).abs()
+        check(bool((werr <= F_TOL + slack * bw.abs()).all()),
+              f"flash_attention {shape} {dtype}: max |kernel - windowed "
+              f"blockwise| {werr.max().item()} over {F_TOL}")
+        extra["window_route_max_abs_err"] = werr.max().item()
+        del bw, werr
     ms, call_ms = timer.ms(lambda: flash_attention(q, k, v), iters=10)
     plain_ms, _ = timer.ms(plain, iters=3)
     lib_ms, _ = timer.ms(lib, iters=10)
@@ -1690,8 +1736,9 @@ def flash_case(torch, timer, shape, dtype, seed, dense=False) -> dict:
             "plain": ("dense_causal_attention" if dense
                       else "flash_attention_ref"),
             "ragged_keys": lk % pl.keys,
-            "instance": pl.instance, "keys_per_tile": pl.keys,
-            "smem": pl.smem, "max_abs_err": err.max().item(),
+            "instance": pl.instance, "rows_per_block": pl.rows,
+            "keys_per_tile": pl.keys,
+            "smem": pl.smem, "max_abs_err": err.max().item(), **extra,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_max_abs_err": lib_err,
             **attn_bound(nbytes, flops,
@@ -2775,9 +2822,13 @@ def recurrentgemma_phase(torch, timer) -> dict:
     the 2048 window: the local layer takes the band) and 32 new tokens in
     OFF (the generate fn and the per-token loop must give the same tokens)
     and in FUSED (kernel B with the gelu table on every gate, once per
-    layer per prefill and decode step).  Kernel B (gelu) is held against
-    its plain version at the M the lockstep path gives the gate: 2 x 2304
-    at prefill and 2 at decode, K = 4096, N = 12288."""
+    layer per prefill and decode step); then OFF over 1 x
+    ``RGEMMA_F_LEN`` (at the window: the windowed layer's prefill takes
+    kernel F at head dim 256, once per windowed layer).  Kernel B (gelu) is
+    held against its plain version at the M the lockstep path gives the
+    gate: 2 x 2304 at prefill and 2 at decode, K = 4096, N = 12288; kernel
+    F at (1, 16/1, ``RGEMMA_F_LEN``, 256) against its plain version and
+    the windowed ``blockwise_attention`` route."""
     from repro_torch.core.engine import FUSED, OFF
     from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
     from repro_torch.models import lm
@@ -2801,17 +2852,38 @@ def recurrentgemma_phase(torch, timer) -> dict:
                             counters_on_path=[fused_crossbar_acam],
                             label="recurrentgemma lockstep FUSED",
                             compare_loop=False, profile=False)
+    check(out["off"]["launches"]["flash_attention"] == 0,
+          "[recurrentgemma] a prefill past the window launched kernel F")
+    out["off_at_window"] = lockstep(
+        torch, cfg, params, OFF, batch=1, prompt_len=RGEMMA_F_LEN,
+        gen_len=8, counters_on_path=[],
+        label="recurrentgemma lockstep OFF at the window",
+        compare_loop=False, profile=False)
+    local = sum(1 for t, *_ in lm.layer_order(cfg) if t == "local")
+    f_launches = out["off_at_window"]["launches"]["flash_attention"]
+    check(f_launches == local, f"[recurrentgemma] kernel F launched "
+          f"{f_launches} times in a {RGEMMA_F_LEN}-token prefill, expected "
+          f"one per windowed layer ({local})")
     w = params["groups"]["b0"]["ffn"]["gate"][0]
-    cases = fused_acam_cases(
+    cases = {"fused_crossbar_acam": fused_acam_cases(
         torch, timer, w, (batch, batch * plen), "gelu",
-        torch.Generator(device="cuda").manual_seed(SEED + 8))
-    for c in cases:
+        torch.Generator(device="cuda").manual_seed(SEED + 8)),
+        "flash_attention": [flash_case(
+            torch, timer, (1, cfg.n_heads, cfg.n_kv_heads, RGEMMA_F_LEN,
+                           RGEMMA_F_LEN, cfg.resolved_head_dim), dt,
+            SEED + 9, window=cfg.window)
+            for dt in (torch.bfloat16, torch.float32)]}
+    for c in sum(cases.values(), []):
         c["phase"] = "recurrentgemma"
     del params, w
     torch.cuda.empty_cache()
-    out["launches"] = {"fused_crossbar_acam": {
-        "lockstep_fused": out["fused"]["launches"]["fused_crossbar_acam"]}}
-    out["kernel_cases"] = {"fused_crossbar_acam": cases}
+    out["launches"] = {
+        "fused_crossbar_acam": {
+            "lockstep_fused": out["fused"]["launches"][
+                "fused_crossbar_acam"]},
+        "flash_attention": {"lockstep_off_at_window": f_launches,
+                            "lockstep_off_past_window": 0}}
+    out["kernel_cases"] = cases
     return out
 
 
@@ -3124,6 +3196,305 @@ def rwkv6_phase(torch) -> dict:
     return out
 
 
+def prefix_lockstep(torch, cfg, sp, *, batch: int, gen_len: int,
+                    label: str) -> dict:
+    """The lockstep path of ``launch/serve.py`` with an image prefix:
+    ``batch`` requests of ``PALIGEMMA_PREFIX`` (seeded patch-embedding rows,
+    random text tokens), one whole prefill over the prefix-LM mask (the
+    masked ``blockwise_attention``: kernel F is causal only, so no port
+    kernel may launch), then ``gen_len`` greedy tokens from position P + S
+    through the generate fn and, from a copy of the prefilled cache, the
+    per-token loop: the tokens must be identical."""
+    from repro_torch.launch.serve import (build_decode_step,
+                                          build_generate_fn,
+                                          build_prefill_step,
+                                          python_loop_decode)
+    from repro_torch.models import lm
+    n_patches, text_len = PALIGEMMA_PREFIX
+    prefill = build_prefill_step(cfg)
+    generate = build_generate_fn(cfg, gen_len)
+    rng = np.random.default_rng(SEED + 25)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (batch, text_len)),
+                           dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    patches = torch.randn((batch, n_patches, cfg.d_model), generator=gen,
+                          device="cuda")
+    start = n_patches + text_len
+    warm = lm.init_model_cache(cfg, batch, 40, device="cuda")
+    last, warm = prefill(sp, warm, toks[:, :16], patches[:, :16])
+    build_generate_fn(cfg, 3)(sp, warm, torch.argmax(last, -1).to(
+        torch.int32), 32)
+    del warm
+    cache = lm.init_model_cache(cfg, batch, start + gen_len, device="cuda")
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last, cache = prefill(sp, cache, toks, patches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launched = {fn.__name__: fn.launches for fn in counters()
+                if fn.launches}
+    check(not launched, f"{label}: the prefix route launched {launched} "
+          f"(the prefix-LM mask takes the masked blockwise attention)")
+    check(bool(torch.isfinite(last).all()), f"{label}: non-finite logits")
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    spare = lm.clone_cache(cache)
+    t0 = time.perf_counter()
+    out_toks, cache = generate(sp, cache, tok, start)
+    out_toks = out_toks.cpu()
+    decode_s = time.perf_counter() - t0
+    steps = gen_len - 1
+    check(bool(((out_toks >= 0) & (out_toks < cfg.vocab_size)).all())
+          and tuple(out_toks.shape) == (batch, gen_len),
+          f"{label}: bad tokens")
+    loop, _ = python_loop_decode(build_decode_step(cfg), sp, spare, tok,
+                                 start, gen_len)
+    check(torch.equal(loop, out_toks), f"{label}: generate fn and python "
+          f"loop tokens differ")
+    out = {"batch": batch, "prefix_rows": n_patches, "text_len": text_len,
+           "decode_from": start, "gen_len": gen_len, "prefill_s": prefill_s,
+           "prefill_positions_per_s": batch * start / prefill_s,
+           "decode_ms_per_step": decode_s * 1e3 / steps,
+           "generated_tokens_per_s": batch * steps / decode_s,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "port_kernels_in_prefill": 0, "loop_tokens_equal": True,
+           "sample_row": out_toks[0, :12].tolist()}
+    print(f"[{label}] " + json.dumps(out))
+    return out
+
+
+def alone_against_paged(torch, cfg, sp, res: dict, reqs, label: str) -> dict:
+    """Each request of a served paged trace alone through the lockstep
+    path (kernel F in every layer's prefill): its tokens must equal the
+    paged engine's up to near-ties under 2D, D the route deviation between
+    the lockstep prefill and the paged chunked one on the same weights."""
+    from repro_torch.core.engine import OFF
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    zero_counts()
+    alone, margins = {}, {}
+    t0 = time.perf_counter()
+    for r in reqs:
+        alone[r.rid], margins[r.rid] = greedy_alone(
+            torch, cfg, sp, r.tokens, r.max_new_tokens, OFF)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    f_launches = flash_attention.launches
+    check(f_launches == cfg.n_layers * len(reqs), f"{label}: kernel F "
+          f"launched {f_launches} times over {len(reqs)} lockstep "
+          f"prefills, expected one per layer ({cfg.n_layers * len(reqs)})")
+    d = window_route_deviation(torch, cfg, sp, reqs[0].tokens, 64,
+                               page_size=16)
+    ties = within_near_ties(res["tokens"], alone, margins, d,
+                            f"{label} paged vs run-alone")
+    return {"route_deviation_d": d, "near_ties": ties, "alone_s": alone_s,
+            "flash_attention_launches": f_launches,
+            "flash_attention_per_prefill": f_launches / len(reqs),
+            "paged_equals_alone": res["tokens"] == alone}
+
+
+def paged_cases_all_pools(torch, timer, a_in: dict, n_heads: int,
+                          seed: int) -> list:
+    """Kernel A on a served engine's own layer-0 pools and block table
+    (``kernel_a_inputs``): decode (Q = 1) and a chunk of Q = 64, over the
+    f32 pool, its bf16 cast, and the same K/V on the int8 and log8 grids."""
+    from repro_torch.nn.attention import _quantize_kv
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k0, v0 = a_in["k"], a_in["v"]
+    cases = []
+    for q_len in (1, 64):
+        q = torch.randn((a_in["bt"].shape[0], n_heads, q_len, k0.shape[-1]),
+                        generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append(paged_case(torch, timer, a_in, q, k0.to(dt),
+                                    v0.to(dt), {}, str(dt).split(".")[-1]))
+        for mode in ("int8", "log8"):
+            (kc, ks), (vc, vs) = _quantize_kv(k0, mode), _quantize_kv(v0,
+                                                                        mode)
+            cases.append(paged_case(
+                torch, timer, a_in, q, kc, vc,
+                dict(k_scale=ks, v_scale=vs, kv_quant=mode), mode))
+    return cases
+
+
+def family_phase(torch, timer, cfg, params, ffn: str, label: str,
+                 seed: int) -> dict:
+    """The serving paths and kernel cases ``[paligemma]`` and ``[musicgen]``
+    share: ``PagedServeEngine`` OFF on paged OFF's trace, 4 requests (kernel
+    A once per layer every prefill chunk and decode step), each request
+    alone through the lockstep path (kernel F in every layer's prefill;
+    tokens equal up to near-ties under 2D), and the lockstep FUSED path, 2 x
+    256 text tokens, 8 new (kernel C in every layer's prefill, kernel B
+    with the gelu table on the ``ffn`` projection).  Then A on the engine's
+    layer-0 pools (decode, Q = 64; f32, bf16, int8 and log8), F at the first
+    prompt's length (against a dense masked softmax there), and C and B at
+    the lockstep FUSED prefill's own shape, against their plain versions.
+    Returns the phase's results with its ``"launches"`` by kernel, its
+    ``"kernel_cases"`` and the first prompt's length (``"plen"``)."""
+    from repro_torch.core.engine import FUSED, OFF
+    from repro_torch.kernels.dual_compute.ops import (
+        fused_crossbar_acam, log_quantize_qkv, logdomain_flash_attention)
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.engine import PagedServeEngine
+    n = cfg.n_layers
+    out = {"layers": n, "params_b": cfg.param_count() / 1e9}
+    paged_kw = dict(max_slots=8, max_len=1024, page_size=16,
+                    prefill_chunk=64, decode_block=4)
+    reqs = make_trace(cfg, 4, 32, 0)
+    engine = PagedServeEngine(cfg, params, nldpe=OFF, **paged_kw)
+    res = serve(torch, engine, reqs, paged_attention, f"{label} serve OFF")
+    check(res["launches_per_prefill_chunk"] == n
+          and res["launches_per_decode_tick"] == n * paged_kw[
+              "decode_block"], f"[{label}] kernel A launched "
+          f"{res['launches_per_prefill_chunk']} times a prefill chunk and "
+          f"{res['launches_per_decode_tick']} a decode tick, expected one "
+          f"per layer and step")
+    a_in = kernel_a_inputs(engine)
+    sp = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    out["serve_off"] = {k: v for k, v in res.items() if k != "tokens"}
+    out["alone"] = alone_against_paged(torch, cfg, sp, res, reqs,
+                                       f"[{label}]")
+    print(f"[{label} alone] " + json.dumps(out["alone"]))
+    del sp
+    torch.cuda.empty_cache()
+
+    batch, prompt_len = 2, 256
+    lock_fused = lockstep(torch, cfg, params, FUSED, batch=batch,
+                          prompt_len=prompt_len, gen_len=8, counters_on_path=[
+                              logdomain_flash_attention, log_quantize_qkv,
+                              fused_crossbar_acam],
+                          label=f"{label} lockstep FUSED",
+                          compare_loop=False, profile=False)
+    out["lockstep_fused"] = {k: v for k, v in lock_fused.items()
+                             if k != "per_kernel"}
+    plen = len(reqs[0].tokens)
+    d = cfg.resolved_head_dim
+    heads = (cfg.n_heads, cfg.n_kv_heads)
+    out["plen"] = plen
+    out["kernel_cases"] = {
+        "paged_attention": paged_cases_all_pools(torch, timer, a_in,
+                                                 cfg.n_heads, seed),
+        "flash_attention": [flash_case(
+            torch, timer, (1, *heads, plen, plen, d), torch.bfloat16,
+            seed + 1, dense=True)],
+        "logdomain_flash_attention": [logdomain_case(
+            torch, timer, (batch, *heads, prompt_len, prompt_len, d),
+            torch.bfloat16, seed + 2)],
+        "fused_crossbar_acam": fused_acam_cases(
+            torch, timer, params["groups"]["b0"]["ffn"][ffn][0],
+            (batch * prompt_len, batch), "gelu",
+            torch.Generator(device="cuda").manual_seed(seed + 3))}
+    del a_in
+    per = lock_fused["per_kernel"]
+    out["launches"] = {
+        "paged_attention": {
+            "serve_off": res["launches"]["paged_attention"],
+            "serve_off_per_prefill_chunk": res["launches_per_prefill_chunk"],
+            "serve_off_per_decode_tick": res["launches_per_decode_tick"]},
+        "flash_attention": {
+            "lockstep_off_alone": out["alone"]["flash_attention_launches"],
+            "lockstep_off_alone_per_prefill": out["alone"][
+                "flash_attention_per_prefill"]},
+        "logdomain_flash_attention": {
+            "lockstep_fused": per["logdomain_flash_attention"]["launches"],
+            "lockstep_fused_per_prefill": per["logdomain_flash_attention"][
+                "launches_per_prefill"]},
+        "fused_crossbar_acam": {
+            "lockstep_fused": per["fused_crossbar_acam"]["launches"],
+            "lockstep_fused_per_prefill": per["fused_crossbar_acam"][
+                "launches_per_prefill"],
+            "lockstep_fused_per_decode_step": per["fused_crossbar_acam"][
+                "launches_per_decode_step"]}}
+    return out
+
+
+def family_summary(out: dict, label: str) -> dict:
+    """Tags each kernel case with its phase and prints the summary line
+    (the cases go to the kernel rows, not into the line)."""
+    cases = out.pop("kernel_cases")
+    for c in sum(cases.values(), []):
+        c["phase"] = label
+    print(f"[{label} summary] " + json.dumps(out))
+    out["kernel_cases"] = cases
+    return out
+
+
+def paligemma_phase(torch, timer) -> dict:
+    """``[paligemma]``: PaliGemma-3B at full width and depth (18 layers,
+    d 2048, 8/1 heads of 256, GeGLU d_ff 16384, vocab 257216, tied
+    embeddings), seeded float32 weights, bf16 activations.  The lockstep
+    path with an image prefix (``prefix_lockstep``: 2 requests of 256
+    patch rows and 256 text tokens, 32 new), then ``family_phase`` on the
+    text-only paths: kernel A's head-dim-256 decode and chunk instances, F
+    at D 256, C at D 256 (the resident instance at the FUSED prefill's 256
+    keys) and B on every gate.  Besides the shared cases, F and C at (1,
+    8/1, 1280, 256) and C at (1, 16/1, ``RGEMMA_F_LEN``, 256), both
+    two-pass."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = get_config("paligemma_3b")
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[paligemma] {cfg.name} at {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (float32) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sp = lm.serving_params(params, cfg)
+    prefix = prefix_lockstep(torch, cfg, sp, batch=2, gen_len=32,
+                             label="paligemma lockstep OFF prefix")
+    del sp
+    torch.cuda.empty_cache()
+    out = family_phase(torch, timer, cfg, params, "gate", "paligemma",
+                       SEED + 27)
+    out["prefix_lockstep"] = prefix
+    out["launches"]["flash_attention"]["lockstep_off_prefix"] = 0
+    d = cfg.resolved_head_dim
+    shape = (1, cfg.n_heads, cfg.n_kv_heads, PALIGEMMA_ATTN_LEN,
+             PALIGEMMA_ATTN_LEN, d)
+    plen = out["plen"]
+    cases = out["kernel_cases"]
+    cases["flash_attention"] += [
+        flash_case(torch, timer, shape, dt, SEED + 31)
+        for dt in (torch.bfloat16, torch.float32)]
+    cases["logdomain_flash_attention"] += [
+        logdomain_case(torch, timer, s_, torch.bfloat16, SEED + 32)
+        for s_ in (shape, shape[:3] + (plen, plen, d),
+                   (1, 16, 1, RGEMMA_F_LEN, RGEMMA_F_LEN, d))]
+    del params
+    torch.cuda.empty_cache()
+    return family_summary(out, "paligemma")
+
+
+def musicgen_phase(torch, timer) -> dict:
+    """``[musicgen]``: MusicGen-large's decoder over EnCodec token ids at
+    full width (d 2048, 32/32 heads of 64, plain GELU d_ff 8192, vocab
+    2048) cut to ``MUSICGEN_LAYERS`` of its 48 layers, seeded float32
+    weights, bf16 activations, through ``family_phase``: kernel A at GQA
+    1, F (MHA), C, and B with the gelu table on the non-gated up
+    projection."""
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = cut_config("musicgen_large", MUSICGEN_LAYERS)
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[musicgen] {cfg.name} cut to {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (float32) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = family_phase(torch, timer, cfg, params, "up", "musicgen",
+                       SEED + 33)
+    del params
+    torch.cuda.empty_cache()
+    return family_summary(out, "musicgen")
+
+
 def small_model_agrees(torch) -> None:
     """The reduced model (float32 activations) served on the card through
     the kernels and on the CPU through the plain versions gives the same
@@ -3177,6 +3548,62 @@ def small_model_agrees(torch) -> None:
               f"logits max |diff| {err:.3g} (tolerance {tol})")
     windowed_models_agree(torch, rng)
     moe_rwkv_models_agree(torch, rng)
+    vlm_audio_models_agree(torch, rng)
+
+
+def vlm_audio_models_agree(torch, rng) -> None:
+    """The reduced PaliGemma (float32 activations) through the lockstep
+    path with an image prefix (the masked prefix-LM route) on the card and
+    on the CPU: a 2 x (8 patches + 20 tokens) prefill and 4 decode steps
+    from position 28, ``OFF`` logits within ``WINDOWED_TOL``; the reduced
+    MusicGen through ``PagedServeEngine`` (kernel A on every layer): equal
+    greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import PagedServeEngine, Request
+    from repro_torch.launch.serve import build_prefill_step
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("paligemma_3b", reduced=True),
+                              activation_dtype=torch.float32)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 24)),
+                           dtype=torch.int32)
+    patches = torch.as_tensor(rng.normal(size=(2, cfg.n_patches,
+                                               cfg.d_model)),
+                              dtype=torch.float32)
+    start = cfg.n_patches + 20
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = lm.serving_params(_to(cpu, dev), cfg)
+        cache = lm.init_model_cache(cfg, 2, start + 4, device=dev)
+        out = [build_prefill_step(cfg)(p, cache, toks[:, :20].to(dev),
+                                       patches.to(dev))[0]]
+        for t in range(20, 24):
+            out.append(lm.decode_step(p, cfg, toks[:, t].to(dev),
+                                      cfg.n_patches + t, cache))
+        logits[dev] = torch.stack([o.cpu() for o in out])
+    err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+    check(err <= WINDOWED_TOL, f"reduced paligemma_3b with an image "
+          f"prefix: card vs CPU OFF logits {err} > {WINDOWED_TOL}")
+    print(f"[reference] reduced paligemma_3b with an image prefix: card vs "
+          f"CPU OFF logits max |diff| {err:.3g} (tolerance {WINDOWED_TOL})")
+    cfg = dataclasses.replace(get_config("musicgen_large", reduced=True),
+                              activation_dtype=torch.float32)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    reqs = [Request(rid=i, tokens=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(5, 30)))), max_new_tokens=8,
+        arrival=i) for i in range(6)]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        eng = PagedServeEngine(cfg, _to(cpu, dev), max_slots=3, max_len=48,
+                               page_size=4, prefill_chunk=8, decode_block=2,
+                               device=dev)
+        tokens[dev] = {c.rid: c.tokens for c in eng.run(reqs)}
+    check(tokens["cpu"] == tokens["cuda"], f"reduced musicgen_large: card "
+          f"and CPU paged tokens differ: {tokens}")
+    print("[reference] reduced musicgen_large (paged): card tokens == CPU "
+          "plain-path tokens")
 
 
 def moe_rwkv_models_agree(torch, rng) -> None:
@@ -3310,7 +3737,6 @@ def main() -> None:
         fail(f"{ROOT} is not a checkout of the repository "
              f"(src/repro_torch missing)")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
     from repro_torch.core.drift import DriftModel
     from repro_torch.core.engine import FUSED, OFF, ON, NLDPEConfig
     from repro_torch.kernels import build
@@ -3339,7 +3765,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    cfg = get_config("qwen2_5_3b")
+    cfg = cut_config("qwen2_5_3b", SERVE_LAYERS)
     params = lm.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
         device="cuda")
@@ -3495,6 +3921,14 @@ def main() -> None:
     print(f"[rwkv6] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    pali = paligemma_phase(torch, Timer(torch))
+    print(f"[paligemma] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    music = musicgen_phase(torch, Timer(torch))
+    print(f"[musicgen] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     lib = library_phase(torch, params)
     library_checks(torch, lib)
     print(f"[library] phase {time.perf_counter() - t0:.1f} s")
@@ -3529,31 +3963,52 @@ def main() -> None:
                     "paged_attention"],
                 "launches_serve_async": async_res["launches"][
                     "paged_attention"],
-                "launches_qwen3moe": qmoe["launches"]["paged_attention"]},
-            qmoe["kernel_cases"]["paged_attention"]),
+                "launches_qwen3moe": qmoe["launches"]["paged_attention"],
+                "launches_paligemma": pali["launches"]["paged_attention"],
+                "launches_musicgen": music["launches"]["paged_attention"]},
+            qmoe["kernel_cases"]["paged_attention"]
+            + pali["kernel_cases"]["paged_attention"]
+            + music["kernel_cases"]["paged_attention"]),
         fused_acam_phase(torch, timer, params, {
             **path_launches(fused_res, "fused_crossbar_acam"),
             "launches_gemma3": gemma3["launches"]["fused_crossbar_acam"],
             "launches_recurrentgemma": rgemma["launches"][
-                "fused_crossbar_acam"]},
+                "fused_crossbar_acam"],
+            "launches_paligemma": pali["launches"]["fused_crossbar_acam"],
+            "launches_musicgen": music["launches"]["fused_crossbar_acam"]},
             gemma3["kernel_cases"]["fused_crossbar_acam"]
-            + rgemma["kernel_cases"]["fused_crossbar_acam"]),
+            + rgemma["kernel_cases"]["fused_crossbar_acam"]
+            + pali["kernel_cases"]["fused_crossbar_acam"]
+            + music["kernel_cases"]["fused_crossbar_acam"]),
         logdomain_phase(torch, timer, {
             **lock_fused["per_kernel"]["logdomain_flash_attention"],
             "launches_gemma3": gemma3["launches"][
                 "logdomain_flash_attention"],
             "launches_qwen3moe": qmoe["launches"][
+                "logdomain_flash_attention"],
+            "launches_paligemma": pali["launches"][
+                "logdomain_flash_attention"],
+            "launches_musicgen": music["launches"][
                 "logdomain_flash_attention"]},
             gemma3["kernel_cases"]["logdomain_flash_attention"]
-            + qmoe["kernel_cases"]["logdomain_flash_attention"]),
+            + qmoe["kernel_cases"]["logdomain_flash_attention"]
+            + pali["kernel_cases"]["logdomain_flash_attention"]
+            + music["kernel_cases"]["logdomain_flash_attention"]),
         acam_phase(torch, timer, lib),
         crossbar_phase(torch, timer, lib),
         flash_phase(torch, timer, {
             **lock_off["per_kernel"]["flash_attention"],
             "launches_gemma3": gemma3["launches"]["flash_attention"],
-            "launches_qwen3moe": qmoe["launches"]["flash_attention"]},
+            "launches_qwen3moe": qmoe["launches"]["flash_attention"],
+            "launches_recurrentgemma": rgemma["launches"][
+                "flash_attention"],
+            "launches_paligemma": pali["launches"]["flash_attention"],
+            "launches_musicgen": music["launches"]["flash_attention"]},
             gemma3["kernel_cases"]["flash_attention"]
-            + qmoe["kernel_cases"]["flash_attention"]),
+            + qmoe["kernel_cases"]["flash_attention"]
+            + rgemma["kernel_cases"]["flash_attention"]
+            + pali["kernel_cases"]["flash_attention"]
+            + music["kernel_cases"]["flash_attention"]),
         qmatmul_phase(torch, timer, lib, cnn_res)]
     del lib, off_in, log8_in, cnn_res
     print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")

@@ -4,9 +4,12 @@ Ported families: the dense attention pattern ``("attn",)`` (``qwen2_5_3b``,
 ``qwen2_7b``, ``minicpm_2b``), Gemma3's local:global sliding-window
 pattern (``gemma3_27b``), RecurrentGemma's RG-LRU hybrid
 (``recurrentgemma_9b``), the MoE pattern ``("moe",)``
-(``qwen3_moe_30b_a3b``, ``llama4_scout_17b_a16e``) and RWKV6
-(``rwkv6_3b``).  The frontend fields of ``repro``'s config (the VLM
-prefix, the audio stub) are not here yet (``ROADMAP.md`` A.5).
+(``qwen3_moe_30b_a3b``, ``llama4_scout_17b_a16e``), RWKV6 (``rwkv6_3b``),
+PaliGemma's image prefix (``paligemma_3b``: ``frontend="siglip_stub"``,
+``n_patches`` precomputed patch embeddings prepended under a prefix-LM
+mask) and the MusicGen backbone (``musicgen_large``: ``"encodec_stub"``,
+token ids in, a plain GELU MLP).  ``repro``'s dry-run accounting
+(``input_specs``, ``SHAPES``) is not ported.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ class ArchConfig:
     window: int | None = None
     moe: MoESpec | None = None        # the expert FFN of "moe" blocks
     d_rnn: int | None = None          # RG-LRU width ("rec" blocks)
+    frontend: str | None = None       # "siglip_stub" | "encodec_stub"
+    n_patches: int = 256              # vlm prefix length
     qk_norm: bool = False
     attn_softcap: float | None = None
     logit_softcap: float | None = None

@@ -125,7 +125,11 @@ def nldpe_log_softmax(y: torch.Tensor, cfg: LogDomainConfig = DEFAULT_CFG,
     sq = exp_spec.apply(s)                                 # 8-bit exp output
     if mask is not None:
         sq = torch.where(mask, sq, 0.0)                    # digital gating
-    total = torch.sum(sq, dim=-1, keepdim=True)            # step 2: adders
+    # step 2: the adder tree.  Every 8-bit exp output is 0 or at least
+    # 1/255, a multiple of 2^-32, so a float64 sum is exact below 2^21
+    # terms: rounded once, the sum is the same in any order (kernel C's
+    # fixed-point sum, csrc/logdomain_flash.cu, gives the same bits)
+    total = torch.sum(sq.to(torch.float64), dim=-1, keepdim=True).to(sq.dtype)
     length = y.shape[-1]
     log_spec = QuantSpec(lo=-cfg.score_range,
                          hi=float(math.log(length + 1)), bits=cfg.bits)

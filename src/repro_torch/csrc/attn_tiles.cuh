@@ -28,7 +28,8 @@
 // three).
 //
 // Operand layouts, chosen so every shared-memory access is conflict-free
-// at D = 32..128 and vectorized:
+// at D = 32..256 and vectorized (a row pitch of D + 4 floats is 4 banks
+// past a multiple of 32 at D = 128 and 256 alike):
 // * Q.K^T contracts over d in groups of GW = 32: in k-step kk of a group,
 //   lane quad-index t holds d = GW*grp + 8t + 2kk (+1), so a lane reads 8
 //   consecutive d of one K row (two float4) for four k-steps.  Q uses the
@@ -409,6 +410,7 @@ int dispatch_head_dim(int D, F&& f) {
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }

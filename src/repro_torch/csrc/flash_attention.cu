@@ -35,6 +35,17 @@
 // by under 4% with the ring's depth, the key tile's depth or four warps in
 // place of eight; mma.sync issues m16n8k8 TF32 at well under the 495
 // TFLOP/s that wgmma reaches, the lever left.
+//
+// Head dim 256 (PaliGemma, RecurrentGemma): the layout above needs 265 KB
+// of shared memory at f32 (the ring 133 KB, 128 scaled q rows of 258
+// floats 132 KB) and 273 KB at bf16, over the 227 KB a block may have.
+// The D 256 instance keeps the layout and halves the block: four warps,
+// 64 rows (f32 194.5 KB, bf16 202.5 KB).  Each warp's P @ V accumulators
+// are then 128 registers a lane, which the one-block-an-SM launch bound
+// leaves room for.  Splitting the output's D over warp pairs would keep
+// 128 rows a block but score every (row, key) twice; q held in registers
+// would not fit beside the accumulators.  The ring, the tiles and the sum
+// order are those of the other head dims.
 
 #include "attn_tiles.cuh"
 
@@ -42,12 +53,17 @@ namespace {
 
 using namespace attn_tiles;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int ROWS = WARP_ROWS * WARPS;
+// warps a block: eight, four at head dim 256 (see the note above)
+template <int D>
+struct Block {
+  static constexpr int WARPS = D > 128 ? 4 : 8;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int ROWS = WARP_ROWS * WARPS;
+};
 
 template <typename T, int D>
 struct Layout {
+  static constexpr int ROWS = Block<D>::ROWS;
   static constexpr int BK = sizeof(T) == 4 ? 32 : 64;   // keys a tile
   static constexpr int PK = Pitch<T, D>::K;
   static constexpr int PV = Pitch<T, D>::V;
@@ -96,13 +112,13 @@ __device__ __forceinline__ void load_q(float* qs, const Args<T>& a,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Block<D>::THREADS, 1)
 flash_attention_kernel(const Args<T> a) {
   using L = Layout<T, D>;
   using Gr = Groups<D>;
   constexpr int NB = L::BK / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tile t(a.Hq, a.Hkv, a.Lq, a.Lk, a.causal, ROWS);
+  const Tile t(a.Hq, a.Hkv, a.Lq, a.Lk, a.causal, L::ROWS);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -210,8 +226,8 @@ int launch(const Args<T>& a, int B, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_rows = (a.Hq / a.Hkv) * a.Lq;
-  dim3 grid(B * a.Hkv, (n_rows + ROWS - 1) / ROWS);
-  kernel<<<grid, THREADS, smem, stream>>>(a);
+  dim3 grid(B * a.Hkv, (n_rows + Block<D>::ROWS - 1) / Block<D>::ROWS);
+  kernel<<<grid, Block<D>::THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -245,7 +261,8 @@ extern "C" {
 // q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D): all float32 (bf16 = 0) or all
 // bfloat16 (bf16 = 1), D contiguous, strides (batch, head, position) in
 // elements in `strides` (q, k, v: 9 values), every row 16-byte aligned;
-// out (B, Hq, Lq, D) contiguous in the same dtype; D in {16, 32, 64, 128}.
+// out (B, Hq, Lq, D) contiguous in the same dtype; D in {16, 32, 64, 128,
+// 256}.
 // Returns the cudaError_t of the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int bf16, int B, int Hq, int Hkv,
@@ -262,7 +279,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // Dynamic shared memory of one block for element size `elem_bytes` (4 or
 // 2) and head dim D; 0 for a D the kernel does not take.
 size_t flash_attention_smem_bytes(int elem_bytes, int D) {
-  if (D != 16 && D != 32 && D != 64 && D != 128) return 0;
+  if (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) return 0;
   return (size_t)dispatch_head_dim(D, [&](auto dim) {
     constexpr int kD = decltype(dim)::value;
     return (int)(elem_bytes == 2 ? Layout<__nv_bfloat16, kD>::BYTES

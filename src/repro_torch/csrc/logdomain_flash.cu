@@ -36,8 +36,16 @@
 // step (6.5%), more than the tolerance where a row has few keys.  So the
 // scores are f32 FMA chains in d order from 0, the order of the plain
 // version's f32 matmul, and are its bits: split-TF32 scores (about 2^-21
-// relative) moved codes at full width, up to 0.0095 against 1/255.  What
-// can still differ from the plain version: the row sums' order and P @ V's
+// relative) moved codes at full width, up to 0.0095 against 1/255.  The
+// row sum t_i crosses the log-sum grid too, so it is summed exactly: every
+// T1 value is 0 or a float32 in [1/255, 1], a multiple of 2^-32, so the
+// kernel adds them as int64 fixed point and rounds the sum to float32
+// once (the plain version sums in float64, exact below 2^21 keys, and
+// rounds once): the same bits in any order.  A row sum in float32 in
+// another order than the plain version's moved a row's log-sum code at a
+// grid boundary (on an H100, tools/logdomain_row_check.py: one row in
+// 10240 at D 256 and at D 128, up to 0.0098 against 1/255).  What can
+// still differ from the plain version: P @ V's
 // split-TF32 rounding (about 1e-6; no grid follows it).
 //
 // What bounds it on an H100: operations, as for flash attention (kernel
@@ -63,6 +71,10 @@
 //   beat codes in shared memory (one block an SM) at 2048 keys.
 // The exps are table reads; the per-score work a subtraction, a rint
 // quantization and a lookup per pass.
+// Head dim 256 (PaliGemma) runs the same layout: the ring and the q rows
+// take 133 KB of shared memory there (66 KB at D 128), so the resident
+// instance holds up to 352 keys (608 at D 128) and the two-pass instance
+// takes the rest; a P @ V warp's accumulators are 128 registers a lane.
 
 #include "attn_tiles.cuh"
 
@@ -177,14 +189,29 @@ __device__ __forceinline__ void fma_scores(float (&s)[4][2], const float* qs,
   }
 }
 
-// A row's partial (max or sum) over the sixteen lanes that share it.
-template <bool MAX>
-__device__ __forceinline__ float reduce16(float x) {
+// A row's max over the sixteen lanes that share it.
+__device__ __forceinline__ float max16(float x) {
 #pragma unroll
-  for (int o = 1; o < 16; o <<= 1) {
-    const float y = __shfl_xor_sync(FULL, x, o);
-    x = MAX ? fmaxf(x, y) : x + y;
-  }
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
+  return x;
+}
+
+// A row-sum term in 2^-32 units: T1 values are multiples of 2^-32 in
+// [0, 1], so the product and the conversion are exact.
+__device__ __forceinline__ long long fixed32(float x) {
+  return __float2ll_rn(__fmul_rn(x, 4294967296.0f));
+}
+
+// An exact fixed-point row sum, rounded to float32 once (through double:
+// exact below 2^53 units).
+__device__ __forceinline__ float fixed32_to_float(long long x) {
+  return __double2float_rn((double)x * 2.3283064365386963e-10);
+}
+
+// A row's fixed-point partial sum over the sixteen lanes that share it.
+__device__ __forceinline__ long long sum16(long long x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(FULL, x, o);
   return x;
 }
 
@@ -250,19 +277,20 @@ logdomain_flash_kernel(const Args a) {
 
   // Q.K^T in the micro-tile: the row max (and, two-pass, the codes and
   // the row sums) for rows ra + (rows/4) u, all warps
-  float m[4], m_safe[4], tsum[4];
+  float m[4], m_safe[4];
+  long long tsum[4];
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     m[u] = -INFINITY;
     m_safe[u] = 0.0f;
-    tsum[u] = 0.0f;
+    tsum[u] = 0;
   }
   int it = 0;
   for (int pass = 0; pass < NPASS_K; ++pass) {
     if (pass == 1) {                        // two-pass: the max is final
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        m[u] = reduce16<true>(m[u]);
+        m[u] = max16(m[u]);
         m_safe[u] = isfinite(m[u]) ? m[u] : 0.0f;
       }
     }
@@ -287,7 +315,7 @@ logdomain_flash_kernel(const Args a) {
             int c = 0;
             if (ok) {
               c = q8code(__fsub_rn(x, m_safe[u]), a.gr.score);
-              tsum[u] += T1[c];
+              tsum[u] += fixed32(T1[c]);
             }
             codes[(size_t)r * a.sp + j] = (unsigned char)c;
           }
@@ -297,7 +325,8 @@ logdomain_flash_kernel(const Args a) {
   }
 #pragma unroll
   for (int u = 0; u < 4; ++u) {             // resident: max; two-pass: sum
-    const float x = RESIDENT ? reduce16<true>(m[u]) : reduce16<false>(tsum[u]);
+    const float x =
+        RESIDENT ? max16(m[u]) : fixed32_to_float(sum16(tsum[u]));
     if (ja == 0) row_stat[ra + rstep * u] = x;
   }
 
@@ -320,7 +349,7 @@ logdomain_flash_kernel(const Args a) {
       const int part = threadIdx.x & 3;     // place, 16 bytes at a time
       float* srow = S + (size_t)r * a.sp;
       const float ms = isfinite(row_stat[r]) ? row_stat[r] : 0.0f;
-      float ts = 0.0f;
+      long long ts = 0;
       for (int j = 4 * part; j < n_tiles * BK; j += 16) {
         float4* p = reinterpret_cast<float4*>(srow + j);
         float x[4] = {p->x, p->y, p->z, p->w};
@@ -330,7 +359,7 @@ logdomain_flash_kernel(const Args a) {
             x[e] = -1.0f;
           } else {
             const int c = q8code(__fsub_rn(x[e], ms), a.gr.score);
-            ts += T1[c];
+            ts += fixed32(T1[c]);
             x[e] = (float)c;
           }
         }
@@ -338,8 +367,9 @@ logdomain_flash_kernel(const Args a) {
       }
       ts += __shfl_xor_sync(FULL, ts, 1);
       ts += __shfl_xor_sync(FULL, ts, 2);
-      const float ltr = q8value(q8code(logf(fmaxf(ts, 1e-9f)), a.gr.logsum),
-                                a.gr.logsum);
+      const float ltr = q8value(
+          q8code(logf(fmaxf(fixed32_to_float(ts), 1e-9f)), a.gr.logsum),
+          a.gr.logsum);
       for (int j = 4 * part; j < n_tiles * BK; j += 16) {
         float4* p = reinterpret_cast<float4*>(srow + j);
         float c[4] = {p->x, p->y, p->z, p->w};
@@ -472,7 +502,8 @@ int launch(const Args& a, int instance, int B, cudaStream_t stream) {
 extern "C" {
 
 // q, k, v (B, Hq|Hkv, Lq|Lk, D): float32 or bfloat16 each (flags), D in
-// {16, 32, 64, 128} contiguous, fewer than 2^31 rows each, strides (batch, head, position) in elements in `strides` (9
+// {16, 32, 64, 128, 256} contiguous, fewer than 2^31 rows each, strides
+// (batch, head, position) in elements in `strides` (9
 // values: q, k, v), multiples of 4 with 16-byte aligned bases; q_l, k_l,
 // v_l the contiguous float32 outputs.  consts: q's scale, then the DMMul
 // grid's log_lo, 1/step, flush threshold and log floor (5 host floats);
@@ -504,7 +535,7 @@ int logdomain_quantize_launch(const void* q, const void* k, const void* v,
 
 // q_l (B, Hq, Lq, D), k_l/v_l (B, Hkv, Lk, D): contiguous float32 (the
 // quantize launch's outputs); out (B, Hq, Lq, D) contiguous, bfloat16 if
-// out_bf16 else float32; D in {16, 32, 64, 128}.  instance: 0 two-pass,
+// out_bf16 else float32; D in {16, 32, 64, 128, 256}.  instance: 0 two-pass,
 // its codes in `codes`, a device scratch of `codes_bytes` (at least
 // logdomain_flash_scratch_bytes); 1 resident (one score pass; `codes`
 // unused).  grids: 9 host floats,
@@ -547,7 +578,7 @@ int logdomain_flash_launch(const float* q, const float* k, const float* v,
 // Dynamic shared memory of one block of the given instance; 0 for a D
 // the kernel does not take.
 size_t logdomain_flash_smem_bytes(int instance, int D, int Lk) {
-  if (D != 16 && D != 32 && D != 64 && D != 128) return 0;
+  if (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) return 0;
   size_t bytes = 0;
   dispatch_head_dim(D, [&](auto dim) {
     bytes = layout_bytes<decltype(dim)::value>(instance, Lk);

@@ -90,6 +90,20 @@
 //     merges a whole tile alone;
 //   * IEEE f32 arithmetic throughout: fmaf dot products, expf; no TF32, no
 //     tensor cores.
+//
+// Head dim 256 (PaliGemma's 8/1 heads).  Decode: D/4 = 64 lanes a position
+// would be two warps, so a lane takes two float4s (dims 4l and 128 + 4l)
+// and a position is one warp; q and the accumulators are then 2R float4s
+// a lane, 64 registers each at R = 8, so only G*Q <= 8 takes the decode
+// instance there (R = 16 would hold 256 registers of them: G*Q of 9-16
+// takes the chunk instance's 64-row tile).  Chunk: one 64-position f32
+// stage is 128 KB of K and V, and the 64-row q tile 64 KB, so a stage
+// holds 32 positions (200.8 KB at f32 and bf16, 170.3 KB for codes) and
+// only 64-row tiles exist; a split is 4 stages of 32, the same 128
+// absolute positions as 2 stages of 64 at the other head dims, so a row's
+// sum order is batch- and chunk-invariant there too (up to CH_MAX_SPLITS
+// * 128 = 2048 positions).  At D <= 128 both instances run the same
+// operations in the same order as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,8 +123,19 @@ constexpr int DEC_SW = 8;          // positions per warp step
 constexpr int DEC_STEP = DEC_SW * DEC_WARPS;   // positions per block step
 
 constexpr int CH_THREADS = 256;    // chunk instance
-constexpr int CH_S = 64;           // positions per stage
 constexpr int CH_STAGES = 2;
+
+// chunk positions per stage: 64, 32 at D = 256 (see the header note)
+template <int D>
+__host__ __device__ constexpr int ch_positions() {
+  return D > 128 ? 32 : 64;
+}
+
+// decode: float4s a lane takes of a position's D (one warp spans D <= 128)
+template <int D>
+__host__ __device__ constexpr int dec_vectors() {
+  return D > 128 ? D / 128 : 1;
+}
 
 // Decode ring depth by pool element size (the same shared bytes per stage
 // buy more positions in flight for narrower pools).
@@ -340,7 +365,8 @@ template <typename T, int D, int R>
 __global__ void __launch_bounds__(DEC_THREADS)
 paged_attention_kernel_decode(Args a) {
   using L = DecodeLayout<T, D, R>;
-  constexpr int LD = D / 4;           // lanes per position (a float4 each)
+  constexpr int VPL = dec_vectors<D>();  // float4s a lane, a position
+  constexpr int LD = D / (4 * VPL);   // lanes per position
   constexpr int PL = 32 / LD;         // positions per warp step
   constexpr int CPR = L::ROWB / 16;   // 16-byte pieces per position row
   constexpr int NST = L::NST;
@@ -433,15 +459,22 @@ paged_attention_kernel_decode(Args a) {
 
   // q rows of (b, h) are contiguous: (b*Hq + h*G)*Q*D + r*D
   const size_t row_base = ((size_t)b * a.Hq + (size_t)h * G) * Q * D;
-  float4 qv[R];
+  // lane ld holds dims 4 ld + 4 LD u of vector u
+  float4 qv[R][VPL];
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    qv[r] = r < n_rows ? *reinterpret_cast<const float4*>(
-                             a.q + row_base + (size_t)r * D + 4 * ld)
-                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 acc[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int u = 0; u < VPL; ++u)
+      qv[r][u] = r < n_rows ? *reinterpret_cast<const float4*>(
+                                  a.q + row_base + (size_t)r * D + 4 * ld +
+                                  4 * LD * u)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 acc[R][VPL];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int u = 0; u < VPL; ++u)
+      acc[r][u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float m_run = -INFINITY, l_run = 0.0f;     // lane r < R: row r
   if constexpr (L::kCodes) __syncthreads();  // the table
 
@@ -459,14 +492,25 @@ paged_attention_kernel_decode(Args a) {
 #pragma unroll
     for (int it = 0; it < DEC_SW / PL; ++it) {
       const int p = it * PL + pl;
-      const float4 k4 = load4<T>(slot + L::SLOT_K + p * L::ROWB, 4 * ld, tab,
-                                 L::kCodes ? ksc[p] : 1.0f);
+      float4 k4[VPL];
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+        k4[u] = load4<T>(slot + L::SLOT_K + p * L::ROWB, 4 * ld + 4 * LD * u,
+                         tab, L::kCodes ? ksc[p] : 1.0f);
       float part[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        part[r] = fmaf(qv[r].w, k4.w,
-                       fmaf(qv[r].z, k4.z, fmaf(qv[r].y, k4.y,
-                                                qv[r].x * k4.x)));
+      for (int r = 0; r < R; ++r) {
+        const float4& q0 = qv[r][0];
+        part[r] = fmaf(q0.w, k4[0].w,
+                       fmaf(q0.z, k4[0].z, fmaf(q0.y, k4[0].y,
+                                                q0.x * k4[0].x)));
+#pragma unroll
+        for (int u = 1; u < VPL; ++u) {
+          const float4& q = qv[r][u];
+          part[r] = fmaf(q.w, k4[u].w, fmaf(q.z, k4[u].z, fmaf(
+              q.y, k4[u].y, fmaf(q.x, k4[u].x, part[r]))));
+        }
+      }
       int roff = 0;
       BF::run(part, ld, roff);
       if ((ld & BF::PLAIN) == 0) {
@@ -506,24 +550,34 @@ paged_attention_kernel_decode(Args a) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float c = cr[r];
-      acc[r].x *= c; acc[r].y *= c; acc[r].z *= c; acc[r].w *= c;
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        float4& o = acc[r][u];
+        o.x *= c; o.y *= c; o.z *= c; o.w *= c;
+      }
     }
 #pragma unroll
     for (int it = 0; it < DEC_SW / PL; ++it) {
       const int p = it * PL + pl;
-      const float4 v4 = load4<T>(slot + L::SLOT_V + p * L::ROWB, 4 * ld, tab,
-                                 L::kCodes ? vsc[p] : 1.0f);
+      float4 v4[VPL];
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+        v4[u] = load4<T>(slot + L::SLOT_V + p * L::ROWB, 4 * ld + 4 * LD * u,
+                         tab, L::kCodes ? vsc[p] : 1.0f);
 #pragma unroll
       for (int r4 = 0; r4 < R / 4; ++r4) {
         const float4 pr = *reinterpret_cast<const float4*>(sc + p * R + 4 * r4);
         const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float4& o = acc[4 * r4 + u];
-          o.x = fmaf(pv[u], v4.x, o.x);
-          o.y = fmaf(pv[u], v4.y, o.y);
-          o.z = fmaf(pv[u], v4.z, o.z);
-          o.w = fmaf(pv[u], v4.w, o.w);
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int u = 0; u < VPL; ++u) {
+            float4& o = acc[4 * r4 + e][u];
+            o.x = fmaf(pv[e], v4[u].x, o.x);
+            o.y = fmaf(pv[e], v4[u].y, o.y);
+            o.z = fmaf(pv[e], v4[u].z, o.z);
+            o.w = fmaf(pv[e], v4[u].w, o.w);
+          }
         }
       }
     }
@@ -536,10 +590,14 @@ paged_attention_kernel_decode(Args a) {
   for (int m = LD; m < 32; m <<= 1) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      acc[r].x += __shfl_xor_sync(FULL, acc[r].x, m);
-      acc[r].y += __shfl_xor_sync(FULL, acc[r].y, m);
-      acc[r].z += __shfl_xor_sync(FULL, acc[r].z, m);
-      acc[r].w += __shfl_xor_sync(FULL, acc[r].w, m);
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        float4& o = acc[r][u];
+        o.x += __shfl_xor_sync(FULL, o.x, m);
+        o.y += __shfl_xor_sync(FULL, o.y, m);
+        o.z += __shfl_xor_sync(FULL, o.z, m);
+        o.w += __shfl_xor_sync(FULL, o.w, m);
+      }
     }
   }
 
@@ -550,7 +608,10 @@ paged_attention_kernel_decode(Args a) {
   if (pl == 0) {
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      *reinterpret_cast<float4*>(wacc + (warp * R + r) * D + 4 * ld) = acc[r];
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+        *reinterpret_cast<float4*>(wacc + (warp * R + r) * D + 4 * ld +
+                                   4 * LD * u) = acc[r][u];
   }
   if (lane < R) {
     wml[(warp * R + lane) * 2] = m_run;
@@ -591,12 +652,14 @@ paged_attention_kernel_decode(Args a) {
 // ---- chunk instance ---------------------------------------------------------
 
 // Chunk splits: split s takes stages [s * per, (s + 1) * per) of the
-// sequence, per = ch_split_stages(RM) doubled until CH_MAX_SPLITS splits
-// cover the sequence's stages.  kernels/paged_attention/ops.py sizes the
-// grid with the same constants, for the longest sequence the table holds.
+// sequence, per = ch_split_stages(RM, S) doubled until CH_MAX_SPLITS
+// splits cover the sequence's stages: 3 x 64 = 192 positions a split at
+// 128-row tiles, 128 at 64-row ones (2 stages of 64, or 4 of 32 at D =
+// 256).  kernels/paged_attention/ops.py sizes the grid with the same
+// constants, for the longest sequence the table holds.
 constexpr int CH_MAX_SPLITS = 16;
-__host__ __device__ constexpr int ch_split_stages(int rm) {
-  return rm == 8 ? 3 : 2;
+__host__ __device__ constexpr int ch_split_stages(int rm, int s) {
+  return (rm == 8 ? 3 : 2) * 64 / s;
 }
 
 template <typename T, int D, int RM>
@@ -605,21 +668,22 @@ struct ChunkLayout {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr bool kCodes = std::is_same<T, int8_t>::value;
   static constexpr int RT = 16 * RM;                 // rows per block
+  static constexpr int S = ch_positions<D>();        // positions a stage
   static constexpr int ROWB = D * E;
   static constexpr int PT = RT + 4;                  // padded P row
   // shared memory, bytes: Qc [D/4][RT][4] | ring | (Kc, Vc) | Pt | table
   static constexpr int Q_OFF = 0;
   static constexpr int RING_OFF = Q_OFF + RT * D * 4;
   static constexpr int SLOT_K = 0;                   // f32: Kc layout
-  static constexpr int SLOT_V = CH_S * ROWB;
-  static constexpr int SLOT_KS = 2 * CH_S * ROWB;
-  static constexpr int SLOT_VS = SLOT_KS + CH_S * 4;
-  static constexpr int SLOT_OK = SLOT_KS + (kCodes ? 2 * CH_S * 4 : 0);
-  static constexpr int SLOT = SLOT_OK + CH_S * 4;
+  static constexpr int SLOT_V = S * ROWB;
+  static constexpr int SLOT_KS = 2 * S * ROWB;
+  static constexpr int SLOT_VS = SLOT_KS + S * 4;
+  static constexpr int SLOT_OK = SLOT_KS + (kCodes ? 2 * S * 4 : 0);
+  static constexpr int SLOT = SLOT_OK + S * 4;
   static constexpr int KC_OFF = RING_OFF + CH_STAGES * SLOT;
-  static constexpr int VC_OFF = KC_OFF + (kF32 ? 0 : CH_S * D * 4);
-  static constexpr int PT_OFF = VC_OFF + (kF32 ? 0 : CH_S * D * 4);
-  static constexpr int TAB_OFF = PT_OFF + CH_S * PT * 4;
+  static constexpr int VC_OFF = KC_OFF + (kF32 ? 0 : S * D * 4);
+  static constexpr int PT_OFF = VC_OFF + (kF32 ? 0 : S * D * 4);
+  static constexpr int TAB_OFF = PT_OFF + S * PT * 4;
   static constexpr int SMEM = TAB_OFF + (kCodes ? TABLE * 4 : 0);
 };
 
@@ -627,7 +691,8 @@ template <typename T, int D, int RM>
 __global__ void __launch_bounds__(CH_THREADS, 1)
 paged_attention_kernel_chunk(Args a) {
   using L = ChunkLayout<T, D, RM>;
-  constexpr int RT = L::RT, DQ = D / 4, S = CH_S;
+  constexpr int RT = L::RT, DQ = D / 4, S = L::S;
+  constexpr int NC = S / 16;          // positions a thread scores a stage
   constexpr int CPR = L::ROWB / 16;
   constexpr int VW = D / 16 >= 4 ? 4 : D / 16;  // P@V: dims per vector
   constexpr int NV = D / (16 * VW);             // vectors per thread
@@ -647,7 +712,7 @@ paged_attention_kernel_chunk(Args a) {
   // the table takes, so only a narrower grid (the tests force one)
   // doubles it further
   const int most = min(CH_MAX_SPLITS, a.splits);
-  int per = ch_split_stages(RM);
+  int per = ch_split_stages(RM, S);
   while ((nst + per - 1) / per > most) per *= 2;
   const int nsp = (nst + per - 1) / per;            // busy splits
   if (split == 0 && h == 0 && tile == 0 && tid == 0 && a.splits > 1)
@@ -765,23 +830,23 @@ paged_attention_kernel_chunk(Args a) {
     }
 
     // Q.K^T: rows rg*RM + i x positions pg + 16c
-    float s[RM][4];
+    float s[RM][NC];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
+      for (int c = 0; c < NC; ++c) s[i][c] = 0.0f;
 #pragma unroll 2
     for (int dq = 0; dq < DQ; ++dq) {
-      float4 kf[4];
+      float4 kf[NC];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < NC; ++c)
         kf[c] = *reinterpret_cast<const float4*>(kc + (dq * S + pg + 16 * c) * 4);
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const float4 qf =
             *reinterpret_cast<const float4*>(qc + (dq * RT + rg * RM + i) * 4);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < NC; ++c) {
           s[i][c] = fmaf(qf.x, kf[c].x, s[i][c]);
           s[i][c] = fmaf(qf.y, kf[c].y, s[i][c]);
           s[i][c] = fmaf(qf.z, kf[c].z, s[i][c]);
@@ -793,15 +858,15 @@ paged_attention_kernel_chunk(Args a) {
     if (next) issue(slot_i ^ 1);      // lands while this stage finishes
 
     // online softmax over the 16 lanes (pg) that share a row group
-    bool okc[4];
+    bool okc[NC];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) okc[c] = okp[pg + 16 * c] != 0;
+    for (int c = 0; c < NC; ++c) okc[c] = okp[pg + 16 * c] != 0;
     float corr[RM];
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < NC; ++c) {
         s[i][c] = okc[c] && t * S + pg + 16 * c < lim[i]
                       ? s[i][c] * a.scale : -INFINITY;
         mx = fmaxf(mx, s[i][c]);
@@ -813,7 +878,7 @@ paged_attention_kernel_chunk(Args a) {
       const float m_safe = isfinite(m_new) ? m_new : 0.0f;
       float sum = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < NC; ++c) {
         s[i][c] = expf(s[i][c] - m_safe);              // -inf -> 0
         sum += s[i][c];
       }
@@ -825,7 +890,7 @@ paged_attention_kernel_chunk(Args a) {
     }
     // P^T tile: pt[p * PT + row], written and read by this half-warp only
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int i4 = 0; i4 < RM / 4; ++i4)
         *reinterpret_cast<float4*>(pt + (pg + 16 * c) * L::PT + rg * RM + 4 * i4) =
@@ -914,12 +979,19 @@ int launch_one(K kernel, dim3 grid, int threads, int smem, bool& done,
   return (int)cudaGetLastError();
 }
 
+// Whether head dim D has the 16-row decode and 128-row chunk instances:
+// not at D = 256 (see the header note), where only rows 8 and 64 exist.
+template <int D>
+__host__ __device__ constexpr bool wide_tiles() {
+  return D <= 128;
+}
+
 template <typename T, int D>
 int launch_rows(const Args& a, int B, int rows, cudaStream_t stream) {
   const int n_rows = (a.Hq / a.Hkv) * a.Q;
   const dim3 grid(B * a.Hkv, (n_rows + rows - 1) / rows, a.splits);
   static bool done[4] = {};           // rows 8, 16, 64, 128
-  int err;
+  int err = (int)cudaErrorInvalidValue;
   switch (rows) {
     case 8:
       err = launch_one(paged_attention_kernel_decode<T, D, 8>, grid,
@@ -927,9 +999,12 @@ int launch_rows(const Args& a, int B, int rows, cudaStream_t stream) {
                        stream);
       break;
     case 16:
-      err = launch_one(paged_attention_kernel_decode<T, D, 16>, grid,
-                       DEC_THREADS, DecodeLayout<T, D, 16>::SMEM, done[1], a,
-                       stream);
+      if constexpr (wide_tiles<D>())
+        err = launch_one(paged_attention_kernel_decode<T, D, 16>, grid,
+                         DEC_THREADS, DecodeLayout<T, D, 16>::SMEM, done[1],
+                         a, stream);
+      else
+        return err;
       break;
     case 64:
       err = launch_one(paged_attention_kernel_chunk<T, D, 4>, grid,
@@ -937,12 +1012,15 @@ int launch_rows(const Args& a, int B, int rows, cudaStream_t stream) {
                        stream);
       break;
     case 128:
-      err = launch_one(paged_attention_kernel_chunk<T, D, 8>, grid,
-                       CH_THREADS, ChunkLayout<T, D, 8>::SMEM, done[3], a,
-                       stream);
+      if constexpr (wide_tiles<D>())
+        err = launch_one(paged_attention_kernel_chunk<T, D, 8>, grid,
+                         CH_THREADS, ChunkLayout<T, D, 8>::SMEM, done[3], a,
+                         stream);
+      else
+        return err;
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      return err;
   }
   if (err || a.splits == 1) return err;
   paged_attention_kernel_combine<<<dim3(B * a.Hkv, n_rows), 128, 0, stream>>>(
@@ -957,6 +1035,7 @@ int launch_d(const Args& a, int B, int D, int rows, cudaStream_t stream) {
     case 32: return launch_rows<T, 32>(a, B, rows, stream);
     case 64: return launch_rows<T, 64>(a, B, rows, stream);
     case 128: return launch_rows<T, 128>(a, B, rows, stream);
+    case 256: return launch_rows<T, 256>(a, B, rows, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -975,6 +1054,10 @@ size_t smem_of(int rows, int D) {
   SMEM_D(64)
   SMEM_D(128)
 #undef SMEM_D
+  if (D == 256) {
+    if (rows == 8) return DecodeLayout<T, 256, 8>::SMEM;
+    if (rows == 64) return ChunkLayout<T, 256, 4>::SMEM;
+  }
   return 0;
 }
 
@@ -994,8 +1077,9 @@ size_t paged_attention_smem_bytes(int rows, int D, int kv_kind) {
 
 // kv_kind: 0 = float32 pools, 1 = bfloat16 pools, 2 = int8 code pools with
 // k_scale/v_scale (P, Hkv, ps) floats and the 256-entry decode table
-// (unused, and may be null, for fp pools); D in {16, 32, 64, 128}; rows
-// picks the instance (8 or 16: decode, 64 or 128: chunk); the grid has
+// (unused, and may be null, for fp pools); D in {16, 32, 64, 128, 256};
+// rows picks the instance (8 or 16: decode, 64 or 128: chunk; 8 or 64 at
+// D = 256); the grid has
 // `splits` splits of the position axis per (sequence, KV head, row tile)
 // (chunk: at least the busy splits of the longest sequence the table can
 // hold, as ops.plan computes them); the pools' pointers are 16-byte

@@ -36,7 +36,7 @@ from ...core.noise import DEFAULT
 from ...core.quantization import QuantSpec, recip
 from ...core.slicing import RESIDUAL_GAIN, plan_asl
 from .. import build
-from ..flash_attention.ops import rows_aligned, strides
+from ..flash_attention.ops import HEAD_DIMS, rows_aligned, strides
 from .ref import fused_crossbar_acam_ref, logdomain_flash_ref
 
 
@@ -252,9 +252,9 @@ def logdomain_plan(lk: int, d: int, instance: str | None = None) -> LdPlan:
     the resident instance's scores): resident where its scores fit, else
     two-pass, which fits any length; or ``instance`` where one is asked
     for (it must fit)."""
-    if d not in (16, 32, 64, 128):
+    if d not in HEAD_DIMS:
         raise ValueError(f"logdomain_flash_attention: head_dim {d} not in "
-                         f"(16, 32, 64, 128)")
+                         f"{HEAD_DIMS}")
     if instance is not None and instance not in LD_INSTANCES:
         raise ValueError(f"logdomain_flash_attention: no instance "
                          f"{instance!r}")
@@ -311,7 +311,7 @@ def log_quantize_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("log_quantize_qkv: operands must be floating point")
     q, k, v = (t if t.dtype in (torch.float32, torch.bfloat16)
                else t.to(torch.float32) for t in (q, k, v))
-    if d not in (16, 32, 64, 128) or k.shape[-1] != d or v.shape != k.shape:
+    if d not in HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape:
         raise ValueError(f"log_quantize_qkv: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if max(q.numel(), k.numel()) // d >= 1 << 31:
@@ -390,9 +390,9 @@ def logdomain_flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"logdomain_flash_attention: shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if d not in (16, 32, 64, 128) or cfg.bits != 8:
+    if d not in HEAD_DIMS or cfg.bits != 8:
         raise ValueError(f"logdomain_flash_attention: head_dim {d} not in "
-                         f"(16, 32, 64, 128) or {cfg.bits}-bit grids")
+                         f"{HEAD_DIMS} or {cfg.bits}-bit grids")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("logdomain_flash_attention: all operands on one "
                          "device")

@@ -28,8 +28,7 @@ from ...core.quantization import recip
 from .. import build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
-ROWS = 128           # eight warps of 16 query rows
+HEAD_DIMS = (16, 32, 64, 128, 256)
 STAGES = 2           # K/V ring depth
 _ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -47,19 +46,21 @@ class Plan:
 
 def plan(dtype: torch.dtype, d: int) -> Plan:
     """The kernel's layout for operands of ``dtype`` and head dim ``d``
-    (``Layout`` of the CUDA source, byte for byte): the ring's stages of a
-    K tile (rows of d + 4 floats; bf16 d + 32 halves above d = 32) and a V
-    tile (d + 4 floats; d + 8 halves), then the block's scaled q rows of
-    d + 2 floats."""
+    (``Layout`` of the CUDA source, byte for byte): 128 query rows a block
+    (eight warps of 16), 64 at d = 256 (four warps: 128 rows would need
+    265 KB of shared memory); the ring's stages of a K tile (rows of d + 4
+    floats; bf16 d + 32 halves above d = 32) and a V tile (d + 4 floats;
+    d + 8 halves), then the block's scaled q rows of d + 2 floats."""
     if dtype not in _ELEM or d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: no instance for {dtype}, "
                          f"head_dim {d}")
     elem = _ELEM[dtype]
+    rows = 64 if d > 128 else 128
     keys = 32 if elem == 4 else 64
     pk = d + 4 if elem == 4 else (d if d <= 32 else d + 32)
     pv = d + 4 if elem == 4 else d + 8
-    smem = STAGES * keys * (pk + pv) * elem + ROWS * (d + 2) * 4
-    return Plan(str(dtype).split(".")[-1], ROWS, keys, STAGES, smem)
+    smem = STAGES * keys * (pk + pv) * elem + rows * (d + 2) * 4
+    return Plan(str(dtype).split(".")[-1], rows, keys, STAGES, smem)
 
 
 def _lib():

@@ -12,8 +12,9 @@ pass through raw — entries outside ``[0, num_pages)`` are the unmapped
 sentinel, which the kernel never dereferences (nor its scale row).
 
 ``plan`` (host only, so the CPU tests reach it) picks the kernel's
-instance from G*Q — decode for up to 16 rows, chunk above — with its row
-tile, ring depth, splits of the position axis and shared memory.
+instance from G*Q — decode for up to 16 rows (8 at head dim 256), chunk
+above — with its row tile, ring depth, splits of the position axis and
+shared memory.
 
 ``paged_attention.launches`` counts every launch, and
 ``paged_attention.pool_launches`` counts them by pool kind ("float32",
@@ -35,22 +36,41 @@ _ELEM_BYTES = {0: 4, 1: 2, 2: 1}
 SMEM_LIMIT = 227 * 1024
 
 # The tile constants of csrc/paged_attention.cu.
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DEC_THREADS, DEC_SW = 128, 8     # decode: 4 warps, 8 positions a warp step
-CH_S, CH_STAGES = 64, 2          # chunk: 64 positions a stage, 2 stages
-DECODE_MAX_ROWS = 16             # G*Q above this takes the chunk instance
+CH_STAGES = 2                    # chunk: 2 stages
 TABLE_BYTES = 256 * 4            # int8 decode table
+
+
+def ch_positions(d: int) -> int:
+    """Chunk positions a stage: 64, or 32 at head dim 256 (a 64-position
+    f32 stage of K and V is 128 KB there)."""
+    return 32 if d > 128 else 64
+
+
+def decode_max_rows(d: int) -> int:
+    """G*Q above this takes the chunk instance: 16, or 8 at head dim 256
+    (the decode instance's q and accumulators take 2R float4s a lane
+    there).  At d = 256 the chunk instance has only 64-row tiles."""
+    return 8 if d > 128 else 16
 
 # Splits of the position axis.  Decode cuts the table's width into splits
 # of _DEC_STEPS block steps (4 warps x 8 positions).  Chunk cuts each
-# sequence's positions at absolute boundaries of CH_SPLIT_STAGES[rows]
-# stages, doubled until at most CH_MAX_SPLITS splits cover it
-# (``ch_split_stages`` and ``CH_MAX_SPLITS`` of the CUDA source): nothing
-# of the other sequences, the chunk's start or a row's place in it enters
-# a row's sum order.
+# sequence's positions at absolute boundaries of CH_SPLIT_POSITIONS[rows]
+# positions (``ch_split_stages`` stages of ``ch_positions(d)``), doubled
+# until at most CH_MAX_SPLITS splits cover it (``CH_MAX_SPLITS`` of the
+# CUDA source): nothing of the other sequences, the chunk's start or a
+# row's place in it enters a row's sum order.
 DEC_STEP = DEC_SW * DEC_THREADS // 32
 _DEC_STEPS = 2
-CH_SPLIT_STAGES = {64: 2, 128: 3}
+CH_SPLIT_POSITIONS = {64: 128, 128: 192}
 CH_MAX_SPLITS = 16
+
+
+def ch_split_stages(rows: int, d: int) -> int:
+    """Stages a chunk split starts with (``ch_split_stages`` of the CUDA
+    source)."""
+    return CH_SPLIT_POSITIONS[rows] // ch_positions(d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,16 +98,17 @@ def smem_bytes(rows: int, d: int, kind: int) -> int:
     ``ChunkLayout`` of the CUDA source, byte for byte)."""
     row_b = d * _ELEM_BYTES[kind]
     codes = kind == 2
-    if rows <= DECODE_MAX_ROWS:
+    s = ch_positions(d)
+    if rows <= 16:
         slot = 2 * DEC_SW * row_b + (2 * DEC_SW * 4 if codes else 0) \
             + DEC_SW * 4
         warp = decode_stages(kind) * slot + DEC_SW * rows * 4 + rows * 4
         ring = (TABLE_BYTES if codes else 0) + (DEC_THREADS // 32) * warp
         merge = (DEC_THREADS // 32) * rows * (d + 2) * 4
         return max(ring, merge)
-    slot = 2 * CH_S * row_b + (2 * CH_S * 4 if codes else 0) + CH_S * 4
-    compute = 0 if kind == 0 else 2 * CH_S * d * 4
-    return (rows * d * 4 + CH_STAGES * slot + compute + CH_S * (rows + 4) * 4
+    slot = 2 * s * row_b + (2 * s * 4 if codes else 0) + s * 4
+    compute = 0 if kind == 0 else 2 * s * d * 4
+    return (rows * d * 4 + CH_STAGES * slot + compute + s * (rows + 4) * 4
             + (TABLE_BYTES if codes else 0))
 
 
@@ -101,23 +122,28 @@ def plan(b: int, hkv: int, n_rows: int, nb: int, ps: int, d: int,
          kind: int) -> Plan:
     """Kernel A's launch for ``b`` sequences, ``hkv`` KV heads, ``n_rows``
     = G*Q query rows per (sequence, KV head), a block table of ``nb``
-    pages of ``ps`` positions, head dim ``d`` and pool kind ``kind``.  G*Q <= 16 takes the decode instance (rows
-    rounded up to 8), more the chunk instance (64 rows up to G*Q = 64,
-    else 128).  The host sees only the table's width, not the lengths, so
-    the grid's splits are sized from ``nb * ps``: for chunk, the busy
-    splits of the longest sequence the table holds (its last query row
-    reaches fewer than ``nb * ps + n_rows`` positions), of which the
-    kernel takes per sequence what its own length needs."""
+    pages of ``ps`` positions, head dim ``d`` and pool kind ``kind``.
+    G*Q <= ``decode_max_rows(d)`` takes the decode instance (rows rounded
+    up to 8), more the chunk instance (64 rows up to G*Q = 64, else 128;
+    always 64 at d = 256).  The host sees only the table's width, not the
+    lengths, so the grid's splits are sized from ``nb * ps``: for chunk,
+    the busy splits of the longest sequence the table holds (its last
+    query row reaches fewer than ``nb * ps + n_rows`` positions), of which
+    the kernel takes per sequence what its own length needs."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: head_dim {d} not in "
+                         f"{HEAD_DIMS}")
     span = nb * ps
-    if n_rows <= DECODE_MAX_ROWS:
+    if n_rows <= decode_max_rows(d):
         rows = 8 if n_rows <= 8 else 16
         return Plan("decode", rows, decode_stages(kind), 1,
                     num_splits(-(-span // DEC_STEP), _DEC_STEPS),
                     smem_bytes(rows, d, kind))
-    rows = 64 if n_rows <= 64 else 128
-    stages = -(-(span + n_rows - 1) // CH_S)
+    rows = 64 if n_rows <= 64 or d > 128 else 128
+    stages = -(-(span + n_rows - 1) // ch_positions(d))
     return Plan("chunk", rows, CH_STAGES, -(-n_rows // rows),
-                min(CH_MAX_SPLITS, num_splits(stages, CH_SPLIT_STAGES[rows])),
+                min(CH_MAX_SPLITS,
+                    num_splits(stages, ch_split_stages(rows, d))),
                 smem_bytes(rows, d, kind))
 
 
@@ -231,9 +257,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             raise TypeError(f"paged_attention: scales must be float32 of "
                             f"shape {tuple(k_pages.shape[:3])}")
         tensors += [k_scale, v_scale]
-    if d not in (16, 32, 64, 128):
+    if d not in HEAD_DIMS:
         raise ValueError(f"paged_attention: head_dim {d} not in "
-                         f"(16, 32, 64, 128)")
+                         f"{HEAD_DIMS}")
     if (block_tables.dtype != torch.int32 or lengths.dtype != torch.int32
             or block_tables.shape[0] != b or lengths.shape != (b,)):
         raise TypeError("paged_attention: block_tables (B, NB) and lengths "

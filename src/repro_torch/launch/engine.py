@@ -104,7 +104,7 @@ from .spec_decode import (build_draft_scan_fn, build_verify_fn,
                           quantize_draft_params)
 
 # PagedServeEngine options of repro's that the port does not have yet
-# (meshes: ROADMAP.md A.6), with the value that leaves each off
+# (meshes: ROADMAP.md A.2), with the value that leaves each off
 _NOT_PORTED = {"mesh": None, "rules": None}
 
 
@@ -822,7 +822,7 @@ class PagedServeEngine(ServeEngine):
         if asked:
             raise NotImplementedError(
                 f"PagedServeEngine: {', '.join(asked)} not ported yet "
-                f"(ROADMAP.md A.6)")
+                f"(ROADMAP.md A.2)")
         if page_size < 1:
             raise ValueError("page_size >= 1")
         if spec_k < 0:

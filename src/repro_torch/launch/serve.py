@@ -43,8 +43,11 @@ weights, on the GPU unless ``--device cpu``: ``qwen2_5_3b`` (default),
 ``qwen2_7b``, ``minicpm_2b``, ``gemma3_27b`` (sliding-window rings; every
 path but ``--paged``), ``qwen3_moe_30b_a3b`` or ``llama4_scout_17b_a16e``
 (MoE; every path, the engines printing the assignments dropped for
-capacity), ``recurrentgemma_9b`` (RG-LRU) or ``rwkv6_3b`` (RWKV6; these
-two on the lockstep path only, as in ``repro``).
+capacity), ``paligemma_3b`` or ``musicgen_large`` (every path, text-only
+token prompts as in ``repro``'s CLI; the image prefix is
+``build_prefill_step``'s ``patch_embeds``), ``recurrentgemma_9b``
+(RG-LRU) or ``rwkv6_3b`` (RWKV6; these two on the lockstep path only, as
+in ``repro``).
 """
 from __future__ import annotations
 
@@ -64,12 +67,14 @@ from .fidelity import DriftInjection, FidelityPolicy
 
 
 def build_prefill_step(cfg, *, nldpe: NLDPEConfig = OFF):
-    """prefill(params, cache, tokens) -> (last logits (B, V), cache): the
-    whole prompt (B, S) at positions 0..S-1, filling the lockstep
-    ``cache`` in place."""
-    def prefill(params, cache, tokens):
+    """prefill(params, cache, tokens, patch_embeds=None) -> (last logits
+    (B, V), cache): the whole prompt (B, S) at positions 0..S-1 — behind
+    ``patch_embeds`` (B, P, d), an image prefix, at positions 0..P+S-1 —
+    filling the lockstep ``cache`` in place; decoding then starts at
+    position P + S."""
+    def prefill(params, cache, tokens, patch_embeds=None):
         logits = lm.forward(params, tokens, cfg, mode="prefill", cache=cache,
-                            nldpe=nldpe)
+                            nldpe=nldpe, patch_embeds=patch_embeds)
         return logits[:, -1], cache
 
     return prefill

@@ -197,14 +197,16 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                      naf_lambda2: float = 1e-5,
                      cast_compute_dtype: bool = True, timed: bool = False):
     """``train_step(params, opt_state, batch)`` for ``cfg`` (see the
-    module docstring).  ``timed`` adds ``metrics["seconds"]``: the noise
+    module docstring); a VLM batch's ``"patch_embeds"`` (B, P, d) go before
+    its tokens, and the loss drops the first P logits, as ``repro``'s step
+    does.  ``timed`` adds ``metrics["seconds"]``: the noise
     pass, forward plus backward and the update, each behind a device
     sync.  FUSED numerics, ``batch_groups > 1`` and layer patterns other
     than ``("attn",)`` raise."""
     if batch_groups != 1:
         raise NotImplementedError(
             "build_train_step: batch_groups > 1 (grouped GQA batches under "
-            "a mesh) is not ported yet (ROADMAP.md A.6)")
+            "a mesh) is not ported yet (ROADMAP.md A.2)")
     if nldpe.enabled and nldpe.fused_dual_compute:
         raise NotImplementedError(
             "build_train_step: training under FUSED numerics (kernels B "
@@ -212,7 +214,7 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     if any(t != "attn" for t in cfg.layer_pattern):
         raise NotImplementedError(
             f"build_train_step: {cfg.name}'s {cfg.layer_pattern} pattern "
-            f"is served, not trained, by the port yet (ROADMAP.md A.5)")
+            f"is served, not trained, by the port yet (ROADMAP.md A.1)")
 
     def dtype_of(w: torch.Tensor) -> torch.dtype:
         return (cfg.activation_dtype if cast_compute_dtype
@@ -235,8 +237,11 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
             _sync(dev)
             seconds["noise"] = time.perf_counter() - t0
             t0 = time.perf_counter()
+        patches = batch.get("patch_embeds")
         logits = lm.forward(unflatten(params, run), batch["tokens"], cfg,
-                            mode="train", nldpe=nldpe)
+                            mode="train", nldpe=nldpe, patch_embeds=patches)
+        if patches is not None:            # the loss reads the text only
+            logits = logits[:, patches.shape[1]:]
         loss = lm.lm_loss(logits, batch["labels"])
         del logits
         if naf_pass is not None:

@@ -51,6 +51,12 @@ Each MoE layer routes the forward's tokens as one group.  ``moe_drops``
 capacity: those of live tokens (``moe_live``; by default every token of a
 slot the forward writes) and those of padding rows.
 
+``forward(..., patch_embeds=)`` is the VLM frontend stub (PaliGemma): the
+(B, P, d) patch embeddings are prepended to the token embeddings and the
+first P positions attend to each other both ways (a prefix-LM), in the
+whole-sequence modes; a lockstep cache is then filled over all P + S
+positions, so decode continues at P + S.
+
 ``forward(mode="train")`` is the differentiable whole-sequence pass of
 training (no cache); with ``cfg.scan_remat`` each layer is recomputed in
 the backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint``
@@ -267,8 +273,9 @@ def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
     once to the activation dtype — the values ``x @ w.astype(x.dtype)``
     gives per call in ``repro`` — except what the model reads in float32
     (the qk-norm scales, RG-LRU's Lambda, the MoE router, RWKV6's decay
-    LoRA and bonus) and the dense MLP gates under ``FUSED``, which the
-    crossbar->ACAM kernel programs from the float32 master (the MoE's
+    LoRA and bonus) and, under ``FUSED``, the weight the crossbar->ACAM
+    kernel programs from the float32 master: a dense MLP's gate, or the
+    up projection of a non-gated one (MusicGen's plain GELU MLP; the MoE's
     expert gates never reach that kernel, so they are cast too)."""
     act = cfg.activation_dtype
     fused = (nldpe.enabled and nldpe.acam_activations
@@ -286,9 +293,11 @@ def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
             if name in blk:
                 out[name] = cast(blk[name])
         if "ffn" in blk:
-            dense = "router" not in blk["ffn"]
-            out["ffn"] = cast(blk["ffn"],
-                              keep=("gate",) if fused and dense else ())
+            ffn = blk["ffn"]
+            keep = ()
+            if fused and "router" not in ffn:
+                keep = ("gate",) if "gate" in ffn else ("up",)
+            out["ffn"] = cast(ffn, keep=keep)
         return out
 
     out = dict(params)
@@ -386,11 +395,12 @@ def apply_block(p: dict, cfg, btype: str, x: torch.Tensor, *,
                 nldpe: NLDPEConfig = OFF,
                 moe_drops: torch.Tensor | None = None,
                 moe_live: torch.Tensor | None = None,
-                dense_rows: torch.Tensor | None = None) -> torch.Tensor:
+                dense_rows: torch.Tensor | None = None,
+                prefix_len: int | None = None) -> torch.Tensor:
     """One block: x (B, S, d) -> x.  ``cache`` is the layer's view of its
     attention stack (written in place at ``plan``) or, for ``rec`` and
     ``rwkv``, its state (views of the stack, overwritten in place).
-    ``dense_rows``: see ``nn.attention.attn_apply``."""
+    ``dense_rows`` and ``prefix_len``: see ``nn.attention.attn_apply``."""
     if btype in ("rec", "rwkv") and mode == "chunk":
         raise NotImplementedError("chunked serve prefill supports "
                                   f"attention blocks only (got '{btype}')")
@@ -406,7 +416,8 @@ def apply_block(p: dict, cfg, btype: str, x: torch.Tensor, *,
     else:
         a = attn_apply(p["attn"], attn_spec(cfg, btype), h,
                        positions=positions, mode=mode, cache=cache,
-                       plan=plan, nldpe=nldpe, dense_rows=dense_rows)
+                       plan=plan, nldpe=nldpe, dense_rows=dense_rows,
+                       prefix_len=prefix_len)
     x = x + a.to(x.dtype)
     h2 = rmsnorm_apply(p["norm2"], x)
     if btype == "moe":
@@ -444,7 +455,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
             cache: dict | None = None, positions: torch.Tensor | None = None,
             nldpe: NLDPEConfig = OFF, write_mask=None,
             moe_drops: torch.Tensor | None = None,
-            moe_live: torch.Tensor | None = None) -> torch.Tensor:
+            moe_live: torch.Tensor | None = None,
+            patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) float32; ``cache`` updates in place.
 
     ``repro``'s modes: "train" (the whole sequence, differentiable, no
@@ -452,7 +464,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
     ``arange(S)``; fills a dense ``cache`` if one is given), "decode" and
     "chunk" (positions () shared for a lockstep cache, or (B, S) per-slot
     offsets; ``write_mask`` (B,) bool freezes masked slots' caches).
-    ``moe_drops`` and ``moe_live`` (B, S) bool: see the module docstring."""
+    ``moe_drops`` and ``moe_live`` (B, S) bool: see the module docstring.
+    ``patch_embeds`` (B, P, d), "train" and "prefill" only, into no cache
+    or a lockstep one: an image prefix before the tokens (the module
+    docstring); the logits then cover P + S positions, at default
+    positions ``arange(P + S)``."""
     if mode == "train":
         if nldpe.enabled and nldpe.fused_dual_compute:
             raise NotImplementedError(
@@ -462,15 +478,26 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
         if cache is not None:
             raise ValueError("mode='train' takes no cache")
     _check_cfg(cfg)
-    if positions is None:
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)
+    attn_stacks = {} if cache is None else stacks(cache)
     x = embedding_apply(params["embed"], tokens, dtype=cfg.activation_dtype)
     if cfg.embed_scale:
         # repro rounds the scale to the activation dtype first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
-    attn_stacks = {} if cache is None else stacks(cache)
+    prefix_len = None
+    if patch_embeds is not None:
+        if mode not in ("train", "prefill") or any(
+                "bt" in st or st["pos"].ndim != 1
+                for st in attn_stacks.values()):
+            raise ValueError(
+                "patch_embeds: an image prefix is prefilled whole ('train' "
+                "or 'prefill') into no cache or a lockstep one; paged and "
+                "slotted caches take none, as repro's engines pass none")
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        prefix_len = patch_embeds.shape[1]
+    if positions is None:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
     if moe_live is None and write_mask is not None:
         moe_live = write_mask[:, None].expand(tokens.shape)
     # a paged cache's write-masked slots (idle or finished) read, through
@@ -502,7 +529,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
                            positions=positions, mode=mode, cache=c,
                            plan=plans.get(st), nldpe=nldpe,
                            moe_drops=moe_drops, moe_live=moe_live,
-                           dense_rows=dense_rows)
+                           dense_rows=dense_rows, prefix_len=prefix_len)
 
     remat = mode == "train" and cfg.scan_remat and torch.is_grad_enabled()
     for i in range(len(order)):

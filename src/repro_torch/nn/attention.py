@@ -42,15 +42,18 @@ Attention paths of ``attn_apply``:
 * ``mode="prefill"`` (whole prompt, positions (S,)): attention over the
   new K/V alone, then a ring-consistent fill of a dense cache.  Under
   ``OFF``: a windowed layer longer than its window takes
-  ``banded_attention``; a softcapped layer, or a windowed one at a head
-  dim kernel F has no instance for, the windowed ``blockwise_attention``
-  (both ``repro``'s lax routes); every other layer kernel F
-  (``kernels.flash_attention``).  Under ``ON``/``FUSED``: a plain causal
-  layer ``NLDPEConfig.attention`` without a mask (kernel C under
-  ``FUSED``), a windowed one the materialized masked NL-DPE attention.
+  ``banded_attention``; a softcapped layer, or a prompt behind an image
+  prefix (``prefix_len``: the first ``prefix_len`` positions attend to
+  each other both ways, PaliGemma's prefix-LM mask), the masked
+  ``blockwise_attention`` (both ``repro``'s lax routes); every other
+  layer kernel F (``kernels.flash_attention``, causal only).  Under
+  ``ON``/``FUSED``: a plain causal layer ``NLDPEConfig.attention`` without
+  a mask (kernel C under ``FUSED``), a windowed one or a prefix the
+  materialized masked NL-DPE attention.
 * ``"decode"`` and ``"chunk"``: the new K/V are written first, then the
   queries attend to the whole cache under validity masking (written,
-  causal, in the window).  ``OFF`` over a paged cache runs
+  causal, in the window; a prefix needs no term there, since every cached
+  position precedes the query).  ``OFF`` over a paged cache runs
   ``kernels.paged_attention`` (kernel A; a softcapped layer, which no
   config has, the gathered dense view, as ``repro``'s kernel opt-in
   does); over a dense cache, ``cached_attention`` (plain, as ``repro``
@@ -71,7 +74,6 @@ import torch
 from ..core.engine import NLDPEConfig, OFF
 from ..core.quantization import (KV_LOG_SPEC, KV_QUANT_MODES, kv_decode,
                                  scalar_div)
-from ..kernels.flash_attention.ops import HEAD_DIMS as FLASH_HEAD_DIMS
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
 from .basic import apply_rope, rmsnorm_apply
@@ -371,9 +373,11 @@ def cache_valid_mask(kp: torch.Tensor, q_pos: torch.Tensor,
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-          window: int | None) -> torch.Tensor:
+          window: int | None,
+          prefix_len: int | None = None) -> torch.Tensor:
     """q_pos (..., Q), k_pos (..., K) -> bool (..., Q, K): causal and
-    in-window pairs."""
+    in-window pairs, and every pair whose key lies in the first
+    ``prefix_len`` positions (the prefix-LM's bidirectional prefix)."""
     qp = q_pos[..., :, None]
     kp = k_pos[..., None, :]
     m = (qp >= kp) if causal else torch.ones(
@@ -381,6 +385,8 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
         device=qp.device)
     if window is not None:
         m = m & (qp - kp < window)
+    if prefix_len is not None:
+        m = m | (kp < prefix_len)
     return m
 
 
@@ -429,11 +435,13 @@ def _nldpe_cached(nldpe: NLDPEConfig, q: torch.Tensor, att: dict,
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
+                        prefix_len: int | None = None,
                         softcap: float | None = None, q_block: int = 512,
                         k_block: int = 1024) -> torch.Tensor:
     """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype:
     ``repro``'s online-softmax attention over query blocks of ``q_block``
-    and key blocks of ``k_block`` rows, causal and in-``window`` pairs,
+    and key blocks of ``k_block`` rows, causal and in-``window`` pairs
+    (and every key of the first ``prefix_len`` positions, ``_mask``),
     scores under the optional ``softcap``, in float32 with the reference's
     masking constant and order of operations, in plain differentiable ops.
     The last block of each axis is ragged; ``repro`` halves its blocks
@@ -464,7 +472,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_pos = torch.arange(k0, k0 + s_.shape[-1], device=dev)
             if causal or window is not None:
                 s_ = torch.where(_mask(q_pos, k_pos, causal=causal,
-                                       window=window), s_, NEG_INF)
+                                       window=window, prefix_len=prefix_len),
+                                 s_, NEG_INF)
             m_new = torch.maximum(m_run, torch.amax(s_, dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
             pj = torch.exp(s_ - m_safe[..., None])
@@ -519,43 +528,47 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        s: AttnSpec, positions: torch.Tensor, mode: str,
-                       nldpe: NLDPEConfig) -> torch.Tensor:
+                       nldpe: NLDPEConfig,
+                       prefix_len: int | None = None) -> torch.Tensor:
     """Whole-sequence attention over the new K/V alone ("prefill" and
     "train"), routed as ``repro`` routes it (the module docstring)."""
     seq = q.shape[2]
     if nldpe.enabled:
-        if s.window is None:
+        if s.window is None and prefix_len is None:
             # plain causal with no mask: FUSED streams it through the
             # log-domain flash kernel (GQA-aware, K/V stay grouped)
             return nldpe.attention(q, k, v, causal=True, mask=None)
-        msk = _mask(positions, positions, causal=True, window=s.window)
+        msk = _mask(positions, positions, causal=True, window=s.window,
+                    prefix_len=prefix_len)
         return nldpe.attention(q, k, v, causal=False, mask=msk)
     if s.window is not None and seq > s.window:
         return banded_attention(q, k, v, window=s.window, softcap=s.softcap)
     # kernel F for every other prefill: exact for a windowed layer with
     # seq <= window too, since qp - kp < window holds for every causal
-    # pair there.  F has no softcap, no backward and no head-dim-256
-    # instance; those layers take the windowed blockwise attention, as
-    # repro does for every prefill
-    if mode == "prefill" and s.softcap is None and (
-            s.window is None or s.head_dim in FLASH_HEAD_DIMS):
+    # pair there.  F is causal only, with no softcap and no backward;
+    # those layers take the masked blockwise attention, as repro does for
+    # every prefill
+    if mode == "prefill" and s.softcap is None and prefix_len is None:
         return flash_attention(q, k, v, causal=True)
     return blockwise_attention(q, k, v, causal=True, window=s.window,
-                               softcap=s.softcap)
+                               prefix_len=prefix_len, softcap=s.softcap)
 
 
 def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
                positions: torch.Tensor, mode: str, cache: dict | None = None,
                plan=None, nldpe: NLDPEConfig = OFF,
-               dense_rows: torch.Tensor | None = None) -> torch.Tensor:
+               dense_rows: torch.Tensor | None = None,
+               prefix_len: int | None = None) -> torch.Tensor:
     """x (B, S, d) -> y (B, S, d); the layer's cache is updated in place.
 
     ``mode="prefill"``: the whole prompt at positions (S,), over the new
     K/V, then (with a dense ``cache``) the fill at ``plan``.  ``"train"``:
-    the same attention without a cache, differentiable.  ``"decode"``
-    (S == 1) and ``"chunk"``: the new K/V are written at ``plan`` (the
-    forward's ``write_plan`` of this layer's stack; positions () shared or
-    (B, S) per slot), then the queries attend to the cache.
+    the same attention without a cache, differentiable; ``prefix_len``:
+    the first positions form a bidirectional prefix (``_mask``).
+    ``"decode"`` (S == 1) and ``"chunk"``: the new K/V are written at
+    ``plan`` (the forward's ``write_plan`` of this layer's stack;
+    positions () shared or (B, S) per slot), then the queries attend to
+    the cache.
 
     Kernel A's staircase (query j of slot b attends to ``[0, positions[b,
     0] + j]``) is the cache's validity mask on every slot the forward
@@ -570,7 +583,8 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
     if mode in ("train", "prefill"):
         if positions.ndim != 1:
             raise ValueError(f"{mode} takes shared positions (S,)")
-        o = _prefill_attention(q, k, v, s, positions, mode, nldpe)
+        o = _prefill_attention(q, k, v, s, positions, mode, nldpe,
+                               prefix_len)
         if mode == "prefill" and cache is not None:
             if "bt" in cache:
                 raise ValueError("paged caches are filled in 'chunk' or "

@@ -104,15 +104,16 @@ def test_table_weights_are_the_plain_log_softmax_weights(lk):
     tab = _tables()
     score, _, logsum, logp_spec = ld._grid_specs(DEFAULT_CFG, y.shape[-1])
     c1 = score.quantize(y - torch.amax(y, -1, keepdim=True)).long()
-    total = torch.sum(tab[1][c1], -1, keepdim=True)
+    total = torch.sum(tab[1][c1].double(), -1, keepdim=True).float()
     lt = logsum.apply(torch.log(torch.clamp(total, min=1e-9)))
     weights = tab[2][logp_spec.quantize(tab[0][c1] - lt).long()]
     assert torch.equal(weights, plain)
 
 
 def _table_path(q, k, v, cfg, causal):
-    """Kernel C's algorithm with torch ops: the plain version's scores,
-    sums and P @ V in its own order, every exp read from the tables."""
+    """Kernel C's algorithm with torch ops: the plain version's scores
+    and P @ V in its own order, the row sums exact and rounded once (as
+    both sum them), every exp read from the tables."""
     f32 = torch.float32
     g = q.shape[1] // k.shape[1]
     k, v = (t.repeat_interleave(g, 1) for t in (k, v))
@@ -127,7 +128,8 @@ def _table_path(q, k, v, cfg, causal):
     tab = ld.logdomain_tables(cfg, "cpu")
     score, _, logsum, logp = ld._grid_specs(cfg, lk)
     c1 = score.quantize(torch.where(mask, y - mx, -cfg.score_range)).long()
-    total = torch.sum(torch.where(mask, tab[1][c1], 0.0), -1, keepdim=True)
+    total = torch.sum(torch.where(mask, tab[1][c1], 0.0).double(), -1,
+                      keepdim=True).float()
     lt = logsum.apply(torch.log(torch.clamp(total, min=1e-9)))
     w = torch.where(mask, tab[2][logp.quantize(tab[0][c1] - lt).long()], 0.0)
     return torch.matmul(w, vl.to(f32))

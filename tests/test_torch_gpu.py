@@ -1031,14 +1031,15 @@ def test_telemetry_on_equals_off_on_card(dev):
 # async pipeline on the card
 # ---------------------------------------------------------------------------
 
-def _invariance_launches(dev, pool, q_len, seed=3):
+def _invariance_launches(dev, pool, q_len, seed=3, hq=16, hkv=2, d=128):
     """One sequence (``seq``) through kernel A in two launches with other
     co-batched sequences (other lengths, other block tables, another batch
     size and slot), over one pool of ``pool``'s kind at the serve engine's
-    Qwen2.5-3B widths (16/2 heads, D 128, pages of 16, a 64-page table).
-    Returns seq's outputs of both launches."""
+    Qwen2.5-3B widths (16/2 heads, D 128, pages of 16, a 64-page table;
+    ``hq``, ``hkv`` and ``d`` another model's).  Returns seq's outputs of
+    both launches."""
     rng = np.random.default_rng(seed)
-    hq, hkv, ps, d, nb, p = 16, 2, 16, 128, 64, 600
+    ps, nb, p = 16, 64, 600
     kp = torch.tensor(rng.normal(size=(p, hkv, ps, d)), dtype=torch.float32)
     vp = torch.tensor(rng.normal(size=(p, hkv, ps, d)), dtype=torch.float32)
     kw = {}
@@ -1104,8 +1105,14 @@ def test_paged_attention_chunk_row_invariance(dev, pool):
     lengths and another batch): the chunk instance cuts every sequence at
     the same absolute split boundaries, so its output is the same bits —
     the re-serve of a cached prompt recomputes its last token this way."""
+    _chunk_row_invariance(dev, pool, 16, 2, 128)
+
+
+def _chunk_row_invariance(dev, pool, hq, hkv, d):
+    """``test_paged_attention_chunk_row_invariance`` at ``hq``/``hkv``
+    heads of ``d``."""
     rng = np.random.default_rng(11)
-    hq, hkv, ps, d, nb, p_pages = 16, 2, 16, 128, 64, 300
+    ps, nb, p_pages = 16, 64, 300
     kp = torch.tensor(rng.normal(size=(p_pages, hkv, ps, d)),
                       dtype=torch.float32)
     vp = torch.tensor(rng.normal(size=(p_pages, hkv, ps, d)),
@@ -1796,3 +1803,184 @@ def test_rwkv6_lockstep_on_card_matches_cpu(dev, nldpe):
     assert (out["cpu"][0] - out["cuda"][0]).abs().max().item() <= tol
     if nldpe == "OFF":
         assert torch.equal(out["cpu"][1], out["cuda"][1])
+
+
+# ---------------------------------------------------------------------------
+# head dim 256: PaliGemma (8/1 heads) and RecurrentGemma (16/1)
+# ---------------------------------------------------------------------------
+
+PALIGEMMA_PAGED = (4, 8, 1, 300, 72, 16, 256)    # b, hq, hkv, P, NB, ps, d
+
+
+@pytest.mark.parametrize("q_len", [1, 2, 5, 64])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "log8"])
+def test_paged_attention_head_dim_256_matches_plain(dev, pool, q_len):
+    """Kernel A at PaliGemma's 8/1 heads of 256: decode (G*Q = 8, the
+    decode instance with two float4s a lane) and G*Q of 16, 40 and 512
+    (the chunk instance's 64-row tiles, 32 positions a stage), ragged
+    lengths over a 72-page table with sentinels, f32/bf16/int8/log8
+    pools: within 1e-4 of the plain version (the same f32 math summed in
+    another order); a code pool gives the bits of an f32 pool holding its
+    decoded values."""
+    from repro_torch.core.quantization import kv_decode
+    from repro_torch.kernels.paged_attention.ops import plan
+    rng = np.random.default_rng(21)
+    dtype = torch.bfloat16 if pool == "bfloat16" else torch.float32
+    args = _paged_case(rng, *PALIGEMMA_PAGED, q_len, dtype, dev)
+    kw = {}
+    if pool in ("int8", "log8"):
+        args, kw = _code_pools(args, pool)
+    pl = plan(4, 1, 8 * q_len, 72, 16, 256, 2 if kw else
+              (0 if pool == "float32" else 1))
+    assert (pl.instance, pl.rows) == (("decode", 8) if q_len == 1
+                                      else ("chunk", 64))
+    before = paged_attention.launches
+    out = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    ref = paged_attention_ref(*args, **kw)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+    if kw:
+        fp = (args[0], kv_decode(args[1], kw["k_scale"], pool),
+              kv_decode(args[2], kw["v_scale"], pool), *args[3:])
+        assert torch.equal(paged_attention(*fp), out)
+
+
+@pytest.mark.parametrize("route", ["unsplit", "split"])
+@pytest.mark.parametrize("q_len", [1, 2, 9, 65])
+def test_paged_attention_head_dim_256_tile_boundaries(dev, monkeypatch,
+                                                      q_len, route):
+    """D 256 at every stage boundary of its instances (the chunk's 32
+    positions a stage, a decode block step of 32), lengths on and beside
+    them, a page size of 5 that divides none, the position axis unsplit
+    and split in 3: within 1e-4 of the plain version."""
+    from repro_torch.kernels.paged_attention import ops
+    monkeypatch.setattr(ops, "num_splits",
+                        lambda units, steps: 1 if route == "unsplit" else 3)
+    ps, nb = 5, 32
+    lengths = _boundary_lengths(q_len, ps, nb * ps)
+    b = len(lengths)
+    rng = np.random.default_rng(q_len + 31)
+    q = torch.tensor(rng.normal(size=(b, 8, q_len, 256)),
+                     dtype=torch.float32, device=dev)
+    kp, vp = (torch.tensor(rng.normal(size=(b * nb + 2, 1, ps, 256)),
+                           dtype=torch.float32, device=dev)
+              for _ in range(2))
+    bt = torch.tensor(rng.permutation(b * nb + 2)[:b * nb].reshape(b, nb),
+                      dtype=torch.int32, device=dev)
+    bt[0, nb // 2] = b * nb + 2
+    bt[-1, -1] = -1
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out = paged_attention(q, kp, vp, bt, lengths)
+    ref = paged_attention_ref(q, kp, vp, bt, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("q_len", [1, 64], ids=["decode", "chunk"])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "log8"])
+def test_paged_attention_head_dim_256_batch_invariance(dev, pool, q_len,
+                                                       capsys):
+    """``test_paged_attention_batch_invariance`` at PaliGemma's 8/1 heads
+    of 256: a sequence's outputs are the same bits whatever it is batched
+    with."""
+    a, b = _invariance_launches(dev, pool, q_len, hq=8, hkv=1, d=256)
+    with capsys.disabled():
+        print(f"\n[kernel A batch invariance, D 256] {pool} q_len={q_len}: "
+              f"max |diff| {(a - b).abs().max().item():.3e}")
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "log8"])
+def test_paged_attention_head_dim_256_chunk_row_invariance(dev, pool):
+    """``test_paged_attention_chunk_row_invariance`` at 8/1 heads of 256:
+    the splits of 4 stages of 32 start at the same absolute positions as
+    2 of 64 do at the other head dims."""
+    _chunk_row_invariance(dev, pool, 8, 1, 256)
+
+
+def test_paged_attention_head_dim_256_plan_matches_the_kernel_layout(dev):
+    """The wrapper's shared memory is the CUDA source's at D 256 for the
+    two instances there (8-row decode, 64-row chunk), and the source has
+    no 16-row decode or 128-row chunk instance at D 256."""
+    from repro_torch.kernels.paged_attention import ops
+    lib = ops._lib()
+    for kind in (0, 1, 2):
+        for rows in (8, 64):
+            assert lib.paged_attention_smem_bytes(rows, 256, kind) == \
+                ops.smem_bytes(rows, 256, kind) <= ops.SMEM_LIMIT
+        for rows in (16, 128):
+            assert lib.paged_attention_smem_bytes(rows, 256, kind) == 0
+
+
+ATTN_256 = [(2, 4, 1, 37, 53, 256), (1, 8, 1, 1280, 1280, 256),
+            (1, 16, 1, 2048, 2048, 256)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_256,
+                         ids=["odd", "paligemma1280", "rgemma2048"])
+def test_flash_attention_head_dim_256_matches_plain(dev, shape, dtype,
+                                                    causal):
+    """Kernel F's D 256 instance (four warps, 64 rows a block): 1e-4
+    absolute against the plain version, plus one bf16 step for bf16
+    outputs."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention, plan
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    assert plan(dtype, 256).rows == 64
+    q, k, v = _attn_case(np.random.default_rng(22), *shape, dtype, dev)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.dtype == dtype
+    ref = flash_attention_ref(q, k, v, causal)
+    tol = 1e-4 + (0.0 if dtype == torch.float32 else 2.0 ** -7) * ref.abs()
+    assert bool(((out.float() - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_256 + [(1, 8, 1, 300, 300, 256),
+                                               (2, 8, 1, 256, 256, 256)],
+                         ids=["odd", "paligemma1280", "rgemma2048",
+                              "resident300", "paligemma_fused256"])
+def test_logdomain_flash_head_dim_256_matches_plain(dev, shape, dtype):
+    """Kernel C at D 256: resident up to 352 keys, two-pass above; within
+    one exp-grid LSB (1/255) of the plain version, plus one bf16 step for
+    bf16 outputs; the quantize launch is ``log_quantize`` bit for bit."""
+    from repro_torch.core.logdomain import inv_sqrt, log_quantize
+    from repro_torch.kernels.dual_compute.ops import (
+        log_quantize_qkv, logdomain_flash_attention, logdomain_plan)
+    from repro_torch.kernels.dual_compute.ref import logdomain_flash_ref
+    lk = shape[4]
+    assert logdomain_plan(lk, 256).instance == (
+        "resident" if lk <= 352 else "two_pass")
+    q, k, v = _attn_case(np.random.default_rng(23), *shape, dtype, dev)
+    f32 = [t.float() for t in (q, k, v)]
+    got = log_quantize_qkv(q, k, v)
+    assert all(torch.equal(g, w) for g, w in zip(got, (
+        log_quantize(f32[0] * inv_sqrt(256)), log_quantize(f32[1]),
+        log_quantize(f32[2]))))
+    out = logdomain_flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = logdomain_flash_ref(q, k, v)
+    slack = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    assert bool(((out.float() - ref).abs()
+                 <= 1.0 / 255 + slack * ref.abs()).all())
+
+
+def test_logdomain_flash_head_dim_256_plan_matches_the_kernel_layout(dev):
+    """Kernel C's shared-memory and scratch formulas at D 256, byte for
+    byte the CUDA source's, for both instances."""
+    from repro_torch.kernels.dual_compute import ops
+    lib = ops._ld_lib()
+    for lk in (1, 256, 352, 353, 1280, 2048, 40000):
+        for i, name in enumerate(ops.LD_INSTANCES):
+            try:
+                pl = ops.logdomain_plan(lk, 256, name)
+            except ValueError:
+                assert name == "resident" and lk > 352
+                continue
+            assert lib.logdomain_flash_smem_bytes(i, 256, lk) == pl.smem

@@ -25,6 +25,7 @@ import engine_harness as H
 from repro.core.logdomain import DEFAULT_CFG as J_LD
 from repro.launch import sampling as j_sampling
 from repro.launch import spec_decode as j_spec
+from repro.launch.engine import PagedServeEngine as JPagedServeEngine
 from repro.launch.kvpool import PagePool as JPagePool
 from repro.models import lm as j_lm
 
@@ -64,6 +65,22 @@ def port_engine(spec_k: int = 0, cfg=CFG, **over) -> PagedServeEngine:
             kw = {"spec_draft": WQ, **kw}
         _ENGINES[key] = PagedServeEngine(cfg, _params(), spec_k=spec_k,
                                          device="cpu", **kw)
+    return _ENGINES[key]
+
+
+def ref_engine(spec_k: int) -> JPagedServeEngine:
+    """``repro``'s spec engine with the harness's settings, private to this
+    module as ``port_engine``'s are.  The harness's singletons carry the
+    state that other test files leave in them (their traces' radix
+    caches), and from that state ``repro``'s drafts differ from a fresh
+    engine's, so drafts compared on them would depend on which files a
+    test worker ran first."""
+    key = ("repro", spec_k)
+    if key not in _ENGINES:
+        _ENGINES[key] = JPagedServeEngine(
+            H.CFG, H.shared_params(),
+            **H.engine_kwargs(page_size=H.PAGE, num_pages=H.NUM_PAGES,
+                              spec_k=spec_k, spec_draft=H.WQ_DRAFT))
     return _ENGINES[key]
 
 
@@ -170,7 +187,7 @@ def test_spec_engine_matches_repro_and_non_spec(k):
     a drafter near-tie (a log-grid drafter at bf16 has near-ties of its
     own) and, where none occurred either, equal drafted/accepted counts;
     no page leaks."""
-    ref, mine, base = H.paged_engine(spec_k=k), port_engine(k), port_engine()
+    ref, mine, base = ref_engine(k), port_engine(k), port_engine()
     ties = 0
     for trace in (H.shared_prefix_cow_trace(),
                   H.random_greedy_trace(np.random.default_rng(k))):

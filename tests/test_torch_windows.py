@@ -200,13 +200,20 @@ def test_ring_decode_matches_unbounded_cache_and_repro():
 
 
 def test_windowed_prefill_at_head_dim_256_takes_blockwise(monkeypatch):
-    """Kernel F has no head-dim-256 instance: a windowed prefill no longer
-    than its window takes the windowed ``blockwise_attention`` (``repro``'s
-    own route), a longer one the band; neither reaches F."""
-    def no_flash(*a, **k):
-        raise AssertionError("kernel F reached at head_dim 256")
+    """Kernel F has a head-dim-256 instance: a windowed prefill no longer
+    than its window takes F (exact there: every causal pair lies in the
+    window) where ``repro`` takes its windowed ``blockwise_attention``, a
+    longer one the band, which never reaches F; both give ``repro``'s
+    attention.  (The name is the one this test had when F lacked a
+    head-dim-256 instance and the prefill took ``blockwise_attention``.)"""
+    calls = []
+    plain = A.flash_attention
 
-    monkeypatch.setattr(A, "flash_attention", no_flash)
+    def flash(*a, **k):
+        calls.append(a[0].shape[2])
+        return plain(*a, **k)
+
+    monkeypatch.setattr(A, "flash_attention", flash)
     rng = np.random.default_rng(RNG_SEED + 5)
     js = JA.AttnSpec(d_model=32, n_heads=2, n_kv_heads=1, head_dim=256,
                      window=12)
@@ -222,6 +229,7 @@ def test_windowed_prefill_at_head_dim_256_takes_blockwise(monkeypatch):
                             positions=torch.from_numpy(pos), mode="prefill")
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), rtol=0,
                                    atol=ATTN_TOL)
+    assert calls == [12]
 
 
 # ---------------------------------------------------------------------------
