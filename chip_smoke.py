@@ -79,9 +79,16 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    through the lockstep path (kernel F; tokens equal up to near-ties under
    2D; the routing flips between the routes counted) and the lockstep
    FUSED path
-   (kernel C on every layer), ``[rwkv6]``: full-width RWKV6-3B
+   (kernel C on every layer), then Llama4-Scout at 2 full-width layers
+   (float32, dropless) through paged OFF (A at 40/8 heads), run-alone
+   lockstep (F) and lockstep FUSED (C), ``[rwkv6]``: full-width RWKV6-3B
    through the lockstep path in ``OFF`` (generate fn == per-token loop)
-   and ``ON`` — no port kernel lies on that path —, ``[paligemma]``: all
+   and ``ON`` — no port kernel lies on that path —; each of these four
+   family phases ends with two AdamW steps at full width on views of its
+   own float32 masters (``family_train``: Gemma3 one 6-layer group,
+   RecurrentGemma its 5 layers, Qwen3-MoE 4 of its 8, RWKV6 all 32;
+   finite losses and grad norms, peak memory under 80 GB, no port kernel
+   launched); ``[paligemma]``: all
    18 layers of PaliGemma-3B (8/1 heads of 256): the lockstep path with a
    256-row image prefix before 256-token prompts (the masked prefix-LM
    route, never kernel F), ``PagedServeEngine`` on paged OFF's trace
@@ -220,6 +227,24 @@ QWEN3MOE_TWIN = dict(max_slots=2, max_len=1024, page_size=16,
                      prefill_chunk=16, decode_block=4)
 # [rwkv6]: RWKV6-3B at its full 32 layers (the phase stays within ~30 s)
 RWKV6_LAYERS = 32
+# each family phase's train cut (layers) and batch (rows, positions), or
+# the batch alone where the phase's own layers train: two AdamW steps at
+# full width, the last thing the phase does.  ~16 bytes a trained parameter (float32 master, m, v,
+# and the bf16 run copy and its gradient, which become a float32
+# gradient leaf by leaf): Gemma3 one group (5 local + 1 global, 3.89 B:
+# ~62 GB, past the 1024 window so the band trains), RecurrentGemma the
+# phase's 5 layers (2.24 B, past the 2048 window), Qwen3-MoE its first 4
+# of the phase's 8 layers (3.11 B beside the 8 layers' masters),
+# RWKV6 all 32 layers (3.06 B)
+GEMMA3_TRAIN = (6, (1, 1280))
+RGEMMA_TRAIN = (1, 2304)
+QWEN3MOE_TRAIN = (4, (2, 512))
+RWKV6_TRAIN = (1, 2048)
+# [qwen3moe]'s Llama4-Scout: its first 2 of 48 layers at full width (d
+# 5120, 40/8 heads of 128, 16 experts of d_ff 8192, top 1, vocab 202048,
+# untied: 6.22 B parameters), served dropless at float32 activations
+# (see llama4_scout)
+LLAMA4_LAYERS = 2
 # [paligemma]: image prefix rows (SigLIP's 256 patches) and text tokens of
 # the lockstep prefix requests; kernels F and C at a 1280-token prefill
 PALIGEMMA_PREFIX = (256, 256)
@@ -2447,68 +2472,101 @@ def naf_pipeline_phase(torch) -> dict:
     return out
 
 
-def train_phase(torch, cfg, params) -> dict:
-    """``[train]``: full-width Qwen2.5-3B (cut to ``CUT_LAYERS`` layers)
-    training steps on the float32 masters ``params`` (updated in place),
-    bf16 compute, each layer
-    recomputed in the backward pass: one AdamW step, then two crossbar-NAF
-    steps (``naf=True``, lambda 1e-5) on a batch of 8 x 64 seeded uniform
-    tokens.  Prints each step's loss, the seconds of the noise pass, of
-    forward plus backward and of the update (behind syncs), and the peak
-    memory, which must stay under the card's 80 GB; the losses must be
-    finite."""
+def train_steps(torch, cfg, params, shape: tuple, kinds: tuple,
+                label: str, seed: int) -> dict:
+    """Train steps of ``cfg`` on the float32 masters ``params`` (updated in
+    place) on a batch of ``shape`` = (batch, seq) seeded uniform tokens:
+    ``kinds`` names each step, "adamw" (a plain AdamW step) or "naf" (a
+    crossbar-NAF step, lambda 1e-5), lr 1e-4.  Prints each step's loss,
+    grad norm, the seconds of its noise pass, forward plus backward and
+    update (behind syncs) and its wall seconds, then the parameters and
+    the peak memory, which must stay under the card's 80 GB; every loss
+    and grad norm must be finite."""
     from repro_torch.launch.train import build_train_step
     from repro_torch.optim import adamw
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    toks = torch.randint(0, cfg.vocab_size, (8, 65), generator=gen,
+    b, s = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
                          device="cuda", dtype=torch.int64).to(torch.int32)
     batch = {"tokens": toks[:, :-1].contiguous(),
              "labels": toks[:, 1:].contiguous()}
+    del toks
     opt_cfg = adamw.AdamWConfig(lr=1e-4)
-    plain = build_train_step(cfg, opt_cfg, timed=True)
-    naf = build_train_step(cfg, opt_cfg, naf=True, naf_lambda1=1e-5,
-                           naf_lambda2=1e-5, timed=True)
+    fns = {"adamw": build_train_step(cfg, opt_cfg, timed=True),
+           "naf": build_train_step(cfg, opt_cfg, naf=True,
+                                   naf_lambda1=1e-5, naf_lambda2=1e-5,
+                                   timed=True)}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     opt = adamw.init(params)
     steps = []
-    for kind, fn in (("adamw", plain), ("naf", naf), ("naf", naf)):
+    zero_counts()
+    for kind in kinds:
         t0 = time.perf_counter()
-        params, opt, m = fn(params, opt, batch)
+        params, opt, m = fns[kind](params, opt, batch)
         torch.cuda.synchronize()
         steps.append({"kind": kind, "loss": m["loss"].item(),
                       "grad_norm": m["grad_norm"].item(),
                       "seconds": m["seconds"],
                       "wall_s": time.perf_counter() - t0})
-        check(np.isfinite(steps[-1]["loss"]), f"train: {kind} step loss "
-              f"is not finite")
-        print("[train step] " + json.dumps(steps[-1]))
+        check(np.isfinite(steps[-1]["loss"])
+              and np.isfinite(steps[-1]["grad_norm"]), f"{label}: {kind} "
+              f"step loss or grad norm is not finite")
+        print(f"[{label} step] " + json.dumps(steps[-1]))
     peak = torch.cuda.max_memory_allocated()
-    check(peak < 80e9, f"train: peak memory {peak / 1e9:.2f} GB")
-    info = {"model": cfg.name, "parameters": cfg.param_count(),
-            "batch": [8, 64], "compute_dtype": str(cfg.activation_dtype),
+    check(peak < 80e9, f"{label}: peak memory {peak / 1e9:.2f} GB")
+    info = {"model": cfg.name, "layers": cfg.n_layers,
+            "layer_pattern": list(cfg.layer_pattern),
+            "parameters": cfg.param_count(), "batch": [b, s],
+            "compute_dtype": str(cfg.activation_dtype),
             "scan_remat": cfg.scan_remat, "steps": steps,
-            "peak_gb": peak / 1e9}
-    print("[train] " + json.dumps(info))
-    del opt
+            "peak_gb": peak / 1e9,
+            "kernel_launches": {fn.__name__: fn.launches
+                                for fn in counters() if fn.launches}}
+    if cfg.moe is not None:
+        info["capacity_factor"] = cfg.moe.capacity_factor
+    print(f"[{label}] " + json.dumps(info))
+    del opt, batch
+    torch.cuda.empty_cache()
     return info
 
 
+def train_phase(torch, cfg, params) -> dict:
+    """``[train]``: full-width Qwen2.5-3B (cut to ``CUT_LAYERS`` layers)
+    training steps on its float32 masters, bf16 compute, each layer
+    recomputed in the backward pass: one AdamW step, then two crossbar-NAF
+    steps on a batch of 8 x 64 (``train_steps``)."""
+    return train_steps(torch, cfg, params, (8, 64), ("adamw", "naf", "naf"),
+                       "train", SEED + 21)
+
+
+def family_train(torch, cfg, params, shape: tuple, label: str) -> dict:
+    """A family phase's ``[<label> train]``: two plain AdamW steps of the
+    train cut ``cfg`` on ``params`` (views of the phase's own float32
+    masters), bf16 compute, layers recomputed in the backward pass, at
+    full width (``train_steps``)."""
+    return train_steps(torch, cfg, params, shape, ("adamw", "adamw"),
+                       f"{label} train", SEED + 41)
+
+
 def cut_depth(cfg, params, n_layers: int):
-    """``cfg`` (a one-block pattern, Qwen2.5-3B's) cut to its first
-    ``n_layers`` layers, and ``params`` with every stacked block leaf
-    viewed to its first ``n_layers`` rows: no copy, so an in-place update
-    writes the float32 masters."""
-    check(len(cfg.layer_pattern) == 1 and not params.get("tail"),
-          f"cut_depth: {cfg.name} is not a one-block pattern")
+    """``cfg`` cut to its first ``n_layers`` layers, a whole number of its
+    layer pattern's groups (the tail dropped), and ``params`` with every
+    stacked block leaf viewed to those groups' rows and no ``"tail"``: no
+    copy, so an in-place update writes the float32 masters."""
+    groups, rest = divmod(n_layers, len(cfg.layer_pattern))
+    check(rest == 0 and 0 < n_layers <= cfg.n_layers, f"cut_depth: "
+          f"{n_layers} layers are not whole groups of {cfg.name}'s "
+          f"{cfg.n_layers}-layer {cfg.layer_pattern} stack")
 
     def cut(tree):
         if isinstance(tree, dict):
             return {k: cut(v) for k, v in tree.items()}
-        return tree[:n_layers]
+        return tree[:groups]
 
-    return (dataclasses.replace(cfg, n_layers=n_layers),
-            {**params, "groups": {"b0": cut(params["groups"]["b0"])}})
+    out = {k: v for k, v in params.items() if k != "tail"}
+    out["groups"] = cut(params["groups"])
+    return dataclasses.replace(cfg, n_layers=n_layers), out
 
 
 def cut_config(name: str, n_layers: int):
@@ -2675,7 +2733,9 @@ def gemma3_phase(torch, timer) -> dict:
     lockstep path (kernel C on the global layer's prefill, B).  Kernels F
     and C are held against their plain versions at a lockstep prefill of
     1280 positions and at the first prompt's length, B (gelu) at every M
-    the paths give the gate, N = 21504."""
+    the paths give the gate, N = 21504.  Last, ``GEMMA3_TRAIN``: two AdamW
+    steps of the first group (the tail's masters freed) at 1 x 1280, past
+    the window, so the band trains."""
     from repro_torch.core.engine import FUSED, OFF
     from repro_torch.kernels.dual_compute.ops import (
         fused_crossbar_acam, log_quantize_qkv, logdomain_flash_attention)
@@ -2793,7 +2853,12 @@ def gemma3_phase(torch, timer) -> dict:
                  torch, timer, w, GEMMA3_B_MS + (plen,), "gelu", gen)}
     for c in sum(cases.values(), []):
         c["phase"] = "gemma3"
+    # the train cut drops the tail: its masters go with the phase's tree
+    tcfg, tparams = cut_depth(cfg, params, GEMMA3_TRAIN[0])
     del params, w
+    out["train"] = family_train(torch, tcfg, tparams, GEMMA3_TRAIN[1],
+                                "gemma3")
+    del tparams
     torch.cuda.empty_cache()
     out["launches"] = {
         "flash_attention": {"lockstep_off": f_launches},
@@ -2828,7 +2893,9 @@ def recurrentgemma_phase(torch, timer) -> dict:
     held against its plain version at the M the lockstep path gives the
     gate: 2 x 2304 at prefill and 2 at decode, K = 4096, N = 12288; kernel
     F at (1, 16/1, ``RGEMMA_F_LEN``, 256) against its plain version and
-    the windowed ``blockwise_attention`` route."""
+    the windowed ``blockwise_attention`` route.  Last, ``RGEMMA_TRAIN``:
+    two AdamW steps of the 5 layers, tail included, at 1 x 2304 (past the
+    window: the band and the RG-LRU scan train)."""
     from repro_torch.core.engine import FUSED, OFF
     from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
     from repro_torch.models import lm
@@ -2875,7 +2942,10 @@ def recurrentgemma_phase(torch, timer) -> dict:
             for dt in (torch.bfloat16, torch.float32)]}
     for c in sum(cases.values(), []):
         c["phase"] = "recurrentgemma"
-    del params, w
+    del w
+    out["train"] = family_train(torch, cfg, params, RGEMMA_TRAIN,
+                                "recurrentgemma")
+    del params
     torch.cuda.empty_cache()
     out["launches"] = {
         "fused_crossbar_acam": {
@@ -2907,9 +2977,12 @@ def qwen3moe_phase(torch, timer) -> dict:
     lockstep prefill of the first request, counted at bf16 and at
     float32, show why (a flipped expert in an early layer moves every
     later one).
-    Last, the lockstep FUSED path, 2 x 512 and 8 new (kernel C on every
-    layer, kernel B on none: the experts never reach it), and F and C at
-    ``QWEN3MOE_ATTN``."""
+    Then the lockstep FUSED path, 2 x 512 and 8 new (kernel C on every
+    layer, kernel B on none: the experts never reach it), two AdamW steps
+    of the first 4 layers at 2 x 512 and capacity 1.25
+    (``QWEN3MOE_TRAIN``), F and C at ``QWEN3MOE_ATTN``, and last
+    Llama4-Scout (``llama4_scout``), its kernel cases joining the
+    phase's."""
     from repro_torch.core.engine import FUSED, OFF
     from repro_torch.kernels.dual_compute.ops import (
         fused_crossbar_acam, log_quantize_qkv, logdomain_flash_attention)
@@ -3047,7 +3120,10 @@ def qwen3moe_phase(torch, timer) -> dict:
           "is an einsum then an ACAM activation, never kernel B")
     out["lockstep_fused"] = {k: v for k, v in lock_fused.items()
                              if k != "per_kernel"}
-    del params
+    tcfg, tparams = cut_depth(cfg, params, QWEN3MOE_TRAIN[0])
+    out["train"] = family_train(torch, tcfg, tparams, QWEN3MOE_TRAIN[1],
+                                "qwen3moe")
+    del tparams, params
     torch.cuda.empty_cache()
     cases = {"paged_attention": a_cases,
              "flash_attention": [flash_case(torch, timer, QWEN3MOE_ATTN, dt,
@@ -3070,8 +3146,53 @@ def qwen3moe_phase(torch, timer) -> dict:
             "lockstep_fused_per_prefill": lock_fused["per_kernel"][
                 "logdomain_flash_attention"]["launches_per_prefill"]}}
     print("[qwen3moe summary] " + json.dumps(out))
+    t0 = time.perf_counter()
+    scout = llama4_scout(torch, timer)
+    print(f"[llama4 scout] {time.perf_counter() - t0:.1f} s")
+    for name, cs in scout.pop("kernel_cases").items():
+        if cs:
+            cases[name] += cs
+    for name, n in scout["launches"].items():
+        out["launches"].setdefault(name, {}).update(
+            {f"llama4_scout_{k}": v for k, v in n.items()})
+    out["llama4_scout"] = scout
     out["kernel_cases"] = cases
     return out
+
+
+def llama4_scout(torch, timer) -> dict:
+    """``[qwen3moe]``'s Llama4-Scout-17B-16E at full width (d 5120, 40/8
+    heads of 128, 16 experts of d_ff 8192, top 1, vocab 202048) cut to
+    ``LLAMA4_LAYERS`` of its 48 layers, seeded float32 weights, through
+    ``family_phase``: paged OFF (kernel A at GQA 5), each request alone
+    through the lockstep path (kernel F at 40/8) and lockstep FUSED 2 x 256
+    (kernel C on every layer; B on none: the experts are batched
+    matmuls), A, F and C against their plain versions.  Dropless and at
+    float32 activations, as ``[qwen3moe]``'s twin, so that the run-alone
+    comparison means something: under a capacity a token's experts
+    depend on the other rows of its forward, and at bf16 a top-1 router
+    near-tie flips between the chunked and the whole-prompt prefill."""
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = cut_config("llama4_scout_17b_a16e", LLAMA4_LAYERS)
+    cfg = dataclasses.replace(
+        cfg, activation_dtype=torch.float32,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=0.0))
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[llama4 scout] {cfg.name} cut to {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (float32; "
+          f"{cfg.active_param_count() / 1e9:.3f} B active a token) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = family_phase(torch, timer, cfg, params, None, "llama4 scout",
+                       SEED + 43)
+    out.update(activations="float32", capacity_factor=0.0,
+               active_params_b=cfg.active_param_count() / 1e9)
+    del params
+    torch.cuda.empty_cache()
+    return family_summary(out, "llama4 scout")
 
 
 def moe_profile(torch, engine, reqs, label: str) -> dict:
@@ -3154,7 +3275,8 @@ def rwkv6_phase(torch) -> dict:
     per-token loop giving the same tokens; then ``ON`` (the lerps' and
     gate's products through log-domain DMMul, the decay through two ACAM
     exp tables) over 1 x 1024 and 8 new.  No port kernel lies on this
-    path: every count must stay 0."""
+    path: every count must stay 0.  Last, ``RWKV6_TRAIN``: two AdamW
+    steps of all 32 layers at 1 x 2048 (16 WKV chunks under autograd)."""
     from repro_torch.core.engine import OFF, ON
     from repro_torch.models import lm
     t0 = time.perf_counter()
@@ -3182,6 +3304,7 @@ def rwkv6_phase(torch) -> dict:
         launched = {k: v for k, v in out[mode]["launches"].items() if v}
         check(not launched, f"[rwkv6] {mode}: port kernels launched on an "
               f"attention-free path: {launched}")
+    out["train"] = family_train(torch, cfg, params, RWKV6_TRAIN, "rwkv6")
     del params
     torch.cuda.empty_cache()
     print("[rwkv6 summary] " + json.dumps(
@@ -3319,18 +3442,21 @@ def paged_cases_all_pools(torch, timer, a_in: dict, n_heads: int,
     return cases
 
 
-def family_phase(torch, timer, cfg, params, ffn: str, label: str,
+def family_phase(torch, timer, cfg, params, ffn: str | None, label: str,
                  seed: int) -> dict:
-    """The serving paths and kernel cases ``[paligemma]`` and ``[musicgen]``
-    share: ``PagedServeEngine`` OFF on paged OFF's trace, 4 requests (kernel
-    A once per layer every prefill chunk and decode step), each request
-    alone through the lockstep path (kernel F in every layer's prefill;
-    tokens equal up to near-ties under 2D), and the lockstep FUSED path, 2 x
-    256 text tokens, 8 new (kernel C in every layer's prefill, kernel B
-    with the gelu table on the ``ffn`` projection).  Then A on the engine's
-    layer-0 pools (decode, Q = 64; f32, bf16, int8 and log8), F at the first
-    prompt's length (against a dense masked softmax there), and C and B at
-    the lockstep FUSED prefill's own shape, against their plain versions.
+    """The serving paths and kernel cases ``[paligemma]``, ``[musicgen]``
+    and ``[qwen3moe]``'s Llama4-Scout share: ``PagedServeEngine`` OFF on
+    paged OFF's trace, 4 requests (kernel A once per layer every prefill
+    chunk and decode step), each request alone through the lockstep path
+    (kernel F in every layer's prefill; tokens equal up to near-ties under
+    2D), and the lockstep FUSED path, 2 x 256 text tokens, 8 new (kernel C
+    in every layer's prefill, kernel B with the gelu table on the ``ffn``
+    projection; with ``ffn`` None, an MoE model's, B on no layer).  Then A
+    on the engine's layer-0 pools (decode, Q = 64; f32, bf16, int8 and
+    log8), F at the first prompt's length (against a dense masked softmax
+    there), and C and B at the lockstep FUSED prefill's own shape, against
+    their plain versions; F and C in ``cfg.activation_dtype``, the dtype
+    the paths hand them (float32 for Llama4-Scout, bf16 otherwise).
     Returns the phase's results with its ``"launches"`` by kernel, its
     ``"kernel_cases"`` and the first prompt's length (``"plen"``)."""
     from repro_torch.core.engine import FUSED, OFF
@@ -3363,28 +3489,35 @@ def family_phase(torch, timer, cfg, params, ffn: str, label: str,
     torch.cuda.empty_cache()
 
     batch, prompt_len = 2, 256
+    on_path = [logdomain_flash_attention, log_quantize_qkv]
+    if ffn is not None:
+        on_path.append(fused_crossbar_acam)
     lock_fused = lockstep(torch, cfg, params, FUSED, batch=batch,
-                          prompt_len=prompt_len, gen_len=8, counters_on_path=[
-                              logdomain_flash_attention, log_quantize_qkv,
-                              fused_crossbar_acam],
+                          prompt_len=prompt_len, gen_len=8,
+                          counters_on_path=on_path,
                           label=f"{label} lockstep FUSED",
                           compare_loop=False, profile=False)
+    if ffn is None:
+        check(lock_fused["launches"]["fused_crossbar_acam"] == 0,
+              f"[{label}] lockstep FUSED launched kernel B: the experts' "
+              f"gate is a batched matmul then an ACAM activation")
     out["lockstep_fused"] = {k: v for k, v in lock_fused.items()
                              if k != "per_kernel"}
     plen = len(reqs[0].tokens)
     d = cfg.resolved_head_dim
     heads = (cfg.n_heads, cfg.n_kv_heads)
+    act = cfg.activation_dtype      # the dtype F and C take on these paths
     out["plen"] = plen
     out["kernel_cases"] = {
         "paged_attention": paged_cases_all_pools(torch, timer, a_in,
                                                  cfg.n_heads, seed),
         "flash_attention": [flash_case(
-            torch, timer, (1, *heads, plen, plen, d), torch.bfloat16,
-            seed + 1, dense=True)],
+            torch, timer, (1, *heads, plen, plen, d), act, seed + 1,
+            dense=True)],
         "logdomain_flash_attention": [logdomain_case(
-            torch, timer, (batch, *heads, prompt_len, prompt_len, d),
-            torch.bfloat16, seed + 2)],
-        "fused_crossbar_acam": fused_acam_cases(
+            torch, timer, (batch, *heads, prompt_len, prompt_len, d), act,
+            seed + 2)],
+        "fused_crossbar_acam": [] if ffn is None else fused_acam_cases(
             torch, timer, params["groups"]["b0"]["ffn"][ffn][0],
             (batch * prompt_len, batch), "gelu",
             torch.Generator(device="cuda").manual_seed(seed + 3))}
@@ -3402,13 +3535,14 @@ def family_phase(torch, timer, cfg, params, ffn: str, label: str,
         "logdomain_flash_attention": {
             "lockstep_fused": per["logdomain_flash_attention"]["launches"],
             "lockstep_fused_per_prefill": per["logdomain_flash_attention"][
-                "launches_per_prefill"]},
-        "fused_crossbar_acam": {
+                "launches_per_prefill"]}}
+    if ffn is not None:
+        out["launches"]["fused_crossbar_acam"] = {
             "lockstep_fused": per["fused_crossbar_acam"]["launches"],
             "lockstep_fused_per_prefill": per["fused_crossbar_acam"][
                 "launches_per_prefill"],
             "lockstep_fused_per_decode_step": per["fused_crossbar_acam"][
-                "launches_per_decode_step"]}}
+                "launches_per_decode_step"]}
     return out
 
 

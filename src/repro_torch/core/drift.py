@@ -122,15 +122,19 @@ def flatten(tree, is_leaf=None) -> list:
     """``(path, leaf)`` pairs in ``jax.tree.flatten`` order: the keys of a
     dict sorted at every level (``path`` is the tuple of keys)."""
     out = []
-
-    def walk(x, path):
-        if isinstance(x, dict) and not (is_leaf and is_leaf(x)):
-            for k in sorted(x):
-                walk(x[k], path + (k,))
-        else:
-            out.append((path, x))
-    walk(tree, ())
+    _walk(tree, (), out, is_leaf)
     return out
+
+
+def _walk(x, path: tuple, out: list, is_leaf) -> None:
+    # a module-level recursion: a nested one would close over ``out`` in
+    # a function <-> cell cycle, which keeps every leaf alive until the
+    # cyclic collector runs (gigabytes of masters and moments on the card)
+    if isinstance(x, dict) and not (is_leaf and is_leaf(x)):
+        for k in sorted(x):
+            _walk(x[k], path + (k,), out, is_leaf)
+    else:
+        out.append((path, x))
 
 
 def _at(tree: dict, path: tuple):

@@ -335,11 +335,13 @@ def inject_crossbar_noise(rng: torch.Tensor, params,
 def unflatten(tree, leaves: list):
     """``tree``'s structure with its leaves (flatten order) replaced by
     ``leaves``."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(x):
-        if isinstance(x, dict):
-            built = {k: build(x[k]) for k in sorted(x)}
-            return {k: built[k] for k in x}
-        return next(it)
-    return build(tree)
+
+def _build(x, it):
+    # module-level, as ``drift._walk``: a nested recursion would hold the
+    # leaves' iterator in a reference cycle
+    if isinstance(x, dict):
+        built = {k: _build(x[k], it) for k in sorted(x)}
+        return {k: built[k] for k in x}
+    return next(it)

@@ -7,10 +7,18 @@ Where the reference returns new trees, the step updates ``params`` and
 model's masters and moments would not fit on the card).  The key for NAF
 noise is ``fold_in(key(17), opt_state["step"])``, as in the reference.
 
+Every block type of ``repro`` trains (``attn``, ``local``, ``global``,
+``moe``, ``rec``, ``rwkv``), through ``lm.forward(mode="train")``: the band
+or ``blockwise_attention`` (never kernel F, which has no backward), the
+RG-LRU scan, the MoE dispatch and combine with its expert ``bmm``s, the
+chunked WKV.  The step is ``repro``'s: ``lm_loss`` (plus Eq 8 under NAF),
+no auxiliary MoE loss.
+
 The forward runs on a *run copy* of the masters: each float32 leaf cast
 once to ``cfg.activation_dtype`` (``cast_compute_dtype``), the stacked
-layer leaves held as per-layer tensors so each layer's gradient lands in
-its own tensor.  The gradient of a cast is the cotangent cast back, so
+layer leaves (``groups``, an MoE expert leaf's (n_groups, E, d, ff)
+included) held as per-layer tensors so each layer's gradient lands in its
+own tensor; a ``tail`` leaf is one tensor.  The gradient of a cast is the cotangent cast back, so
 the masters' gradients are the run copy's upcast to float32.
 
 NAF mode (paper §IV-B step 1, ``naf=True``): every step round-trips the
@@ -33,9 +41,10 @@ the arg-max elements of ``||W||_inf``.
         [--lr 1e-3] [--seed 0] [--ckpt-dir D] [--ckpt-every 20]
         [--fail-at-step N] [--device cpu]
 
-runs the reduced config of ``--arch`` (as the reference's CLI always
-does: the synthetic corpus's vocab x vocab transition table fits only at
-reduced vocab) on the GPU unless ``--device cpu``.  With ``--ckpt-dir``
+runs the reduced config of ``--arch`` (any of the ten configs; as the
+reference's CLI always does: the synthetic corpus's vocab x vocab
+transition table fits only at reduced vocab) on the GPU unless
+``--device cpu``.  With ``--ckpt-dir``
 it restores ``{"params", "opt"}`` from the directory's ``LATEST`` on
 start and resumes at that step, saves every ``--ckpt-every`` steps and
 at the end (``checkpoint.manager``); ``--fail-at-step N`` raises at step
@@ -201,8 +210,7 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     its tokens, and the loss drops the first P logits, as ``repro``'s step
     does.  ``timed`` adds ``metrics["seconds"]``: the noise
     pass, forward plus backward and the update, each behind a device
-    sync.  FUSED numerics, ``batch_groups > 1`` and layer patterns other
-    than ``("attn",)`` raise."""
+    sync.  FUSED numerics and ``batch_groups > 1`` raise."""
     if batch_groups != 1:
         raise NotImplementedError(
             "build_train_step: batch_groups > 1 (grouped GQA batches under "
@@ -211,10 +219,6 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
         raise NotImplementedError(
             "build_train_step: training under FUSED numerics (kernels B "
             "and C have no backward; ROADMAP.md A)")
-    if any(t != "attn" for t in cfg.layer_pattern):
-        raise NotImplementedError(
-            f"build_train_step: {cfg.name}'s {cfg.layer_pattern} pattern "
-            f"is served, not trained, by the port yet (ROADMAP.md A.1)")
 
     def dtype_of(w: torch.Tensor) -> torch.dtype:
         return (cfg.activation_dtype if cast_compute_dtype
@@ -275,6 +279,19 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
 # The train CLI
 # ---------------------------------------------------------------------------
 
+def setup(cfg, opt_cfg: adamw.AdamWConfig, data_cfg: DataConfig, *,
+          seed: int, device, **step_kw):
+    """What a training driver starts from: the seeded float32 masters of
+    ``cfg`` on ``device``, their AdamW state, the synthetic corpus's batch
+    function (a batch is a function of the step index) and the train step
+    (``step_kw`` go to ``build_train_step``)."""
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(seed), device=device)
+    return (params, adamw.init(params), make_batch_fn(data_cfg,
+                                                      device=device),
+            build_train_step(cfg, opt_cfg, **step_kw))
+
+
 def run(argv=None) -> list[float]:
     p = argparse.ArgumentParser(description="Train a reduced config on the "
                                 "synthetic corpus (the port's train CLI)")
@@ -302,15 +319,11 @@ def run(argv=None) -> list[float]:
     sched = (wsd(args.lr, 5, int(args.steps * 0.6), int(args.steps * 0.3))
              if args.schedule == "wsd"
              else warmup_cosine(args.lr, 5, args.steps))
-    opt_cfg = adamw.AdamWConfig(lr=sched)
-    nldpe = NLDPEConfig(enabled=args.nldpe)
-    params = lm.init_params(cfg, generator=torch.Generator(
-        device=dev).manual_seed(args.seed), device=dev)
-    opt_state = adamw.init(params)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed)
-    batch_fn = make_batch_fn(data_cfg, device=dev)
-    step_fn = build_train_step(cfg, opt_cfg, nldpe=nldpe, naf=args.naf)
+    params, opt_state, batch_fn, step_fn = setup(
+        cfg, adamw.AdamWConfig(lr=sched), data_cfg, seed=args.seed,
+        device=dev, nldpe=NLDPEConfig(enabled=args.nldpe), naf=args.naf)
 
     start = 0
     manager = None

@@ -38,6 +38,7 @@ import math
 import torch
 
 from ..core.engine import NLDPEConfig, OFF
+from ..core.noise import clip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +87,8 @@ def route(probs: torch.Tensor, s: MoESpec, cap: int) -> dict:
     dev = probs.device
     gate_vals, expert_idx = top_k(probs, s.top_k)
     if s.router_norm_topk:
-        gate_vals = gate_vals / torch.clamp(
-            torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
+        gate_vals = gate_vals / clip(
+            torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
 
     fe = expert_idx.reshape(g, a)
     order = torch.argsort(fe, dim=-1, stable=True)

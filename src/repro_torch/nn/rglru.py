@@ -28,14 +28,18 @@ from __future__ import annotations
 import torch
 
 from ..core.engine import NLDPEConfig, OFF
+from ..core.noise import clip
 
 _C = 8.0  # Griffin's fixed decay temperature
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: max(x, 0) +
-    log1p(exp(-|x|))."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    log1p(exp(-|x|)).  The max is ``core.noise.clip``'s, so that the
+    derivative at x == 0 is ``jax``'s 0.5 (``torch.clamp`` sends all of
+    the gradient through there, which makes it 1); the values are
+    ``torch.clamp``'s (``torch.logaddexp`` rounds differently)."""
+    return clip(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def _gates(p: dict, x: torch.Tensor, nldpe: NLDPEConfig):
@@ -45,7 +49,7 @@ def _gates(p: dict, x: torch.Tensor, nldpe: NLDPEConfig):
                          "sigmoid")
     log_a = -_C * softplus(p["lam"].to(torch.float32)) * r.to(torch.float32)
     a = torch.exp(log_a)
-    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
+    beta = torch.sqrt(clip(1.0 - torch.exp(2.0 * log_a), 1e-9))
     return a, beta, i
 
 

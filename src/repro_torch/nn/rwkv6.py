@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..core.engine import NLDPEConfig, OFF
+from ..core.noise import clip
 
 HEAD_SIZE = 64
 
@@ -148,7 +149,7 @@ def _chunked_wkv(r, k, v, w, u, s0, chunk: int):
     (out (B, H, S, N), final state), float32."""
     f32 = torch.float32
     rf, kf, vf = r.to(f32), k.to(f32), v.to(f32)
-    lw = torch.log(torch.clamp(w.to(f32), 1e-12, 1.0))
+    lw = torch.log(clip(w.to(f32), 1e-12, 1.0))
     S = s0
     outs = []
     for c0 in range(0, r.shape[2], chunk):

@@ -46,8 +46,9 @@ def _paged_case(rng, b, hq, hkv, p, nb, ps, d, q_len, dtype, dev):
 @pytest.mark.parametrize("q_len", [1, 2, 3, 5, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 4, 2, 48, 20, 5, 16),
-                                   (8, 16, 2, 512, 64, 16, 128)],
-                         ids=["small", "qwen3b"])
+                                   (8, 16, 2, 512, 64, 16, 128),
+                                   (8, 40, 8, 512, 64, 16, 128)],
+                         ids=["small", "qwen3b", "llama4scout"])
 def test_paged_attention_kernel_matches_plain(dev, shape, dtype, q_len):
     """Tolerance 1e-4 absolute: the same f32 math summed in another order
     (FMA dot products, online softmax across pages)."""
@@ -441,13 +442,15 @@ def _attn_case(rng, b, hq, hkv, lq, lk, d, dtype, dev):
 
 
 ATTN_CASES = [(2, 4, 2, 37, 53, 16), (1, 8, 1, 70, 70, 64),
-              (8, 16, 2, 512, 512, 128), (1, 16, 2, 2048, 2048, 128)]
+              (8, 16, 2, 512, 512, 128), (1, 16, 2, 2048, 2048, 128),
+              (1, 40, 8, 517, 517, 128)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", ATTN_CASES,
-                         ids=["odd", "g8", "qwen3b", "long2048"])
+                         ids=["odd", "g8", "qwen3b", "long2048",
+                              "llama4scout"])
 def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
     """Kernel F against its plain version on the same inputs (bf16 read as
     bf16, the plain version upcasting): 1e-4 absolute — the same f32 math
@@ -1345,16 +1348,16 @@ def test_chunked_eq6_draw_of_a_full_width_leaf(dev):
     assert float((out - leaf).abs().max()) < 0.1 * float(wm)
 
 
-def _train_setup(dev_a, dev_b):
+def _train_setup(dev_a, dev_b, arch="qwen2_5_3b", seq=16):
     import dataclasses
 
     from repro_torch.models import lm
-    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True),
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
                               activation_dtype=torch.float32)
     p = lm.init_params(cfg, generator=torch.Generator().manual_seed(5),
                        device="cpu")
     rng = np.random.default_rng(6)
-    t = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 17)),
+    t = torch.tensor(rng.integers(0, cfg.vocab_size, (4, seq + 1)),
                      dtype=torch.int32)
     batch = {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
 
@@ -1368,27 +1371,58 @@ def _deep_to(tree, d):
             if isinstance(tree, dict) else tree.to(d).clone())
 
 
-@pytest.mark.parametrize("naf", [False, True], ids=["plain", "naf"])
-def test_train_step_on_card_matches_cpu(dev, naf):
+@pytest.mark.parametrize("arch,naf", [
+    ("qwen2_5_3b", False), ("qwen2_5_3b", True), ("gemma3_27b", False),
+    ("recurrentgemma_9b", False), ("qwen3_moe_30b_a3b", False),
+    ("llama4_scout_17b_a16e", False), ("rwkv6_3b", False)],
+    ids=["plain", "naf", "gemma3", "recurrentgemma", "qwen3moe",
+         "llama4scout", "rwkv6"])
+def test_train_step_on_card_matches_cpu(dev, arch, naf):
     """One reduced-width train step (f32) on the card against the CPU
-    port: the loss within 1e-5, the moments within the CPU test's
-    tolerances, the parameters within 0.1 x lr (Adam over ~1e-9
-    gradients; tests/test_torch_train.py)."""
+    port, for every block type (24 positions past the reduced windows for
+    the new ones): the loss within 1e-5, the first moments within 1e-7;
+    for ``qwen2_5_3b`` the second moments within 1e-9 and the parameters
+    within 0.1 x lr (Adam over ~1e-9 gradients; tests/test_torch_train.py),
+    for the other archs, whose grad norms run 10x larger, the second
+    moments within 1e-9 or 2e-5 of the leaf's largest and the parameters
+    within 0.1 x lr where the gradient reaches 1e-6
+    (tests/test_torch_train_families.py)."""
     from repro_torch.core.drift import flatten
     from repro_torch.launch.train import build_train_step
     from repro_torch.optim import adamw
-    cfg, (pc, bc), (pg, bg) = _train_setup("cpu", dev)
+    cfg, (pc, bc), (pg, bg) = _train_setup(
+        "cpu", dev, arch, 16 if arch == "qwen2_5_3b" else 24)
     step = build_train_step(cfg, adamw.AdamWConfig(lr=1e-3), naf=naf,
                             naf_lambda1=1e-2, naf_lambda2=1e-2)
     sc, sg = adamw.init(pc), adamw.init(pg)
     _, _, mc = step(pc, sc, bc)
     _, _, mg = step(pg, sg, bg)
     assert mg["loss"].item() == pytest.approx(mc["loss"].item(), rel=1e-5)
-    for tc, tg, tol in ((pc, pg, 0.1e-3), (sc["m"], sg["m"], 1e-7),
-                        (sc["v"], sg["v"], 1e-9)):
-        for (_, a), (_, b) in zip(flatten(tc), flatten(tg)):
-            assert b.device.type == "cuda"
-            assert (a - b.cpu()).abs().max().item() <= tol
+    for (_, p), (_, pd), (_, m), (_, md), (_, v), (_, vd) in zip(
+            flatten(pc), flatten(pg), flatten(sc["m"]), flatten(sg["m"]),
+            flatten(sc["v"]), flatten(sg["v"])):
+        assert pd.device.type == "cuda"
+        assert (m - md.cpu()).abs().max().item() <= 1e-7
+        strict = arch == "qwen2_5_3b"
+        v_tol = 1e-9 if strict else max(1e-9, 2e-5 * v.abs().max().item())
+        assert (v - vd.cpu()).abs().max().item() <= v_tol
+        live = (m.abs() / 0.1 >= 1e-6) | strict
+        assert torch.where(live, (p - pd.cpu()).abs(), 0.0).max().item() \
+            <= 1e-4
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["values", "under_grad"])
+def test_rglru_softplus_keeps_the_clamp_values_on_card(dev, grad):
+    """``nn.rglru.softplus`` gives the max-plus-log1p form's values bit for
+    bit on the card, with and without a gradient (its max is
+    ``core.noise.clip``'s under a gradient, for ``jax``'s derivative at
+    0); ``torch.logaddexp`` would round differently."""
+    from repro_torch.nn.rglru import softplus
+    x = torch.linspace(-100, 100, 2_000_001, device=dev)
+    x[::7] = 0.0
+    want = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    got = softplus(x.clone().requires_grad_(grad)).detach()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_finetune_table_on_card_matches_cpu(dev):

@@ -235,17 +235,21 @@ def test_train_forward_and_loss_match_repro(arch, on):
         rel=1e-4 if on else LOSS_RTOL)
 
 
-def test_scan_remat_recomputes_layers_with_equal_gradients():
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "gemma3_27b",
+                                  "recurrentgemma_9b", "qwen3_moe_30b_a3b",
+                                  "llama4_scout_17b_a16e", "rwkv6_3b"])
+def test_scan_remat_recomputes_layers_with_equal_gradients(arch):
     """``cfg.scan_remat`` recomputes each layer in the backward pass
-    (``torch.utils.checkpoint``): the same loss and gradients as without."""
-    _, ct = _cfgs("qwen2_5_3b")
-    _, pt = _params("qwen2_5_3b")
-    _, bt = _batch(ct)
+    (``torch.utils.checkpoint``): the same loss and gradients as without,
+    bit for bit, for every block type (24 positions: past the reduced
+    windows, so Gemma3's local layers run the band)."""
+    _, ct = _cfgs(arch)
+    _params(arch)
+    _, bt = _batch(ct, s=16 if arch == "qwen2_5_3b" else 24)
     out = {}
     for remat in (False, True):
         cfg = dataclasses.replace(ct, scan_remat=remat)
-        p = {k: v for k, v in from_jax(_PARAMS["qwen2_5_3b"],
-                                       device="cpu").items()}
+        p = {k: v for k, v in from_jax(_PARAMS[arch], device="cpu").items()}
         leaves = [x.requires_grad_() for _, x in flatten(p)]
         loss = lm.lm_loss(lm.forward(p, bt["tokens"], cfg, mode="train"),
                           bt["labels"])

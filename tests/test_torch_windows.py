@@ -199,13 +199,12 @@ def test_ring_decode_matches_unbounded_cache_and_repro():
                                       np.asarray(j_ring["pos"]))
 
 
-def test_windowed_prefill_at_head_dim_256_takes_blockwise(monkeypatch):
-    """Kernel F has a head-dim-256 instance: a windowed prefill no longer
-    than its window takes F (exact there: every causal pair lies in the
-    window) where ``repro`` takes its windowed ``blockwise_attention``, a
-    longer one the band, which never reaches F; both give ``repro``'s
-    attention.  (The name is the one this test had when F lacked a
-    head-dim-256 instance and the prefill took ``blockwise_attention``.)"""
+def test_windowed_prefill_at_head_dim_256_takes_kernel_f_or_the_band(
+        monkeypatch):
+    """At head dim 256 a windowed prefill no longer than its window takes
+    kernel F (exact there: every causal pair lies in the window) where
+    ``repro`` takes its windowed ``blockwise_attention``, a longer one the
+    band, which never reaches F; both give ``repro``'s attention."""
     calls = []
     plain = A.flash_attention
 
