@@ -19,6 +19,15 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    forward) and reports the pool's bytes beside an f32 pool's;
    then serves 4 of the requests in ``FUSED`` numerics and checks that the
    fused crossbar->ACAM kernel (B) carried every MLP gate;
+   ``[serve mesh]``: 2 ranks on the one card (``launch.mesh.run_ranks``,
+   gloo with CUDA tensors: NCCL refuses two ranks on one device) serve
+   the paged OFF trace on a (1, 2) mesh over f32 pools, then FUSED (B on
+   each rank's half of the gate columns) and spec 2, then on a (2, 1)
+   mesh: every rank's tokens must be the single-device engine's bit for
+   bit, and each line gives kernel A's (B's) launches per shard, per
+   chunk and per tick; kernel A on each shard of the OFF engine's pools
+   and B on each column half of the gate must equal the unsharded calls'
+   slices bit for bit;
 4. serves a lockstep batch (``launch/serve.py``: whole-prompt prefill,
    then greedy generation; Qwen2.5-3B cut further, to its first
    ``CUT_LAYERS`` layers, as in step 5 and ``[train]``) in ``OFF`` numerics — 8
@@ -1266,6 +1275,239 @@ def serve_async(torch, cfg, params, paged_kw: dict, off: dict,
     del a, eng
     torch.cuda.empty_cache()
     return {**summary, "launches": launches}
+
+
+# [serve mesh]: (mesh shape, [(label, numerics, spec_k, make_trace args)]),
+# every shape over the same MESH_RANKS ranks (one spawn)
+MESH_RANKS = 2
+MESH_CASES = (((1, 2), (("OFF", "OFF", 0, (8, 32, 0)),
+                        ("FUSED", "FUSED", 0, (4, 16, 0)),
+                        ("spec2", "OFF", 2, (4, 16, 0)))),
+              ((2, 1), (("OFF", "OFF", 0, (8, 32, 0)),)))
+MESH_KEEP = ("tokens", "launches", "wall_s", "tokens_per_s",
+             "launches_per_prefill_chunk", "launches_per_decode_tick",
+             "paged_attention_by_shape", "prefill_chunks", "decode_ticks",
+             "decode_ms_per_tick")
+
+
+def mesh_rank(n_layers: int, device) -> dict:
+    """One rank of ``[serve mesh]``, in a process of its own on the shared
+    card (``launch.mesh.run_ranks``): full-width Qwen2.5-3B cut to
+    ``n_layers``, the seeded weights of the single-device phases, served
+    sharded on each (data, model) mesh of ``MESH_CASES`` in turn (both of
+    2 ranks, one process group) through ``serve`` (counts zeroed before
+    each trace: this shard's launches).  Returns, by mesh shape, each
+    case's tokens, launches, collectives and walls, the shard's local
+    shapes and the ms of one all-gather."""
+    import torch
+    from repro_torch.launch.mesh import serve_mesh
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cut_config("qwen2_5_3b", n_layers)
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    res = {}
+    for shape, cases in MESH_CASES:
+        mesh = serve_mesh(*shape, device)
+        res[shape] = mesh_cases(torch, mesh, cfg, params, shape, cases)
+    return res
+
+
+def mesh_cases(torch, mesh, cfg, params, shape: tuple, cases: tuple) -> dict:
+    """``mesh_rank``'s cases on one mesh."""
+    from repro_torch.core.engine import FUSED, OFF, NLDPEConfig
+    from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.engine import PagedServeEngine
+    out = {"coords": mesh.coords}
+    for label, numerics, spec_k, trace in cases:
+        kw = dict(max_slots=8, max_len=1024, page_size=16, prefill_chunk=64,
+                  decode_block=4, nldpe={"OFF": OFF, "FUSED": FUSED}[numerics])
+        if spec_k:
+            kw.update(spec_k=spec_k, spec_draft=NLDPEConfig(enabled=False))
+        eng = PagedServeEngine(cfg, params, mesh=mesh, **kw)
+        counter = (fused_crossbar_acam if numerics == "FUSED"
+                   else paged_attention)
+        coll = {"_chunk": [0, 0], "step": [0, 0]}
+
+        def tallied(name, fn):
+            def call(*args, **kwargs):
+                before = mesh.collectives
+                out = fn(*args, **kwargs)
+                coll[name][0] += 1
+                coll[name][1] += mesh.collectives - before
+                return out
+            return call
+        eng._chunk = tallied("_chunk", eng._chunk)
+        eng.step = tallied("step", eng.step)
+        res = serve(torch, eng, make_trace(cfg, *trace), counter,
+                    f"serve mesh {shape} rank {mesh.rank} {label}")
+        keep = {k: res[k] for k in MESH_KEEP}
+        # per call, the warm-up request's calls included (every chunk, and
+        # every tick of one kind, issues the same collectives)
+        keep["collectives_per_prefill_chunk"] = (
+            coll["_chunk"][1] / max(coll["_chunk"][0], 1))
+        keep["collectives_per_decode_tick"] = (
+            coll["step"][1] / max(coll["step"][0], 1))
+        blk = eng.params["groups"]["b0"]
+        keep.update(heads=blk["attn"]["wq"].shape[-2],
+                    kv_heads=eng.cache["k"].shape[2],
+                    gate_cols=blk["ffn"]["gate"].shape[-1],
+                    slots=eng.cache["pos"].shape[0])
+        if label == "OFF":
+            keep["kernel_a_on_shard"] = kernel_a_on_shard(torch, eng)
+        out[label] = keep
+        del eng
+        torch.cuda.empty_cache()
+    # what one collective costs here: all-gathers of a decode step's
+    # attention output (8 slots x 8 heads x 128, bf16) and of a chunk's
+    # FFN half (8 x 64 rows x 5504 columns, bf16), behind syncs
+    axis = "model" if shape[1] > 1 else "data"
+    for name, dims in (("decode", (8, 8, 1, 128)), ("chunk", (8, 64, 5504))):
+        x = torch.ones(dims, dtype=torch.bfloat16, device=mesh.device)
+        for _ in range(3):
+            mesh.all_gather(x, 1, axis)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            mesh.all_gather(x, 1, axis)
+        torch.cuda.synchronize()
+        out[f"all_gather_ms_{name}"] = (time.perf_counter() - t0) / 20 * 1e3
+        out[f"all_gather_bytes_{name}"] = x.numel() * 2
+    return out
+
+
+def kernel_a_on_shard(torch, eng) -> int:
+    """Kernel A on a mesh engine's own shard — this rank's layer-0 pools
+    and block-table rows, as served — through ``paged_attention_sharded``
+    at the phase's shapes (decode, the spec-2 verify, the chunk), held
+    bitwise against this shard's slice of the unsharded call on the pools
+    and table gathered from every rank (concatenations: exact).  Every
+    rank calls it (it all-gathers).  Returns the q_lens checked and those
+    whose output differed (checked by the parent process: a rank that
+    failed here would leave its peer waiting in a collective)."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_sharded, shard_specs)
+    from repro_torch.models import lm
+    mesh, cfg, c = eng.mesh, eng.cfg, lm.stacks(eng.cache)["full"]
+    heads = (cfg.n_heads, cfg.n_kv_heads)
+    sp = shard_specs(eng.max_slots, *heads, mesh, eng.rules)
+    k, v, bt = c["k"][0], c["v"][0], c["bt"]
+    head_axes = sp["pool"].axes_of(1)
+    gk, gv = (mesh.all_gather(t, 1, head_axes) for t in (k, v))
+    gbt = mesh.all_gather(bt, 0, sp["table"].axes_of(0))
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 7)
+    cases, unequal = [], []
+    for q_len in (1, 3, 64):
+        q = torch.randn((eng.max_slots, cfg.n_heads, q_len, k.shape[-1]),
+                        generator=gen, device=mesh.device, dtype=k.dtype)
+        lengths = torch.clamp(eng._pos - q_len + 1, 1,
+                              c["pos"].shape[1]).to(torch.int32)
+        full = paged_attention(q, gk, gv, gbt, lengths)
+        got = paged_attention_sharded(
+            sp["q"].local(q, mesh).contiguous(), k, v, bt,
+            sp["table"].local(lengths, mesh).contiguous(), mesh, eng.rules,
+            n_heads=heads[0], n_kv_heads=heads[1])
+        cases.append(q_len)
+        if not torch.equal(got, sp["q"].local(full, mesh)):
+            unequal.append(q_len)
+    return {"q_lens": cases, "unequal": unequal}
+
+
+def serve_mesh_phase(torch, refs: dict, gate) -> dict:
+    """``[serve mesh]``: the paged engine on meshes of 2 ranks sharing the
+    one card, under gloo with CUDA tensors (NCCL refuses two ranks on one
+    device): (1, 2) paged OFF over f32 pools, FUSED (kernel B on each
+    rank's half of the gate columns) and spec 2, then (2, 1) OFF.  Every
+    rank's tokens must be the single-device phase's (``refs``) bit for
+    bit; each case reports kernel A's (or B's) launches per shard, per
+    prefill chunk and per decode tick, and its wall.  Kernel A per shard
+    on each OFF engine's own pools and table (``kernel_a_on_shard``, in
+    the ranks) and kernel B on each column half of ``gate`` at the
+    phase's M must equal the unsharded calls' slices bit for bit.  Each
+    process runs ``mesh_rank``."""
+    from repro_torch.kernels.dual_compute.ops import fused_linear_acam
+    from repro_torch.launch.mesh import describe_backend, run_ranks
+    backend = describe_backend("gloo", torch.device("cuda"))
+    out = {"backend": backend, "cases": {}}
+    t0 = time.perf_counter()
+    every = run_ranks(mesh_rank, MESH_RANKS, (SERVE_LAYERS,), device="cuda")
+    out["spawn_wall_s"] = time.perf_counter() - t0
+    for shape, cases in MESH_CASES:
+        ranks = [r[shape] for r in every]
+        for label, numerics, _, _ in cases:
+            name = ("fused_crossbar_acam" if numerics == "FUSED"
+                    else "paged_attention")
+            per = [r[label] for r in ranks]
+            for r, res in enumerate(per):
+                check(res["tokens"] == refs[label],
+                      f"serve mesh {shape} {label}: rank {r}'s tokens "
+                      f"differ from the single-device engine's")
+                check(res["launches"][name] > 0,
+                      f"serve mesh {shape} {label}: {name} was never "
+                      f"launched on rank {r}")
+            out["cases"][f"{shape} {label}"] = {
+                "tokens_equal_single_device": True,
+                "kernel": name,
+                "launches_per_shard": [p["launches"][name] for p in per],
+                "launches_per_prefill_chunk_per_shard": [
+                    p["launches_per_prefill_chunk"] for p in per],
+                "launches_per_decode_tick_per_shard": [
+                    p["launches_per_decode_tick"] for p in per],
+                "paged_attention_by_shape_rank0":
+                    per[0]["paged_attention_by_shape"],
+                "wall_s_per_shard": [p["wall_s"] for p in per],
+                "tokens_per_s_rank0": per[0]["tokens_per_s"],
+                "decode_ms_per_tick_rank0": per[0]["decode_ms_per_tick"],
+                "collectives_per_prefill_chunk_rank0":
+                    per[0]["collectives_per_prefill_chunk"],
+                "collectives_per_decode_tick_rank0":
+                    per[0]["collectives_per_decode_tick"],
+                "local": {k: per[0][k] for k in ("heads", "kv_heads",
+                                                 "gate_cols", "slots")},
+                "backend": backend}
+            if label == "OFF":
+                for r, res in enumerate(per):
+                    check(not res["kernel_a_on_shard"]["unequal"],
+                          f"serve mesh {shape}: kernel A on rank {r}'s own "
+                          f"shard is not the unsharded call's slice at "
+                          f"q_len {res['kernel_a_on_shard']['unequal']}")
+                out["cases"][f"{shape} {label}"]["kernel_a_on_shard"] = [
+                    p["kernel_a_on_shard"]["q_lens"] for p in per]
+        out[f"all_gather {shape}"] = {
+            k: ranks[0][k] for k in ranks[0] if k.startswith("all_gather")}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    # kernel B on each half of the gate's columns, bitwise
+    w_max = torch.amax(torch.abs(gate))
+    n = gate.shape[1] // 2
+    b_cases = 0
+    for m_rows in (8, 512):
+        x = torch.randn((m_rows, gate.shape[0]), generator=gen,
+                        device="cuda")
+        full = fused_linear_acam(x, gate, "silu")
+        for i in range(2):
+            cols = slice(i * n, (i + 1) * n)
+            got = fused_linear_acam(x, gate[:, cols].contiguous(), "silu",
+                                    w_max=w_max)
+            check(torch.equal(got, full[:, cols]),
+                  f"serve mesh: kernel B on column half {i} at M {m_rows} "
+                  f"is not the unsharded call's columns")
+            b_cases += 1
+    torch.cuda.synchronize()
+    out["kernel_a_shards_bitwise"] = sum(
+        len(p["OFF"]["kernel_a_on_shard"]["q_lens"]) for r in every
+        for p in r.values())
+    out["kernel_b_shards_bitwise"] = b_cases
+    print("[serve mesh] " + json.dumps(out))
+    return out
+
+
+def mesh_launches(res: dict, name: str) -> dict:
+    """A kernel's per-shard launches in ``[serve mesh]``, by case."""
+    return {case: {k: v for k, v in c.items() if k.startswith("launches")}
+            for case, c in res["cases"].items() if c["kernel"] == name}
 
 
 def reference_tokens(engine, reqs) -> dict:
@@ -3967,6 +4209,19 @@ def main() -> None:
     print(f"[serve FUSED] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    spec2 = PagedServeEngine(cfg, params, spec_k=2,
+                             spec_draft=NLDPEConfig(enabled=False),
+                             **paged_kw)
+    spec2_tokens = reference_tokens(spec2, make_trace(cfg, 4, 16, 0))
+    del spec2
+    torch.cuda.empty_cache()
+    mesh_res = serve_mesh_phase(
+        torch, {"OFF": off_res["tokens"], "FUSED": fused_res["tokens"],
+                "spec2": spec2_tokens},
+        params["groups"]["b0"]["ffn"]["gate"][0])
+    print(f"[serve mesh] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     cut_cfg, cut_params = cut_depth(cfg, params, CUT_LAYERS)
     lock_off = lockstep(torch, cut_cfg, cut_params, OFF, batch=8,
                         prompt_len=512,
@@ -4099,7 +4354,9 @@ def main() -> None:
                     "paged_attention"],
                 "launches_qwen3moe": qmoe["launches"]["paged_attention"],
                 "launches_paligemma": pali["launches"]["paged_attention"],
-                "launches_musicgen": music["launches"]["paged_attention"]},
+                "launches_musicgen": music["launches"]["paged_attention"],
+                "launches_serve_mesh_per_shard": mesh_launches(
+                    mesh_res, "paged_attention")},
             qmoe["kernel_cases"]["paged_attention"]
             + pali["kernel_cases"]["paged_attention"]
             + music["kernel_cases"]["paged_attention"]),
@@ -4109,7 +4366,9 @@ def main() -> None:
             "launches_recurrentgemma": rgemma["launches"][
                 "fused_crossbar_acam"],
             "launches_paligemma": pali["launches"]["fused_crossbar_acam"],
-            "launches_musicgen": music["launches"]["fused_crossbar_acam"]},
+            "launches_musicgen": music["launches"]["fused_crossbar_acam"],
+            "launches_serve_mesh_per_shard": mesh_launches(
+                mesh_res, "fused_crossbar_acam")},
             gemma3["kernel_cases"]["fused_crossbar_acam"]
             + rgemma["kernel_cases"]["fused_crossbar_acam"]
             + pali["kernel_cases"]["fused_crossbar_acam"]

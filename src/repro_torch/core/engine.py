@@ -57,13 +57,23 @@ class NLDPEConfig:
             return acam_activation(x, name, bits=self.bits)
         return TORCH_FUNCTIONS[name](x)
 
+    @property
+    def fused_linear(self) -> bool:
+        """Whether ``linear_activation`` takes the fused crossbar->ACAM
+        pass (kernel B), which programs the float32 master weight."""
+        return (self.enabled and self.acam_activations
+                and self.fused_dual_compute)
+
     def linear_activation(self, x: torch.Tensor, w: torch.Tensor,
-                          name: str) -> torch.Tensor:
+                          name: str, w_max=None) -> torch.Tensor:
         """act(x @ w) — one fused crossbar->ACAM pass when configured
-        (``w`` must then be the float32 master weight)."""
-        if self.enabled and self.acam_activations and self.fused_dual_compute:
+        (``w`` must then be the float32 master weight; ``w_max``, where
+        given, the largest magnitude the crossbar is programmed against,
+        default ``w``'s own)."""
+        if self.fused_linear:
             from ..kernels.dual_compute.ops import fused_linear_acam
-            return fused_linear_acam(x, w, name, bits=self.bits).to(x.dtype)
+            return fused_linear_acam(x, w, name, bits=self.bits,
+                                     w_max=w_max).to(x.dtype)
         return self.activation(x @ w.to(x.dtype), name)
 
     def softmax(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:

@@ -138,11 +138,15 @@ def tile_variant(m: int, n: int) -> str:
     return build.TILE_VARIANTS[_lib().fused_crossbar_acam_variant(m, n)]
 
 
-def program(w: torch.Tensor):
+def program(w: torch.Tensor, w_max: torch.Tensor | None = None):
     """Ideal A-SL programming of a float32 weight: (cells, inv_g_ratio),
-    with w_max and inv computed on the weight's device."""
+    with w_max (``w``'s largest magnitude unless given: a column shard is
+    programmed against its whole weight's) and inv computed on the
+    weight's device."""
     w = w.to(torch.float32)
-    w_max = torch.clamp(torch.amax(torch.abs(w)), min=1e-9)
+    if w_max is None:
+        w_max = torch.amax(torch.abs(w))
+    w_max = torch.clamp(w_max, min=1e-9)
     plan, _ = plan_asl(w, w_max, DEFAULT)
     inv = w_max * recip(DEFAULT.g_max - DEFAULT.g_min)
     return plan.cells, inv
@@ -150,17 +154,17 @@ def program(w: torch.Tensor):
 
 def fused_linear_acam(x: torch.Tensor, w: torch.Tensor, act: str,
                       bits: int = 8,
-                      in_domain: tuple[float, float] | None = None
-                      ) -> torch.Tensor:
+                      in_domain: tuple[float, float] | None = None,
+                      w_max: torch.Tensor | None = None) -> torch.Tensor:
     """act(x @ w) through an ideally programmed A-SL crossbar, fused.
     x (..., K) any leading shape, w (K, N) float32 -> (..., N) float32;
     the ACAM table of ``act`` at ``bits`` over ``in_domain`` (default: the
     function's reference domain).  Programming happens per call: four
     (K, N) float32 cell matrices are transient (caching the plan is later
     work).  The table's compiled map is cached per table and device
-    (``table_map``), not compiled per call."""
+    (``table_map``), not compiled per call.  ``w_max``: see ``program``."""
     table = get_table(act, bits, "gray", in_domain)
-    cells, inv = program(w)
+    cells, inv = program(w, w_max)
     lo, hi = table_thresholds(table, x.device)
     shape = x.shape
     out = fused_crossbar_acam(

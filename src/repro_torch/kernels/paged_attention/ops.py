@@ -276,3 +276,66 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 paged_attention.launches = 0
 paged_attention.pool_launches = dict.fromkeys(_POOL_KINDS, 0)
+
+
+def _divides(mesh, axis, *dims) -> bool:
+    """True when ``axis`` exists on ``mesh`` and divides every dim."""
+    if axis is None:
+        return False
+    flat = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+    if any(a not in mesh.shape for a in flat):
+        return False
+    size = 1
+    for a in flat:
+        size *= mesh.shape[a]
+    return all(d % size == 0 for d in dims)
+
+
+def shard_specs(b: int, hq: int, hkv: int, mesh, rules) -> dict:
+    """The placements of kernel A's operands in its per-shard launch
+    (``repro``'s ``paged_attention_sharded`` in_specs): query and kv heads
+    over the rules' "kv_heads" axis when it divides both head counts (the
+    GQA group stays shard-local), sequences over "slots" when it divides
+    them, the pools' pages replicated, the block table and lengths
+    replicated across "model"; an axis that does not divide replicates."""
+    from ...parallel.sharding import Spec
+    model_ax = rules.lookup("kv_heads")
+    if not _divides(mesh, model_ax, hq, hkv):
+        model_ax = None
+    data_ax = rules.lookup("slots")
+    if not _divides(mesh, data_ax, b):
+        data_ax = None
+    return {"q": Spec((data_ax, model_ax)), "pool": Spec((None, model_ax)),
+            "table": Spec((data_ax,))}
+
+
+def paged_attention_sharded(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, block_tables: torch.Tensor,
+                            lengths: torch.Tensor, mesh, rules, *,
+                            n_heads: int, n_kv_heads: int,
+                            k_scale: torch.Tensor | None = None,
+                            v_scale: torch.Tensor | None = None,
+                            kv_quant: str | None = None) -> torch.Tensor:
+    """Kernel A once on this rank's shard (``repro``'s ``shard_map``
+    dispatch, one shard's view).  The operands are this rank's local
+    shards, as the serve engines hold them, at the placement
+    ``shard_specs`` gives the global head counts ``n_heads`` and
+    ``n_kv_heads``: its query and kv heads, its sequences with their
+    block-table rows and lengths, every page, a quantized pool's scales
+    on the pool's head axis.  The gather indices carry no float math and
+    ``plan`` depends on neither the batch nor the kv head count, so the
+    output is exactly this shard's slice of the unsharded call.  Raises
+    where the query or the pools hold another head slice."""
+    from ...parallel.sharding import axis_size
+    heads = shard_specs(q.shape[0], n_heads, n_kv_heads, mesh,
+                        rules)["pool"].axes_of(1)
+    split = axis_size(mesh, heads) if heads else 1
+    if (q.shape[1] * split, k_pages.shape[1] * split) != (n_heads,
+                                                          n_kv_heads):
+        raise ValueError(
+            f"paged_attention_sharded: {q.shape[1]} query and "
+            f"{k_pages.shape[1]} kv heads on this shard, the placement "
+            f"gives {n_heads // split} and {n_kv_heads // split}")
+    return paged_attention(q, k_pages, v_pages, block_tables, lengths,
+                           k_scale=k_scale, v_scale=v_scale,
+                           kv_quant=kv_quant)

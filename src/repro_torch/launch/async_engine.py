@@ -110,6 +110,11 @@ class AsyncServeEngine:
                  poll_s: float = 0.02):
         if drain_depth < 1:
             raise ValueError("drain_depth >= 1 (1 disables pipelining)")
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError(
+                "the async pipeline under a mesh: its scheduler and drain "
+                "threads would issue each rank's collectives out of step "
+                "(ROADMAP.md A.2)")
         self.engine = engine
         self.drain_depth = drain_depth
         self._poll_s = poll_s

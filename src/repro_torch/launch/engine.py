@@ -71,14 +71,28 @@ publication).
   assignments of the prefill chunks and of the plain decode steps (a spec
   tick's draft and verify forwards are not counted).
 
-Not ported yet (``ROADMAP.md`` queue A): meshes.  The paged engine raises
-``NotImplementedError`` when given ``mesh`` or ``rules``.
+* **Meshes** — ``mesh=`` (a ``parallel.context.Mesh``, one per rank:
+  ``launch/mesh.py``) and ``rules=`` (a ``Rules`` table or the name of
+  one of ``sharding.SERVE_TABLES``, default ``"serve_exact"``) on either
+  engine: every parameter and cache leaf is held as this rank's shard of
+  the placement the rules give it (``nn.module.spec_tree``, ``lm.cache_pspecs``), and
+  the model runs under the sharding context (heads and FFN columns over
+  "model", kernel A and B once per shard, slots over "data").  Every rank
+  runs the same host scheduling on the same trace — admission,
+  radix/COW/eviction, spec rollback stay global —, each samples its own
+  slots, and the sampled tokens are all-gathered, so every rank's
+  scheduler sees every token.  Under the exact tables sharded serving
+  equals single-device serving token for token.  Tables that shard a
+  contraction (partial sums), drift injection and the async pipeline
+  under a mesh are the next slice (``ROADMAP.md`` A.2) and raise
+  ``NotImplementedError``.
 
 Where ``repro`` donates device buffers to its jitted steps, these engines
 update the cache and the decode state in place.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -94,7 +108,10 @@ from ..core.engine import NLDPEConfig, OFF
 from ..core.logdomain import log_quantize
 from ..models import lm
 from ..nn import attention
+from ..nn.module import shard_tree, spec_tree
 from ..obs import MetricsRegistry, Telemetry
+from ..parallel import sharding
+from ..parallel.context import sharding_ctx
 from . import prng
 from .fidelity import DriftInjection, FidelityMonitor, FidelityPolicy
 from .kvpool import PagePool, nldpe_fingerprint
@@ -102,11 +119,6 @@ from .sampling import TOP_K_CAP, request_key, sample_tokens, step_keys
 from .spec_decode import (build_draft_scan_fn, build_verify_fn,
                           clip_positions, emits_tick_major,
                           quantize_draft_params)
-
-# PagedServeEngine options of repro's that the port does not have yet
-# (meshes: ROADMAP.md A.2), with the value that leaves each off
-_NOT_PORTED = {"mesh": None, "rules": None}
-
 
 @dataclasses.dataclass(frozen=True)
 class Request:
@@ -179,12 +191,19 @@ class ServeEngine:
     admission wave's chunk count up to a bucket (``_bucket_table``); the
     pad chunks are write-masked off, so tokens and cache bytes do not
     change, and ``prefill_pad_chunks`` counts them.
+
+    ``batch_groups`` splits each MoE layer's tokens into that many routing
+    groups (``nn.moe.moe_apply``; under "data" they follow the slot
+    split).  ``mesh``/``rules``: the module docstring; ``params`` is then
+    the whole tree on every rank, and the engine keeps this rank's shard.
     """
 
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  nldpe: NLDPEConfig = OFF, prefill_chunk: int = 16,
                  decode_block: int = 4, eos_id: int = -1,
+                 batch_groups: int = 1,
                  dtype=torch.float32, kv_quant: str | None = None,
+                 mesh=None, rules=None,
                  device=None, telemetry: Telemetry | bool | None = None,
                  prefill_buckets=None):
         bad = [t for t in cfg.layer_pattern if t not in lm.ATTN_TYPES]
@@ -199,6 +218,8 @@ class ServeEngine:
         if kv_quant is not None:
             cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_quant)
         self.kv_quant = lm.kv_quant_of(cfg)
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         if params["embed"]["table"].device.type != self.device.type:
             raise ValueError(f"params live on "
@@ -206,14 +227,19 @@ class ServeEngine:
                              f"on {self.device}")
         self.cfg = cfg
         self.nldpe = nldpe
-        self.params = lm.serving_params(params, cfg, nldpe)
+        if batch_groups < 1:
+            raise ValueError("batch_groups >= 1")
+        self.batch_groups = batch_groups
         self.max_slots = max_slots
+        self._set_mesh(mesh, rules)
+        self.params = self._place_params(
+            lm.serving_params(params, cfg, nldpe))
         self.max_len = max_len
         self.prefill_chunk = min(prefill_chunk, max_len)
         self.decode_block = decode_block
         self.eos_id = eos_id
         self.dtype = dtype
-        self.cache = self._init_cache()
+        self.cache = self._place_cache(self._init_cache())
         # MoE: dropped assignments (device counters, read by moe_stats:
         # live tokens' at 0, padding rows' at 1) and the forwards they
         # were counted over
@@ -275,14 +301,105 @@ class ServeEngine:
         if self.telemetry is not None:
             self.metrics.register_group("latency", self.telemetry.summary)
 
-    def _init_cache(self) -> dict:
+    def _cache_layout(self) -> dict:
         # windowed rings get prefill_chunk - 1 slack lines: a chunk's
         # writes land before its queries attend, so the chunk's first query
         # still needs the full window behind it (nn.attention.cache_length)
+        return dict(slotted=True, ring_slack=self.prefill_chunk - 1)
+
+    def _init_cache(self) -> dict:
         return lm.init_model_cache(self.cfg, self.max_slots, self.max_len,
-                                   slotted=True, dtype=self.dtype,
-                                   ring_slack=self.prefill_chunk - 1,
-                                   device=self.device)
+                                   dtype=self.dtype, device=self.device,
+                                   **self._cache_layout())
+
+    # ------------------------------------------------------------------
+    # mesh placement (no-ops without a mesh)
+    # ------------------------------------------------------------------
+
+    def _set_mesh(self, mesh, rules) -> None:
+        """Keep the mesh and its rule table, and find the slots this rank
+        holds (``_rows``: a contiguous block when the slots split over
+        the rules' "slots" axes, all of them otherwise)."""
+        self.mesh = mesh
+        if isinstance(rules, str):
+            rules = sharding.serving_rules(rules)
+        self.rules = rules if rules is not None \
+            else sharding.serve_exact_rules()
+        self._rows = slice(0, self.max_slots)
+        self._row_axes: tuple = ()
+        if mesh is None:
+            return
+        if not sharding.is_exact(self.rules):
+            raise NotImplementedError(
+                f"rule table {self.rules.name!r} shards a contraction "
+                f"(partial sums); the engines run the exact tables "
+                f"(serve_exact, exact(...)) so far (ROADMAP.md A.2)")
+        s = self.max_slots
+        by = {n: sharding.resolve(self.rules, (n,), (s,), mesh).axes_of(0)
+              for n in ("slots", "batch")}
+        if by["slots"] != by["batch"]:
+            raise NotImplementedError(
+                f"rule table {self.rules.name!r} splits slots over "
+                f"{by['slots']} but batch rows over {by['batch']}")
+        self._row_axes = by["slots"]
+        if self._row_axes:
+            n, idx = 1, 0
+            for ax in self._row_axes:
+                n *= mesh.shape[ax]
+                idx = idx * mesh.shape[ax] + mesh.coords[ax]
+            self._rows = slice(idx * s // n, (idx + 1) * s // n)
+
+    def _sharded(self):
+        """The sharding context the model runs under (none without a
+        mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding_ctx(self.mesh, self.rules, batch=self.max_slots)
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slots of a per-slot tensor (S, ...)."""
+        return x if not self._row_axes else x[self._rows]
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's slots of a per-slot tensor, in slot order."""
+        if not self._row_axes:
+            return x
+        return self.mesh.all_gather(x, 0, self._row_axes)
+
+    def _place_params(self, params: dict) -> dict:
+        """This rank's shard of every parameter leaf, per the rule table
+        (``nn.module.spec_tree``)."""
+        if self.mesh is None:
+            return params
+        return shard_tree(params, spec_tree(params, self.cfg, self.mesh,
+                                            self.rules), self.mesh)
+
+    def _place_cache(self, cache: dict) -> dict:
+        """This rank's shard of every cache leaf (``lm.cache_pspecs``):
+        kv heads over "model", slots over "data", pages replicated."""
+        if self.mesh is None:
+            return cache
+        specs = lm.cache_pspecs(self.cfg, self.max_slots, self.max_len,
+                                self.mesh, self.rules,
+                                **self._cache_layout())
+        return shard_tree(cache, specs, self.mesh)
+
+    def _full(self) -> dict:
+        """The full-length attention stack of the cache (pools, position
+        track, block table)."""
+        return lm.stacks(self.cache)["full"]
+
+    def _slot_track(self, name: str, sl: int) -> torch.Tensor:
+        """Slot ``sl``'s row of the full stack's per-slot leaf ``name``
+        ("pos", "bt"), from whichever rank holds it (every rank calls
+        this: the scheduler runs on all of them)."""
+        return self._gather(self._full()[name])[sl]
+
+    def _set_slot_track(self, name: str, sl: int, row) -> None:
+        """Write slot ``sl``'s row of ``name`` on the rank that holds
+        it."""
+        if self._rows.start <= sl < self._rows.stop:
+            self._full()[name][sl - self._rows.start] = row
 
     def _bucket_table(self, spec) -> list[int]:
         """The prefill bucket ladder (``repro``'s ``_build_buckets``):
@@ -312,19 +429,24 @@ class ServeEngine:
 
     def _chunk(self, tokens, base_pos, mask, limit) -> torch.Tensor:
         """One (max_slots, prefill_chunk) suffix-prefill chunk at per-slot
-        base positions.  Pre-clear: stale entries >= base on writing slots
+        base positions (under a mesh, this rank's slots; the logits are
+        theirs).  Pre-clear: stale entries >= base on writing slots
         become never-valid before the chunk attends; post-clip: entries
         >= limit (= min(prompt length, chunk end)) trim the padded tail."""
         c = self.prefill_chunk
+        tokens, base_pos, mask, limit = (self._local(t) for t in
+                                         (tokens, base_pos, mask, limit))
         clip_positions(self.cache, mask, base_pos)
         positions = base_pos[:, None] + torch.arange(
             c, dtype=torch.int32, device=self.device)
-        logits = lm.forward(self.params, tokens, self.cfg,
-                            cache=self.cache, positions=positions,
-                            nldpe=self.nldpe, write_mask=mask,
-                            moe_drops=self._moe_count("prefill"),
-                            moe_live=mask[:, None] & (positions
-                                                      < limit[:, None]))
+        with self._sharded():
+            logits = lm.forward(self.params, tokens, self.cfg,
+                                cache=self.cache, positions=positions,
+                                nldpe=self.nldpe, write_mask=mask,
+                                moe_drops=self._moe_count("prefill"),
+                                moe_live=mask[:, None]
+                                & (positions < limit[:, None]),
+                                batch_groups=self.batch_groups)
         clip_positions(self.cache, mask, limit)
         return logits
 
@@ -343,11 +465,14 @@ class ServeEngine:
         of one forward together): those of live tokens (a request's prompt
         or decode tokens) and, as ``dropped_pad_*``, those of padding rows
         (idle or finished slots, a chunk's tail past the prompt), whose
-        outputs are discarded.  Reading it synchronizes the device."""
+        outputs are discarded.  Reading it synchronizes the device (and,
+        with slots split over ranks, sums the ranks' counts)."""
         if self._moe_drops is None:
             return {}
         out = {}
         for kind, t in self._moe_drops.items():
+            if self._row_axes:
+                t = self.mesh.all_reduce(t, self._row_axes)
             (n, pad), calls = t.tolist(), self._moe_forwards[kind]
             out.update({f"dropped_{kind}": n, f"dropped_pad_{kind}": pad,
                         f"{kind}_forwards": calls,
@@ -436,19 +561,19 @@ class ServeEngine:
                 pad[:, :tokens.shape[1]] = tokens
                 tokens = pad
             n_chunks = nb
-        rows = torch.arange(s, device=self.device)
-        col_t = self._t(col.astype(np.int64))
-        last = torch.zeros((s, self.cfg.vocab_size), dtype=torch.float32,
-                           device=self.device)
+        col_t = self._local(self._t(col.astype(np.int64)))
+        rows = torch.arange(col_t.shape[0], device=self.device)
+        last = torch.zeros((col_t.shape[0], self.cfg.vocab_size),
+                           dtype=torch.float32, device=self.device)
         for i in range(n_chunks):
             mask = self._t(admit & (i * c < suffix))
             limit = np.minimum(plen, reuse + (i + 1) * c).astype(np.int32)
             base = (reuse + i * c).astype(np.int32)
             lg = self._chunk(self._t(tokens[:, i * c:(i + 1) * c]),
                              self._t(base), mask, self._t(limit))
-            take = self._t(admit & (ci == i))
+            take = self._local(self._t(admit & (ci == i)))
             last = torch.where(take[:, None], lg[rows, col_t], last)
-        return last, n_chunks
+        return self._gather(last), n_chunks
 
     @staticmethod
     def _priority_order(waiting: deque) -> None:
@@ -641,13 +766,19 @@ class ServeEngine:
         emits = []
         tok, pos, active, gen_left = (self._tok, self._pos, self._active,
                                       self._gen_left)
+        loc = self._local
         for _ in range(self.decode_block):
-            logits = lm.decode_step(self.params, self.cfg, tok, pos,
-                                    self.cache, nldpe=self.nldpe,
-                                    write_mask=active,
-                                    moe_drops=self._moe_count("decode"))
-            nxt = sample_tokens(logits, step_keys(self._keys, pos + 1),
-                                self._temp, self._topk)
+            with self._sharded():
+                logits = lm.decode_step(self.params, self.cfg, loc(tok),
+                                        loc(pos), self.cache,
+                                        nldpe=self.nldpe,
+                                        write_mask=loc(active),
+                                        moe_drops=self._moe_count("decode"),
+                                        batch_groups=self.batch_groups)
+            # each rank samples its own slots; every rank sees every token
+            nxt = self._gather(sample_tokens(
+                logits, step_keys(loc(self._keys), loc(pos) + 1),
+                loc(self._temp), loc(self._topk)))
             emits.append(torch.where(active, nxt, -1))
             gen_left = gen_left - active.to(torch.int32)
             done = gen_left <= 0
@@ -817,12 +948,10 @@ class PagedServeEngine(ServeEngine):
             raise NotImplementedError(
                 "paged KV cache needs non-windowed attention layers: ring "
                 "wrap history would break prefix sharing (got 'local')")
-        asked = [n for n, off in _NOT_PORTED.items()
-                 if kw.pop(n, off) not in (off, False)]
-        if asked:
+        if drift is not None and kw.get("mesh") is not None:
             raise NotImplementedError(
-                f"PagedServeEngine: {', '.join(asked)} not ported yet "
-                f"(ROADMAP.md A.2)")
+                "drift injection under a mesh: the drafter's programmed "
+                "cells are not sharded yet (ROADMAP.md A.2)")
         if page_size < 1:
             raise ValueError("page_size >= 1")
         if spec_k < 0:
@@ -856,8 +985,9 @@ class PagedServeEngine(ServeEngine):
                 # the drafter's weights: the float32 master through the
                 # log grid, then cast as any serving copy is (the float32
                 # intermediate is freed on return)
-                self._draft_params = lm.serving_params(
-                    quantize_draft_params(params), self.cfg, self.spec_draft)
+                self._draft_params = self._place_params(lm.serving_params(
+                    quantize_draft_params(params), self.cfg,
+                    self.spec_draft))
             self._draft_fn, self._verify_fn = self._build_spec_fns(
                 self.spec_k)
             # pairs at the other live depths the fidelity ladder moves to
@@ -911,9 +1041,11 @@ class PagedServeEngine(ServeEngine):
                 "preempts": self.preempts, "resumes": self.resumes}
 
     def _build_spec_fns(self, k: int) -> tuple:
-        return (build_draft_scan_fn(self.cfg, spec_k=k, nldpe=self.spec_draft),
+        return (build_draft_scan_fn(self.cfg, spec_k=k, nldpe=self.spec_draft,
+                                    batch_groups=self.batch_groups),
                 build_verify_fn(self.cfg, self.params, spec_k=k,
-                                nldpe=self.nldpe, eos_id=self.eos_id))
+                                nldpe=self.nldpe, eos_id=self.eos_id,
+                                batch_groups=self.batch_groups))
 
     def _spec_fns_for(self, k: int) -> tuple:
         """The (draft, verify) pair at live depth ``k``: the engine's own
@@ -962,11 +1094,8 @@ class PagedServeEngine(ServeEngine):
         self._draft_params = alloc(lm.serving_params(like(params), self.cfg,
                                                      self.spec_draft))
 
-    def _init_cache(self) -> dict:
-        return lm.init_model_cache(
-            self.cfg, self.max_slots, self.max_len,
-            paged=(self.num_pages, self.page_size), dtype=self.dtype,
-            device=self.device)
+    def _cache_layout(self) -> dict:
+        return dict(paged=(self.num_pages, self.page_size))
 
     @property
     def stats(self) -> dict:
@@ -1111,10 +1240,13 @@ class PagedServeEngine(ServeEngine):
         dparams = (self._aged_draft_params() if self.drift is not None
                    else self._draft_params)
         draft_fn, verify_fn = self._spec_fns_for(k)
+        loc = self._local
         t0 = time.perf_counter()
-        drafts, q_probs = draft_fn(
-            dparams, self.cache, self._tok, self._pos, self._active,
-            self._temp, self._topk, self._keys)
+        with self._sharded():
+            drafts, q_probs = draft_fn(
+                dparams, self.cache, loc(self._tok), loc(self._pos),
+                loc(self._active), loc(self._temp), loc(self._topk),
+                loc(self._keys))
         self._sync()                              # meter the draft alone
         dt_draft = time.perf_counter() - t0
         self.spec_draft_seconds += dt_draft
@@ -1123,10 +1255,14 @@ class PagedServeEngine(ServeEngine):
             tel.event("spec_draft", self.tick, k=k,
                       n_active=int(pre_active.sum()), wall_s=dt_draft)
         t1 = time.perf_counter()
+        with self._sharded():
+            out = verify_fn(
+                self.cache, loc(self._tok), loc(self._pos),
+                loc(self._active), loc(self._gen_left), loc(self._temp),
+                loc(self._topk), loc(self._keys), drafts, q_probs)
+        # each rank verified its own slots; every rank sees every slot
         (self._tok, self._pos, self._active, self._gen_left, emits,
-         accepted) = verify_fn(
-            self.cache, self._tok, self._pos, self._active, self._gen_left,
-            self._temp, self._topk, self._keys, drafts, q_probs)
+         accepted) = (self._gather(t) for t in out)
         self.tick += 1
         self._spec_steps += 1
         drafted_now = np.where(pre_active, k, 0).astype(np.int64)
@@ -1158,21 +1294,24 @@ class PagedServeEngine(ServeEngine):
         """Admission reset of the admitted slots: new block-table rows and
         a position track valid on ``[0, reuse)`` (the radix-hit prefix),
         never-valid beyond."""
-        m = self._t(admit)
+        m = self._local(self._t(admit))
         iota = torch.arange(self.max_len, dtype=torch.int32,
                             device=self.device)
-        fresh = torch.where(iota[None] < self._t(reuse)[:, None], iota, -1)
-        self.cache["pos"].copy_(torch.where(m[:, None], fresh,
-                                            self.cache["pos"]))
-        self.cache["bt"].copy_(torch.where(m[:, None], self._t(new_bt),
-                                           self.cache["bt"]))
+        fresh = torch.where(iota[None] < self._local(self._t(reuse))[:, None],
+                            iota, -1)
+        full = self._full()
+        full["pos"].copy_(torch.where(m[:, None], fresh, full["pos"]))
+        full["bt"].copy_(torch.where(m[:, None],
+                                     self._local(self._t(new_bt)),
+                                     full["bt"]))
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write fork: page ``src`` -> ``dst`` in every layer (codes
         and scales of a quantized pool alike)."""
+        full = self._full()
         for name in lm.POOL_LEAVES:
-            if name in self.cache:
-                self.cache[name][:, dst] = self.cache[name][:, src]
+            if name in full:
+                full[name][:, dst] = full[name][:, src]
 
     # -- host tier: device->host spill, host->device restore (§13) ---------
 
@@ -1182,7 +1321,7 @@ class PagedServeEngine(ServeEngine):
         chunk or decode writes in place.  From the card each row goes into
         pinned memory by a blocking copy: it is done when this returns, and
         a restore reads it back at the pinned rate."""
-        rows = attention.gather_page_rows(self.cache, page)
+        rows = attention.gather_page_rows(self._full(), page)
         if self.device.type != "cuda":
             return [r.clone() for r in rows]
         out = []
@@ -1206,7 +1345,7 @@ class PagedServeEngine(ServeEngine):
         ``page`` (``scatter_page_rows``).  The copies block: the payload's
         pinned buffers have been read when this returns and may be freed
         or reused at once."""
-        attention.scatter_page_rows(self.cache, payload, page)
+        attention.scatter_page_rows(self._full(), payload, page)
 
     def _plan(self, req: Request, *, peek: bool) -> dict:
         """Map a request onto pages: radix-hit pages to share, the spilled
@@ -1324,7 +1463,7 @@ class PagedServeEngine(ServeEngine):
                                           self._gen_left, self._temp,
                                           self._topk, self._keys)]
         tok, pos, gen, temp, topk, keys = state
-        pos_row = self.cache["pos"][sl].to("cpu", copy=True)
+        pos_row = self._slot_track("pos", sl).to("cpu", copy=True)
         pages = self._slot_pages[sl]
         payloads = [self._page_to_host(p) for p in pages]
         tel = self.telemetry
@@ -1381,8 +1520,8 @@ class PagedServeEngine(ServeEngine):
             self._restore_page(payload, pg)
         row = np.full((self.n_blocks,), self.num_pages, np.int32)
         row[:n] = fresh
-        self.cache["bt"][sl] = self._t(row)
-        self.cache["pos"][sl] = pre.pos_row.to(self.device)
+        self._set_slot_track("bt", sl, self._t(row))
+        self._set_slot_track("pos", sl, pre.pos_row.to(self.device))
         s = self.max_slots
         sel = np.zeros((s,), bool)
         sel[sl] = True

@@ -21,6 +21,7 @@ tokens.
     ... --continuous | --paged [--telemetry] [--trace-out PATH]
                                [--profile-ticks N [--profile-dir DIR]]
                                [--metrics] [--async-serve]
+                               [--mesh DP,TP [--mesh-rules NAME]]
 
 The default branch prefills ``--batch`` prompts of ``--prompt-len`` tokens
 and decodes ``--gen-len`` steps in lockstep; ``--continuous`` serves a
@@ -33,7 +34,12 @@ age its drafter on a virtual clock under the fidelity ladder;
 restores them on a hit; ``--priority K`` gives every Kth request priority
 1, which may preempt a running slot to host memory).  The engine demos
 take ``--async-serve`` (the dispatch/drain pipeline of
-``launch/async_engine.py`` over bucketed prefill), ``--telemetry`` (latency percentiles and phase walls; the event
+``launch/async_engine.py`` over bucketed prefill), ``--mesh DP,TP``
+(serve on a ("data", "model") mesh of DP * TP ranks under the
+``--mesh-rules`` table, default ``serve_exact``: the CLI spawns its ranks
+unless it already runs under ``torchrun``, and rank 0 prints the same
+per-request tokens as the command without ``--mesh``; backends in
+``launch/mesh.py``), ``--telemetry`` (latency percentiles and phase walls; the event
 trace as JSONL with ``--trace-out``, a ``torch.profiler`` trace of the
 first N ticks with ``--profile-ticks``) and ``--metrics`` (the registry
 as Prometheus text).  A config whose ``kv_cache_dtype`` names
@@ -52,6 +58,8 @@ in ``repro``).
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
@@ -62,6 +70,8 @@ from ..core.drift import DriftModel
 from ..core.engine import NLDPEConfig, OFF
 from ..models import lm
 from ..obs import Telemetry
+from ..parallel import sharding
+from . import mesh as mesh_lib
 from .engine import PagedServeEngine, Request, ServeEngine
 from .fidelity import DriftInjection, FidelityPolicy
 
@@ -162,12 +172,20 @@ def _validate_args(p: argparse.ArgumentParser, args) -> None:
     if bad and not args.paged:
         p.error(f"--{bad[0].replace('_', '-')} requires --paged "
                 f"(the lockstep/--continuous paths ignore it)")
-    bad = [n for n in ("slots", "requests", "telemetry", "trace_out",
-                       "profile_ticks", "metrics", "async_serve")
+    bad = [n for n in ("slots", "requests", "mesh", "mesh_rules",
+                       "telemetry", "trace_out", "profile_ticks", "metrics",
+                       "async_serve")
            if moved(n)]
     if bad and not engine:
         p.error(f"--{bad[0].replace('_', '-')} requires an engine demo "
                 f"(--continuous or --paged); the lockstep path ignores it")
+    if moved("mesh_rules") and not args.mesh:
+        p.error("--mesh-rules requires --mesh DP,TP")
+    if args.mesh and (args.async_serve or args.drift is not None
+                      or args.fault_rate):
+        p.error("--mesh serves the tick loop without drift injection; the "
+                "async pipeline and the drifting drafter under a mesh are "
+                "not ported yet (ROADMAP.md A.2)")
     if moved("profile_dir") and not args.profile_ticks:
         p.error("--profile-dir requires --profile-ticks N")
     if (args.drift is not None or args.fault_rate) and not args.spec:
@@ -247,6 +265,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "(accelerated aging clock; default 60)")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--requests", type=int, default=12)
+    p.add_argument("--mesh", type=_mesh_shape, default=None,
+                   metavar="DP,TP",
+                   help="serve --continuous/--paged on a (data, model) "
+                        "mesh of DP*TP ranks, e.g. 2,2 (spawned here, or "
+                        "torchrun's); tokens are the unsharded command's")
+    p.add_argument("--mesh-rules", default=None,
+                   choices=sorted(sharding.SERVE_TABLES),
+                   help="sharding rule table for --mesh (default "
+                        "serve_exact, heads and slots split; "
+                        "serve_dshard_exact splits slots only; both "
+                        "bit-identical to unsharded)")
     p.add_argument("--telemetry", action="store_true",
                    help="per-request latency tracing + phase timers for "
                         "--continuous/--paged (DESIGN.md §12): TTFT/TPOT/"
@@ -336,11 +365,44 @@ def _report_obs(eng, args) -> None:
         print(eng.metrics.prometheus_text(), end="")
 
 
+def _mesh_shape(text: str) -> tuple[int, int]:
+    try:
+        dp, tp = (int(v) for v in text.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh takes DP,TP (two integers), got {text!r}") from None
+    if dp < 1 or tp < 1:
+        raise argparse.ArgumentTypeError("--mesh DP,TP must be >= 1")
+    return dp, tp
+
+
+def _rank_run(argv, device):
+    """One spawned rank of ``--mesh``: the CLI again, inside the process
+    group (``device``, the rank's, is found again from ``--device``)."""
+    return run(argv)
+
+
 def run(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
     _validate_args(p, args)
-    device = torch.device(args.device) if args.device else None
+    mesh = None
+    if args.mesh:
+        dp, tp = args.mesh
+        if not mesh_lib.in_process_group():
+            # spawn the ranks; each runs this command inside the group
+            out = mesh_lib.run_ranks(
+                _rank_run, dp * tp,
+                (sys.argv[1:] if argv is None else list(argv),),
+                device=args.device or "cuda")
+            return out[0]
+        mesh = mesh_lib.serve_mesh(dp, tp, mesh_lib.rank_device(
+            torch.device(args.device or "cuda"), mesh_lib.world_rank(),
+            dp * tp))
+        if mesh.rank:
+            sys.stdout = open(os.devnull, "w")   # rank 0 reports
+    device = (mesh.device if mesh is not None
+              else torch.device(args.device) if args.device else None)
     tel = None
     if args.telemetry or args.trace_out or args.profile_ticks:
         tel = Telemetry(profile_ticks=args.profile_ticks,
@@ -388,7 +450,8 @@ def run(argv=None):
                                    enabled=args.spec_full_analog),
                                drift=drift, fidelity=fidelity,
                                kv_quant=args.kv_quant, device=device,
-                               telemetry=tel,
+                               telemetry=tel, mesh=mesh,
+                               rules=args.mesh_rules,
                                prefill_buckets=args.async_serve or None)
         runner = _runner(eng, args)
         t0 = time.perf_counter()
@@ -436,6 +499,7 @@ def run(argv=None):
                 for i in range(args.requests)]
         eng = ServeEngine(cfg, params, max_slots=args.slots, max_len=max_len,
                           nldpe=nldpe, device=device, telemetry=tel,
+                          mesh=mesh, rules=args.mesh_rules,
                           prefill_buckets=args.async_serve or None)
         runner = _runner(eng, args)
         t0 = time.perf_counter()
@@ -446,6 +510,10 @@ def run(argv=None):
         return _lockstep(args, cfg, params, nldpe, rng, max_len)
     _report_async(runner, eng, args)
     _report_obs(eng, args)
+    if mesh is not None:
+        print(f"  mesh: {args.mesh} over ('data', 'model'), rules "
+              f"{eng.rules.name}, backend "
+              f"{mesh_lib.describe_backend(mesh.backend, mesh.device)}")
     if eng.moe_stats:
         m = eng.moe_stats
         print(f"  moe: {m['dropped_prefill']} live assignments dropped "

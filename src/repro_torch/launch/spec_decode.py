@@ -117,9 +117,11 @@ def speculative_accept(drafts, q_probs, vlogits, temperature, top_k, keys,
     return accepted.to(torch.int32), correction
 
 
-def build_draft_scan_fn(cfg, *, spec_k: int, nldpe: NLDPEConfig):
+def build_draft_scan_fn(cfg, *, spec_k: int, nldpe: NLDPEConfig,
+                        batch_groups: int = 1):
     """The draft phase: ``spec_k`` sequential low-precision decode steps
-    against the paged cache.
+    against the paged cache (``batch_groups``: each MoE layer's routing
+    groups).
 
     draft(draft_params, cache, tok, pos, active, temp, topk, keys) ->
     (drafts (S, k) int32, q_probs (S, k, V)); the cache updates in
@@ -129,7 +131,8 @@ def build_draft_scan_fn(cfg, *, spec_k: int, nldpe: NLDPEConfig):
         drafts, q_probs = [], []
         for _ in range(spec_k):
             logits = lm.decode_step(draft_params, cfg, tok, pos, cache,
-                                    nldpe=nldpe, write_mask=active)
+                                    nldpe=nldpe, write_mask=active,
+                                    batch_groups=batch_groups)
             q = target_probs(logits, temp, topk)
             tok = sample_from_probs(spec_fold(keys, pos + 1, DRAFT_STREAM), q)
             pos = pos + 1
@@ -141,7 +144,7 @@ def build_draft_scan_fn(cfg, *, spec_k: int, nldpe: NLDPEConfig):
 
 
 def build_verify_fn(cfg, params, *, spec_k: int, nldpe: NLDPEConfig = OFF,
-                    eos_id: int = -1):
+                    eos_id: int = -1, batch_groups: int = 1):
     """The digital half of one spec step: the exact verify chunk, the
     rejection sampling, then the state update (eos and generation-budget
     truncation, position advance, rollback clip).
@@ -160,7 +163,7 @@ def build_verify_fn(cfg, params, *, spec_k: int, nldpe: NLDPEConfig = OFF,
         ar = torch.arange(k + 1, dtype=torch.int32, device=tok.device)
         vlogits = lm.forward(params, x, cfg, mode="chunk", cache=cache,
                              positions=pos[:, None] + ar, nldpe=nldpe,
-                             write_mask=active)
+                             write_mask=active, batch_groups=batch_groups)
         accepted, correction = speculative_accept(
             drafts, q_probs, vlogits, temp, topk, keys, pos)
 

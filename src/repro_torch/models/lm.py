@@ -18,7 +18,9 @@ groups, the port loops over layers in Python.
 
 The model cache keeps one stack per kind of layer state, each stacked on
 a leading layer axis in run order (``cache_slots`` maps a layer onto its
-stack and row):
+stack and row).  Code outside this module reaches a stack by its name
+through ``stacks(cache)`` ("full", "ring", "rec", "rwkv"), and
+``cache_pspecs`` gives one placement tree per stack:
 
 * the **full-length** attention layers (``attn``, ``global``, ``moe``) at
   the top level, as the ``("attn",)`` models have always had it:
@@ -75,10 +77,11 @@ from ..nn.attention import (AttnSpec, attn_apply, init_cache, kv_leaves,
                             write_plan)
 from ..nn.basic import embedding_apply, rmsnorm_apply, unembed_apply
 from ..nn.mlp import mlp_apply
-from ..nn.moe import may_drop, moe_apply
+from ..nn.moe import group_tokens, may_drop, moe_apply
 from ..nn.rglru import recurrent_block_apply, recurrent_state_init
 from ..nn.rwkv6 import (HEAD_SIZE, channelmix_apply, rwkv_state_init,
                         timemix_apply)
+from ..parallel.context import current
 
 ATTN_TYPES = ("attn", "local", "global", "moe")
 BLOCK_TYPES = ("attn", "local", "global", "moe", "rec", "rwkv")
@@ -278,8 +281,7 @@ def serving_params(params: dict, cfg, nldpe: NLDPEConfig = OFF) -> dict:
     up projection of a non-gated one (MusicGen's plain GELU MLP; the MoE's
     expert gates never reach that kernel, so they are cast too)."""
     act = cfg.activation_dtype
-    fused = (nldpe.enabled and nldpe.acam_activations
-             and nldpe.fused_dual_compute)
+    fused = nldpe.fused_linear
 
     def cast(tree, keep=()):
         if isinstance(tree, dict):
@@ -361,19 +363,74 @@ def init_model_cache(cfg, batch: int, max_len: int, *,
     return cache
 
 
+def cache_pspecs(cfg, batch: int, max_len: int, mesh, rules, *,
+                 slotted: bool = False, ring_slack: int = 0,
+                 paged: tuple[int, int] | None = None) -> dict:
+    """The placement of every cache leaf, as a tree mirroring
+    ``init_model_cache`` (the same arguments): one spec tree per stack —
+    ``nn.attention.cache_specs`` for the attention stacks (their quantized
+    pools' scales included), the batch and the "mlp"/"heads" axes for the
+    RG-LRU and RWKV6 states — each leaf ``repro``'s ``cache_pspecs`` of
+    the same layer behind the stack's layer axis."""
+    from ..nn.attention import cache_specs
+    from ..parallel.sharding import Spec, resolve
+
+    def stacked(axes, shape):
+        return Spec((None, *resolve(rules, axes, shape, mesh)))
+
+    first = {}
+    for btype, *_ in layer_order(cfg):
+        first.setdefault(_stack_of(cfg, btype), btype)
+    out: dict = {}
+    if "full" in first:
+        out.update(cache_specs(attn_spec(cfg, first["full"]), batch,
+                               max_len, mesh, rules, slotted=slotted,
+                               paged=paged))
+    if "ring" in first:
+        out["ring"] = cache_specs(attn_spec(cfg, first["ring"]), batch,
+                                  max_len, mesh, rules, slotted=slotted,
+                                  ring_slack=ring_slack)
+    if "rec" in first:
+        dr = cfg.d_rnn or cfg.d_model
+        out["rec"] = {"h": stacked(("batch", "mlp"), (batch, dr)),
+                      "conv": stacked(("batch", None, "mlp"),
+                                      (batch, CONV_WIDTH - 1, dr))}
+    if "rwkv" in first:
+        d = cfg.d_model
+        row = stacked(("batch", None), (batch, d))
+        out["rwkv"] = {"tm": {"S": stacked(("batch", "heads", None, None),
+                                           (batch, d // HEAD_SIZE,
+                                            HEAD_SIZE, HEAD_SIZE)),
+                              "x_last": row},
+                       "cm_x": row}
+    return out
+
+
+STACKS = ("full", "ring", "rec", "rwkv")
+
+
 def stacks(cache: dict) -> dict:
-    """The attention stacks of a model cache by name ("full", "ring")."""
+    """Every stack of a model cache by name ("full", "ring", "rec",
+    "rwkv"; the module docstring's layout).  The full-length stack is the
+    cache's top-level tensors (a new dict over the same tensors: in-place
+    writes land in the cache)."""
     out = {}
     if "pos" in cache:
-        out["full"] = cache
-    if "ring" in cache:
-        out["ring"] = cache["ring"]
+        out["full"] = {k: v for k, v in cache.items() if torch.is_tensor(v)}
+    for name in STACKS[1:]:
+        if name in cache:
+            out[name] = cache[name]
     return out
+
+
+def attention_stacks(cache: dict) -> dict:
+    """The attention stacks ("full", "ring") of a model cache by name."""
+    return {k: v for k, v in stacks(cache).items() if k in ("full", "ring")}
 
 
 def position_tracks(cache: dict) -> list:
     """Every attention stack's position track."""
-    return [st["pos"] for st in stacks(cache).values()]
+    return [st["pos"] for st in attention_stacks(cache).values()]
 
 
 def layer_cache(stack: dict, i: int) -> dict:
@@ -396,11 +453,13 @@ def apply_block(p: dict, cfg, btype: str, x: torch.Tensor, *,
                 moe_drops: torch.Tensor | None = None,
                 moe_live: torch.Tensor | None = None,
                 dense_rows: torch.Tensor | None = None,
-                prefix_len: int | None = None) -> torch.Tensor:
+                prefix_len: int | None = None,
+                groups: int = 1) -> torch.Tensor:
     """One block: x (B, S, d) -> x.  ``cache`` is the layer's view of its
     attention stack (written in place at ``plan``) or, for ``rec`` and
     ``rwkv``, its state (views of the stack, overwritten in place).
-    ``dense_rows`` and ``prefix_len``: see ``nn.attention.attn_apply``."""
+    ``dense_rows`` and ``prefix_len``: see ``nn.attention.attn_apply``;
+    ``groups``: the MoE routing groups (``nn.moe.moe_apply``)."""
     if btype in ("rec", "rwkv") and mode == "chunk":
         raise NotImplementedError("chunked serve prefill supports "
                                   f"attention blocks only (got '{btype}')")
@@ -421,8 +480,8 @@ def apply_block(p: dict, cfg, btype: str, x: torch.Tensor, *,
     x = x + a.to(x.dtype)
     h2 = rmsnorm_apply(p["norm2"], x)
     if btype == "moe":
-        f = moe_apply(p["ffn"], h2, cfg.moe, act=cfg.act, nldpe=nldpe,
-                      drops=moe_drops, live=moe_live)
+        f = moe_apply(p["ffn"], h2, cfg.moe, act=cfg.act, groups=groups,
+                      nldpe=nldpe, drops=moe_drops, live=moe_live)
     else:
         f = mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe)
     return x + f.to(x.dtype)
@@ -456,7 +515,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
             nldpe: NLDPEConfig = OFF, write_mask=None,
             moe_drops: torch.Tensor | None = None,
             moe_live: torch.Tensor | None = None,
-            patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+            patch_embeds: torch.Tensor | None = None,
+            batch_groups: int = 1) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) float32; ``cache`` updates in place.
 
     ``repro``'s modes: "train" (the whole sequence, differentiable, no
@@ -468,7 +528,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
     ``patch_embeds`` (B, P, d), "train" and "prefill" only, into no cache
     or a lockstep one: an image prefix before the tokens (the module
     docstring); the logits then cover P + S positions, at default
-    positions ``arange(P + S)``."""
+    positions ``arange(P + S)``.  ``batch_groups`` splits each MoE layer's
+    tokens into that many routing groups (``nn.moe.moe_apply``).
+
+    Under a sharding context (``parallel.context.sharding_ctx``) the
+    tensors are this rank's shards: rows split over the rules' "batch"
+    axes when the context names the global batch, heads and FFN columns
+    over "model"; the attention and FFN layers gather at their
+    contraction boundaries (exact tables only) and the logits are this
+    rank's rows.  Recurrent and RWKV6 blocks take no context (their
+    contractions shard under every table; ROADMAP.md A.2)."""
     if mode == "train":
         if nldpe.enabled and nldpe.fused_dual_compute:
             raise NotImplementedError(
@@ -478,7 +547,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
         if cache is not None:
             raise ValueError("mode='train' takes no cache")
     _check_cfg(cfg)
-    attn_stacks = {} if cache is None else stacks(cache)
+    ctx = current()
+    if ctx is not None and any(t in ("rec", "rwkv")
+                               for t in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent and RWKV6 blocks do not run under a "
+            f"mesh yet (their contractions shard under every rule table; "
+            f"ROADMAP.md A.2)")
+    all_stacks = {} if cache is None else stacks(cache)
+    attn_stacks = {} if cache is None else attention_stacks(cache)
     x = embedding_apply(params["embed"], tokens, dtype=cfg.activation_dtype)
     if cfg.embed_scale:
         # repro rounds the scale to the activation dtype first
@@ -506,9 +583,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
     # they compete for expert slots, so they must carry repro's values
     # (nn.attention.attn_apply).  Finding them syncs the device.
     dense_rows = None
+    shards = 1 if ctx is None else ctx.batch_shards()
     if (write_mask is not None and cache is not None and "bt" in cache
             and "moe" in cfg.layer_pattern
-            and may_drop(tokens.numel(), cfg.moe)):
+            and may_drop(group_tokens(tokens.numel() * shards,
+                                      batch_groups), cfg.moe)):
         dense_rows = torch.nonzero(~write_mask).flatten()
         if not dense_rows.numel():
             dense_rows = None
@@ -522,14 +601,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
         st, j = slots[i]
         c = None
         if cache is not None:
-            c = (_index(cache[st], j) if st in ("rec", "rwkv")
+            c = (_index(all_stacks[st], j) if st in ("rec", "rwkv")
                  else layer_cache(attn_stacks[st], j))
         p = params[where][key]
         return apply_block(p if g is None else _index(p, g), cfg, btype, x,
                            positions=positions, mode=mode, cache=c,
                            plan=plans.get(st), nldpe=nldpe,
                            moe_drops=moe_drops, moe_live=moe_live,
-                           dense_rows=dense_rows, prefix_len=prefix_len)
+                           dense_rows=dense_rows, prefix_len=prefix_len,
+                           groups=batch_groups)
 
     remat = mode == "train" and cfg.scan_remat and torch.is_grad_enabled()
     for i in range(len(order)):
@@ -561,12 +641,13 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def decode_step(params: dict, cfg, token: torch.Tensor, pos, cache: dict,
                 nldpe: NLDPEConfig = OFF, write_mask=None,
-                moe_drops: torch.Tensor | None = None) -> torch.Tensor:
+                moe_drops: torch.Tensor | None = None,
+                batch_groups: int = 1) -> torch.Tensor:
     """token (B,); pos () shared (lockstep cache) or (B,) per slot ->
     logits (B, V)."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
     logits = forward(params, token[:, None], cfg, mode="decode", cache=cache,
                      positions=positions, nldpe=nldpe, write_mask=write_mask,
-                     moe_drops=moe_drops)
+                     moe_drops=moe_drops, batch_groups=batch_groups)
     return logits[:, 0]

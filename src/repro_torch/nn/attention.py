@@ -63,6 +63,16 @@ Attention paths of ``attn_apply``:
   routes with the band or ``blockwise_attention`` in place of kernel F
   (F has no backward); nothing trains under ``FUSED``
   (``models.lm.forward`` refuses it).
+
+Under a sharding context (``parallel.context``) the weights, caches and
+rows are this rank's shards: q, k, v hold its heads ("heads",
+"kv_heads"; where the kv heads do not divide "model", every rank gathers
+all query heads so each GQA group stays whole), kernel A launches on
+those shards, the output heads gather before the output projection
+("o_heads", the exact tables' contraction boundary), and a paged pool —
+every page on every rank of a row split — takes every rank's writes
+(``paged_write_plan`` and ``update_cache_paged`` gather them).
+``cache_specs`` gives a stack's placements.
 """
 from __future__ import annotations
 
@@ -75,7 +85,10 @@ from ..core.engine import NLDPEConfig, OFF
 from ..core.quantization import (KV_LOG_SPEC, KV_QUANT_MODES, kv_decode,
                                  scalar_div)
 from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.paged_attention.ops import paged_attention
+from ..kernels.paged_attention.ops import (paged_attention,
+                                           paged_attention_sharded,
+                                           shard_specs)
+from ..parallel.context import current, gather_rows, shard
 from .basic import apply_rope, rmsnorm_apply
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -162,6 +175,56 @@ def kv_leaves(kv_shape: tuple, dtype, kv_quant: str | None,
                                    device=device),
             "v_scale": torch.zeros(kv_shape[:-1], dtype=torch.float32,
                                    device=device)}
+
+
+def cache_specs(s: AttnSpec, batch: int, max_len: int, mesh, rules, *,
+                slotted: bool = False, ring_slack: int = 0,
+                paged: tuple[int, int] | None = None) -> dict:
+    """The placement (``parallel.sharding.Spec``) of every leaf of one
+    attention stack, mirroring ``init_cache`` / the paged stack of
+    ``models.lm.init_model_cache`` (``repro``'s ``cache_specs`` and the
+    dense branch of its ``lm.cache_pspecs``): K/V and scales lead with
+    the stack's layer axis (never split).  Paged pools split their head
+    axis over the rules' "kv_heads" and their pages over "pages"
+    (replicated under the serve tables: any slot may gather any page);
+    the position track and block table split their slots over "slots".
+    Dense K/V prefer kv-head splitting and fall back to the sequence
+    ("kv_seq") where the kv heads do not divide "model"."""
+    from ..parallel.sharding import Spec, resolve
+
+    def stacked(sp):
+        return Spec((None, *sp))
+
+    if paged is not None:
+        num_pages, page_size = paged
+        n_blocks = -(-max_len // page_size)
+        kv_shape = (num_pages, s.n_kv_heads, page_size, s.head_dim)
+        kv = stacked(resolve(rules, ("pages", "kv_heads", None, None),
+                             kv_shape, mesh))
+        tree = {"k": kv, "v": kv,
+                "pos": resolve(rules, ("slots", None), (batch, max_len),
+                               mesh),
+                "bt": resolve(rules, ("slots", None), (batch, n_blocks),
+                              mesh)}
+        if s.kv_quant is not None:
+            sc = stacked(resolve(rules, ("pages", "kv_heads", None),
+                                 kv_shape[:3], mesh))
+            tree.update(k_scale=sc, v_scale=sc)
+        return tree
+    length = cache_length(s, max_len, ring_slack)
+    kv_shape = (batch, s.n_kv_heads, length, s.head_dim)
+    model = mesh.shape.get("model", 1) if mesh is not None else 1
+    kv_axes = (("batch", "kv_heads", None, None)
+               if s.n_kv_heads % model == 0 else
+               ("batch", None, "kv_seq", None))
+    kv = stacked(resolve(rules, kv_axes, kv_shape, mesh))
+    tree = {"k": kv, "v": kv,
+            "pos": (resolve(rules, ("slots", None), (batch, length), mesh)
+                    if slotted else Spec())}
+    if s.kv_quant is not None:
+        sc = stacked(resolve(rules, kv_axes[:3], kv_shape[:3], mesh))
+        tree.update(k_scale=sc, v_scale=sc)
+    return tree
 
 
 def _quantize_kv(x: torch.Tensor, mode: str = "int8"):
@@ -287,8 +350,21 @@ def paged_write_plan(cache: dict, pos: torch.Tensor, write_mask=None):
     bi, ci = torch.nonzero(ok, as_tuple=True)
     kept = pos[bi, ci]
     cache["pos"][bi, kept.long()] = kept
+    if _rows_split():
+        # the pools hold every page on every rank of the row split (any
+        # slot may share any page): every rank writes every row's K/V
+        pos, page, ok = (gather_rows(t) for t in (pos, page, ok))
+        bi, ci = torch.nonzero(ok, as_tuple=True)
+        kept = pos[bi, ci]
     return (bi, ci, page[bi, ci].long(),
             torch.remainder(kept, page_size).long())
+
+
+def _rows_split() -> bool:
+    """Whether the forward's rows are split over ranks (the sharding
+    context's batch axes)."""
+    ctx = current()
+    return ctx is not None and bool(ctx.batch_axes())
 
 
 def update_cache_paged(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -296,7 +372,10 @@ def update_cache_paged(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     """Write one layer's new K/V (B, H, C, D) into its pools (and scale
     pools), in place, at the lines ``paged_write_plan`` chose."""
     bi, ci, pg, off = plan
-    for name, new in _stored(cache, k_new, v_new, kv_quant).items():
+    stored = _stored(cache, k_new, v_new, kv_quant)
+    if _rows_split():
+        stored = {n: gather_rows(t) for n, t in stored.items()}
+    for name, new in stored.items():
         cache[name][pg, :, off] = new[bi, :, ci]
 
 
@@ -580,6 +659,19 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
     on that route and replace kernel A's.
     """
     q, k, v = _project_qkv(p, s, x, positions)
+    ctx, heads = current(), (s.n_heads, s.n_kv_heads)
+    if ctx is not None:
+        # this rank's heads on every route, at kernel A's placement: where
+        # it replicates the heads (the kv heads do not divide "model")
+        # but the query heads arrive split, every rank attends with all of
+        # them (the GQA group stays whole)
+        if not shard_specs(x.shape[0], *heads, ctx.mesh,
+                           ctx.rules)["q"].axes_of(1):
+            q = shard(q, "batch", None, None, None,
+                      src=("batch", "heads", None, None),
+                      full=(None, s.n_heads, None, None))
+        s = dataclasses.replace(s, n_heads=q.shape[1],
+                                n_kv_heads=k.shape[1])
     if mode in ("train", "prefill"):
         if positions.ndim != 1:
             raise ValueError(f"{mode} takes shared positions (S,)")
@@ -596,13 +688,19 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
         if "bt" in cache and not nldpe.enabled and s.softcap is None:
             # the queries sit at consecutive per-slot offsets, so query j
             # of slot b attends to [0, positions[b, 0] + j]: the kernel's
-            # ragged staircase with base lengths positions[:, 0] + 1
+            # ragged staircase with base lengths positions[:, 0] + 1.
+            # Under a mesh q, the pools and the table are this rank's
+            # shards: kernel A launches once per shard
             lengths = torch.clamp(positions[:, 0] + 1, 1,
                                   cache["pos"].shape[1]).to(torch.int32)
-            o = paged_attention(q, cache["k"], cache["v"], cache["bt"],
-                                lengths, k_scale=cache.get("k_scale"),
-                                v_scale=cache.get("v_scale"),
-                                kv_quant=s.kv_quant).to(q.dtype)
+            kw = dict(k_scale=cache.get("k_scale"),
+                      v_scale=cache.get("v_scale"), kv_quant=s.kv_quant)
+            args = (q, cache["k"], cache["v"], cache["bt"], lengths)
+            o = (paged_attention(*args, **kw) if ctx is None else
+                 paged_attention_sharded(*args, ctx.mesh, ctx.rules,
+                                         n_heads=heads[0],
+                                         n_kv_heads=heads[1], **kw)
+                 ).to(q.dtype)
             if dense_rows is not None:
                 sub = {**cache, "pos": cache["pos"][dense_rows],
                        "bt": cache["bt"][dense_rows]}
@@ -618,4 +716,10 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
                 o = cached_attention(q, att, qpos, s)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
+    # contraction boundary: under the exact tables "o_heads" replicates,
+    # so the head shards all-gather (concatenation, bit-exact) before the
+    # output projection
+    o = shard(o, "batch", "o_heads", None, None,
+              src=("batch", "heads", None, None),
+              full=(None, p["wo"].shape[0], None, None))
     return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(o.dtype))

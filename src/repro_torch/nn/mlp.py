@@ -5,17 +5,30 @@ from __future__ import annotations
 import torch
 
 from ..core.engine import NLDPEConfig, OFF
+from ..parallel.context import global_absmax, shard
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str = "silu",
               nldpe: NLDPEConfig = OFF) -> torch.Tensor:
     """Gated SiLU MLP: down(act(x @ gate) * (x @ up)).  Under ``FUSED`` the
     gate Linear + ACAM activation is one crossbar->ACAM kernel pass and the
-    product is a log-domain DMMul."""
+    product is a log-domain DMMul.
+
+    Under a sharding context the gate and up hold this rank's d_ff
+    columns ("mlp"), so kernel B runs on the column shard, programmed
+    against the whole weight's largest magnitude (an all-reduce max: each
+    column's conductances are the unsharded weight's); the contraction
+    boundary ("mlp_in", replicated under the exact tables) gathers the
+    columns before the down projection."""
+    d_ff = p["down"].shape[0]
+    w = p["gate"] if "gate" in p else p["up"]
+    w_max = global_absmax(w, d_ff) if nldpe.fused_linear else None
     if "gate" in p:
         h = x @ p["up"].to(x.dtype)
-        g = nldpe.linear_activation(x, p["gate"], act)
+        g = nldpe.linear_activation(x, w, act, w_max=w_max)
         h = nldpe.elementwise_mul(g, h)
     else:
-        h = nldpe.linear_activation(x, p["up"], act)
+        h = nldpe.linear_activation(x, w, act, w_max=w_max)
+    h = shard(h, "batch", None, "mlp_in", src=("batch", None, "mlp"),
+              full=(None, None, d_ff))
     return h.to(x.dtype) @ p["down"].to(x.dtype)

@@ -39,6 +39,8 @@ import torch
 
 from ..core.engine import NLDPEConfig, OFF
 from ..core.noise import clip
+from ..parallel.context import current, gather_rows, shard
+from ..parallel.sharding import Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +61,12 @@ def _capacity(tokens_per_group: int, s: MoESpec) -> int:
         return tokens_per_group * s.top_k
     c = math.ceil(tokens_per_group * s.top_k / s.n_experts * s.capacity_factor)
     return max(min(c, tokens_per_group * s.top_k), s.min_capacity)
+
+
+def group_tokens(tokens: int, groups: int) -> int:
+    """Tokens per routing group: ``groups`` groups where they divide
+    ``tokens``, else one."""
+    return tokens // (groups if tokens % groups == 0 else 1)
 
 
 def may_drop(tokens: int, s: MoESpec) -> bool:
@@ -127,10 +135,14 @@ def expert_ffn(p: dict, xb: torch.Tensor, act: str = "silu",
                nldpe: NLDPEConfig = OFF) -> torch.Tensor:
     """The experts' gated FFN over their buffer slots: xb (E, slots, d) ->
     (E, slots, d), one batched matmul per projection (``repro``'s
-    ``jnp.einsum``s), in xb's dtype."""
+    ``jnp.einsum``s), in xb's dtype.  Under a sharding context the gate
+    and up hold this rank's expert-FFN columns ("mlp"); the contraction
+    boundary gathers them before the down projection ("mlp_in")."""
     hg = torch.bmm(xb, p["gate"].to(xb.dtype))
     hu = torch.bmm(xb, p["up"].to(xb.dtype))
     h = nldpe.elementwise_mul(nldpe.activation(hg, act), hu).to(xb.dtype)
+    h = shard(h, "experts", None, "mlp_in", src=("experts", None, "mlp"),
+              full=(None, None, p["down"].shape[1]))
     return torch.bmm(h, p["down"].to(xb.dtype))
 
 
@@ -142,11 +154,36 @@ def moe_apply(p: dict, x: torch.Tensor, s: MoESpec, act: str = "silu",
     routing groups (one group when it does not divide them).  ``drops``
     ((2,) int64 on x's device) gains the assignments dropped for capacity:
     those of the tokens ``live`` marks ((B, S) bool; default every token)
-    at 0, the others' (padding rows, whose outputs are discarded) at 1."""
+    at 0, the others' (padding rows, whose outputs are discarded) at 1.
+
+    Under a sharding context whose rows are split (``"expert_group"``
+    follows the batch), each rank routes its own groups when the group
+    count splits with the rows; otherwise the groups span ranks, and every
+    rank gathers the rows, routes them all and keeps its own.  ``drops``
+    counts this rank's rows only (the engines sum the ranks)."""
     b, seq, d = x.shape
-    t = b * seq
+    ctx = current()
+    shards = 1 if ctx is None else ctx.batch_shards()
+    t = b * seq * shards
     g = groups if t % groups == 0 else 1
-    tg = t // g
+    if shards > 1 and g % shards:
+        out, lost = _moe(p, gather_rows(x), s, act, g, nldpe)
+        rows = Spec((ctx.batch_axes(),))
+        out, lost = rows.local(out, ctx.mesh), rows.local(lost, ctx.mesh)
+    else:
+        out, lost = _moe(p, x, s, act, g // shards, nldpe)
+    if drops is not None:
+        n_live = torch.sum(lost if live is None else lost * live)
+        drops.add_(torch.stack([n_live, torch.sum(lost) - n_live]))
+    return out
+
+
+def _moe(p: dict, x: torch.Tensor, s: MoESpec, act: str, g: int,
+         nldpe: NLDPEConfig):
+    """``moe_apply`` over ``g`` groups of x's rows: (out (B, S, d), the
+    dropped assignments of each token (B, S))."""
+    b, seq, d = x.shape
+    tg = b * seq // g
     cap = _capacity(tg, s)
     n_e = s.n_experts
     xt = x.reshape(g, tg, d)
@@ -154,10 +191,7 @@ def moe_apply(p: dict, x: torch.Tensor, s: MoESpec, act: str = "silu",
     # routing: the router softmax runs on the ACAM softmax when enabled
     probs = nldpe.softmax(router_logits(p, xt), axis=-1)
     r = route(probs, s, cap)
-    if drops is not None:
-        lost = torch.sum(~r["kept"].reshape(b, seq, s.top_k), dim=-1)
-        n_live = torch.sum(lost if live is None else lost * live)
-        drops.add_(torch.stack([n_live, torch.sum(lost) - n_live]))
+    lost = torch.sum(~r["kept"].reshape(b, seq, s.top_k), dim=-1)
 
     # dispatch: buffer slot (e, c) <- sorted position starts[e] + c
     rows = torch.arange(g, device=x.device)[:, None]
@@ -173,7 +207,7 @@ def moe_apply(p: dict, x: torch.Tensor, s: MoESpec, act: str = "silu",
     vals = vals * r["kept"][..., None].to(x.dtype)
     vals = vals.reshape(g, tg, s.top_k, d) \
         * r["gate_vals"][..., None].to(x.dtype)
-    return torch.sum(vals, dim=2).reshape(b, seq, d)
+    return torch.sum(vals, dim=2).reshape(b, seq, d), lost
 
 
 def load_balance_loss(logits: torch.Tensor, expert_idx: torch.Tensor,

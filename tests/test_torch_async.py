@@ -402,7 +402,7 @@ def test_async_drain_depth_validation():
     ["--continuous", "--python-loop"],
     ["--paged", "--batch", "2"],
     ["--paged", "--drift", "0.5"],           # drift without --spec
-    ["--paged", "--mesh", "1,1"],            # not in the port
+    ["--mesh", "1,1"],                       # engine flag, lockstep path
 ])
 def test_async_serve_cli_rejects_incoherent_flags(argv):
     from repro_torch.launch import serve

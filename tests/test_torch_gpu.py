@@ -2018,3 +2018,77 @@ def test_logdomain_flash_head_dim_256_plan_matches_the_kernel_layout(dev):
                 assert name == "resident" and lk > 352
                 continue
             assert lib.logdomain_flash_smem_bytes(i, 256, lk) == pl.smem
+
+
+class _ShardAt:
+    """A mesh as kernel A's and B's per-shard launches read it: axis
+    sizes and this shard's coordinates."""
+
+    def __init__(self, dp, tp, d, m):
+        self.shape = {"data": dp, "model": tp}
+        self.coords = {"data": d, "model": m}
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (1, 4)], ids=str)
+@pytest.mark.parametrize("q_len", [1, 5, 64], ids=["decode", "verify",
+                                                   "chunk"])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", [(8, 16, 2, 512, 64, 16, 128),
+                                   (8, 40, 8, 512, 64, 16, 128)],
+                         ids=["qwen3b", "llama4scout"])
+def test_paged_attention_per_shard_is_the_unsharded_slice(dev, shape, pool,
+                                                          q_len, mesh):
+    """Kernel A launched once per shard on each shard's cut of the
+    operands at ``shard_specs``'s placement (its heads, its sequences,
+    every page) equals the unsharded call's slice bit for bit: ``plan``
+    reads neither the batch nor the kv head count.  Where the mesh's
+    "model" does not divide the kv heads the shards replicate them."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention_sharded, shard_specs)
+    from repro_torch.parallel.sharding import serve_exact_rules
+    rng = np.random.default_rng(5)
+    dtype = torch.bfloat16 if pool == "bfloat16" else torch.float32
+    args = _paged_case(rng, *shape, q_len, dtype, dev)
+    kw = {}
+    if pool == "int8":
+        args, kw = _code_pools(args, "int8")
+    full = paged_attention(*args, **kw)
+    rules = serve_exact_rules()
+    dp, tp = mesh
+    before = paged_attention.launches
+    for d in range(dp):
+        for m in range(tp):
+            at = _ShardAt(dp, tp, d, m)
+            sp = shard_specs(shape[0], shape[1], shape[2], at, rules)
+            local = [sp[name].local(t, at).contiguous() for t, name in
+                     zip(args, ("q", "pool", "pool", "table", "table"))]
+            got = paged_attention_sharded(
+                *local, at, rules, n_heads=shape[1], n_kv_heads=shape[2],
+                **{k: (v if k == "kv_quant" else
+                       sp["pool"].local(v, at).contiguous())
+                   for k, v in kw.items()})
+            assert torch.equal(got, sp["q"].local(full, at)), (d, m)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + dp * tp
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("m", [1, 8, 512])
+def test_fused_crossbar_acam_per_column_shard(dev, m, tp):
+    """Kernel B on each column shard of the gate, programmed against the
+    whole weight's largest magnitude, equals the unsharded call's columns
+    bit for bit (no ACAM code flips): every tile sums an output as one
+    fmaf chain in k order."""
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.normal(size=(m, 2048)), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.normal(size=(2048, 11008)) * 2048 ** -0.5,
+                     dtype=torch.float32, device=dev)
+    full = fused_linear_acam(x, w, "silu")
+    w_max = torch.amax(torch.abs(w))
+    n = w.shape[1] // tp
+    for i in range(tp):
+        cols = slice(i * n, (i + 1) * n)
+        got = fused_linear_acam(x, w[:, cols].contiguous(), "silu",
+                                w_max=w_max)
+        assert torch.equal(got, full[:, cols]), i

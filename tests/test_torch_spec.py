@@ -507,10 +507,20 @@ def test_spec_engine_validates_and_refuses_unported_options():
     with pytest.raises(ValueError, match="spec_k"):
         PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                          spec_k=-1, device="cpu")
-    for opt in (dict(mesh=object()), dict(rules="serve_exact")):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # meshes are ported: the exact tables serve, a table that shards a
+    # contraction and drift injection under a mesh are refused
+    from repro_torch.launch.fidelity import DriftInjection
+    from repro_torch.launch.mesh import single_device_mesh
+    one = single_device_mesh()
+    for opt, why in ((dict(mesh=one, rules="serve"), "partial sums"),
+                     (dict(mesh=one, drift=DriftInjection()), "drift")):
+        with pytest.raises(NotImplementedError, match=why):
             PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                              spec_k=2, device="cpu", **opt)
+    eng = PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
+                           spec_k=2, device="cpu", mesh=one,
+                           rules="serve_exact")
+    assert eng.rules.name == "serve_exact"
     # the spill tier and prefill buckets are ported: accepted
     eng = PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                            spec_k=2, device="cpu", host_cache_pages=4,
