@@ -22,14 +22,30 @@ Run from the root of a checkout on a machine with a CUDA GPU.  It
    ``[serve mesh]``: 2 ranks on the one card (``launch.mesh.run_ranks``,
    gloo with CUDA tensors: NCCL refuses two ranks on one device) serve
    the paged OFF trace on a (1, 2) mesh over f32 pools, then FUSED (B on
-   each rank's half of the gate columns) and spec 2, then on a (2, 1)
-   mesh: every rank's tokens must be the single-device engine's bit for
-   bit, and each line gives kernel A's (B's) launches per shard, per
-   chunk and per tick; kernel A on each shard of the OFF engine's pools
-   and B on each column half of the gate must equal the unsharded calls'
-   slices bit for bit;
+   each rank's half of the gate columns) and spec 2 under ``serve_exact``,
+   OFF and FUSED under ``serve`` (partial sums over "model", the vocab
+   split; float32 activations), then OFF on a (2, 1) mesh: under the
+   exact table every rank's tokens must be the single-device engine's bit
+   for bit; under ``serve`` the sharded forward's logits must be within
+   ``MESH_LOGIT_TOL`` of a float32 single-device engine's (OFF) and its
+   tokens that engine's but for at most ``MESH_MAX_TIES`` request
+   diverging at a near-tie; each line gives kernel A's and B's launches
+   per shard, per chunk and per tick and the all-gathers and all-reduces
+   per chunk and per tick; kernel A on each shard of the exact OFF
+   engine's pools and B on each column half of the gate must equal the
+   unsharded calls' slices bit for bit; ``[train mesh]``: 2 ranks on the
+   card train full-width Qwen2.5-3B cut to ``TRAIN_MESH_LAYERS`` layers
+   (float32) for two AdamW steps under ``train`` at (1, 2), then
+   ``train_fsdp`` at (2, 1): losses, grad norms, gradients and parameters
+   must be the single-device step's on the card within the CPU tests'
+   tolerances (the second step's gradients and the parameters where no
+   earlier (every) step's gradient was below 1e-6), no port kernel
+   launches, and
+   each rank and step prints its collectives, bytes, wall and peak memory
+   beside the ms of an all-reduce and a reduce-scatter at the step's
+   sizes;
 4. serves a lockstep batch (``launch/serve.py``: whole-prompt prefill,
-   then greedy generation; Qwen2.5-3B cut further, to its first
+   then greedy generation; Qwen2.5-3B cut to its first
    ``CUT_LAYERS`` layers, as in step 5 and ``[train]``) in ``OFF`` numerics — 8
    prompts of 512 tokens,
    32 new tokens, the prefill through the flash-attention kernel (F); the
@@ -185,8 +201,9 @@ C_TOL = 1.0 / 255               # log-domain flash: one exp-grid LSB, as in
                                 # tests/test_fused_dual_compute.py
 U32 = 2.0 ** -24                # float32 unit roundoff
 # [serve spec drift]: the [serve spec] drafter (full width at
-# SERVE_LAYERS layers: 1.5 B cells; 3.09 B at all 36) aging on a virtual clock of DRIFT_DT seconds per spec tick; the values
-# and why are printed with the phase (``drift_settings``)
+# SERVE_LAYERS layers; 3.09 B cells at all 36) aging on a virtual clock of
+# DRIFT_DT seconds per spec tick; the values and why are printed with the
+# phase (``drift_settings``)
 DRIFT_DT = 1.0
 DRIFT_NU = 2.0
 DRIFT_T0 = 500.0
@@ -211,7 +228,7 @@ DRIFT_WHY = ("benchmarks/serve_bench.py's FID_POLICY thresholds around the "
              "virtual s, past the run: it serves with those stuck cells, "
              "which reprogramming keeps")
 # [serve spill]: four system prompts of this many tokens (24 pages each)
-# and a host tier of this many pages (0.59 MB each at SERVE_LAYERS = 18,
+# and a host tier of this many pages (0.26 MB each at SERVE_LAYERS = 8,
 # f32)
 SPILL_SYSTEM = 384
 SPILL_HOST_PAGES = 256
@@ -266,8 +283,10 @@ RGEMMA_F_LEN = 2048
 # Qwen2.5-3B's first this many layers (of 36) in every phase that serves
 # it, so the whole script stays within its time limit on a slow host (all
 # 36 before the [paligemma] and [musicgen] phases came: one host ran the
-# phases in 1117.5 s, 688 s of them these, against 828.9 s on another)
-SERVE_LAYERS = 18
+# phases in 1117.5 s, 688 s of them these, against 828.9 s on another; 18
+# before [train mesh] and the serve table's [serve mesh] cases came, 12
+# until a slow host ran the whole script in 1012 s, 435 s of it these)
+SERVE_LAYERS = 8
 # ... and of those, this many in [serve lockstep OFF], [serve lockstep
 # FUSED], [serve slotted OFF] and [train] (12 before the [qwen3moe] and
 # [rwkv6] phases came)
@@ -656,7 +675,7 @@ def verify_route_deviation(torch, engine, reqs, k: int | None = None
 
 
 def spec_tokens_agree(torch, engine, reqs, got: dict, want: dict,
-                      bound: float, label: str) -> list:
+                      bound: float, label: str, nldpe=None) -> list:
     """Greedy spec tokens against the non-spec phase's for the same
     requests (``want`` may run longer: compare its head).  The verify
     chunk and the decode steps it stands for sum in other orders (kernel
@@ -667,7 +686,9 @@ def spec_tokens_agree(torch, engine, reqs, got: dict, want: dict,
     whole-prompt forward of the non-spec tokens before it, on the
     engine's verify weights) must be below ``bound`` = 2D; the rest of
     that request is then not comparable.  Returns the ties with their
-    margins."""
+    margins.  ``nldpe``: the numerics of that forward (default ``OFF``).
+    """
+    from repro_torch.core.engine import OFF
     from repro_torch.models import lm
     ties = []
     for r in reqs:
@@ -680,13 +701,13 @@ def spec_tokens_agree(torch, engine, reqs, got: dict, want: dict,
                            device="cuda")
         with torch.no_grad():
             top = torch.topk(lm.forward(engine.params, ctx, engine.cfg,
-                                        mode="prefill")[0, -1].float(),
-                             2).values
+                                        mode="prefill", nldpe=nldpe or OFF
+                                        )[0, -1].float(), 2).values
         margin = (top[0] - top[1]).item()
         ties.append({"rid": r.rid, "token": i, "margin": margin})
         check(margin < bound, f"{label}: rid {r.rid} diverges from the "
-              f"non-spec tokens at token {i} with a top-2 margin of "
-              f"{margin}, not below twice the routes' deviation, {bound}")
+              f"reference tokens at token {i} with a top-2 margin of "
+              f"{margin}, not below {bound}")
     return ties
 
 
@@ -1277,17 +1298,41 @@ def serve_async(torch, cfg, params, paged_kw: dict, off: dict,
     return {**summary, "launches": launches}
 
 
-# [serve mesh]: (mesh shape, [(label, numerics, spec_k, make_trace args)]),
-# every shape over the same MESH_RANKS ranks (one spawn)
+# [serve mesh]: (mesh shape, [(label, rule table, numerics, spec_k,
+# make_trace args)]), every shape over the same MESH_RANKS ranks (one
+# spawn).  The exact table's cases must give the single-device phases'
+# tokens bit for bit.  The serve table's (partial sums over "model", a
+# split vocab) run at float32 activations against a float32 single-device
+# engine, as tests/test_torch_mesh_serve.py does.  Paged OFF holds the
+# route (partial sums, the vocab split) to fixed limits: the sharded
+# whole-prompt forward's logits within MESH_LOGIT_TOL of one device's, and
+# at most MESH_MAX_TIES requests of a rank diverging, each where the
+# single-device top-2 margin is below MESH_TIE_MARGIN (the CPU tests'
+# rule).  FUSED runs the same route, but its crossbar and ACAM quantize:
+# a code that the partial sums' last bit moves across a boundary moves
+# the logits by far more (D 0.197 at float32, 3 of 4 requests diverging,
+# NVIDIA H100 80GB HBM3 at 700 W), so its D must stay below
+# MESH_FUSED_D_OF_SCALE of the single-device logits' standard deviation
+# over the vocab (a broken route moves them by about that deviation), and
+# each diverging request must sit at a margin below 2D; what FUSED adds
+# to the route (kernel B per column half, the gate magnitude's
+# all-reduce) is held bitwise by the exact table's FUSED case
 MESH_RANKS = 2
-MESH_CASES = (((1, 2), (("OFF", "OFF", 0, (8, 32, 0)),
-                        ("FUSED", "FUSED", 0, (4, 16, 0)),
-                        ("spec2", "OFF", 2, (4, 16, 0)))),
-              ((2, 1), (("OFF", "OFF", 0, (8, 32, 0)),)))
+MESH_CASES = (((1, 2), (("OFF", "serve_exact", "OFF", 0, (8, 32, 0)),
+                        ("FUSED", "serve_exact", "FUSED", 0, (4, 16, 0)),
+                        ("spec2", "serve_exact", "OFF", 2, (4, 16, 0)),
+                        ("serve OFF", "serve", "OFF", 0, (8, 32, 0)),
+                        ("serve FUSED", "serve", "FUSED", 0, (4, 16, 0)))),
+              ((2, 1), (("OFF", "serve_exact", "OFF", 0, (8, 32, 0)),)))
+MESH_LOGIT_TOL = 1e-4
+MESH_TIE_MARGIN = 0.02
+MESH_MAX_TIES = 1
+MESH_FUSED_D_OF_SCALE = 0.5
 MESH_KEEP = ("tokens", "launches", "wall_s", "tokens_per_s",
              "launches_per_prefill_chunk", "launches_per_decode_tick",
              "paged_attention_by_shape", "prefill_chunks", "decode_ticks",
              "decode_ms_per_tick")
+MESH_D_PROMPTS = 4              # the trace's prompts D is taken over
 
 
 def mesh_rank(n_layers: int, device) -> dict:
@@ -1315,66 +1360,456 @@ def mesh_rank(n_layers: int, device) -> dict:
 
 
 def mesh_cases(torch, mesh, cfg, params, shape: tuple, cases: tuple) -> dict:
-    """``mesh_rank``'s cases on one mesh."""
+    """``mesh_rank``'s cases on one mesh.  Each case counts its
+    collectives by kind per prefill chunk and per decode tick; a serve
+    table case runs at float32 activations and also gives the
+    last-position logits of the trace's first ``MESH_D_PROMPTS`` prompts
+    through a sharded whole-prompt forward (``mesh_deviation`` holds them
+    against one device's)."""
     from repro_torch.core.engine import FUSED, OFF, NLDPEConfig
     from repro_torch.kernels.dual_compute.ops import fused_crossbar_acam
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.launch.engine import PagedServeEngine
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import sharding_ctx
     out = {"coords": mesh.coords}
-    for label, numerics, spec_k, trace in cases:
+    for label, rules, numerics, spec_k, trace in cases:
+        nldpe = {"OFF": OFF, "FUSED": FUSED}[numerics]
         kw = dict(max_slots=8, max_len=1024, page_size=16, prefill_chunk=64,
-                  decode_block=4, nldpe={"OFF": OFF, "FUSED": FUSED}[numerics])
+                  decode_block=4, nldpe=nldpe)
         if spec_k:
             kw.update(spec_k=spec_k, spec_draft=NLDPEConfig(enabled=False))
-        eng = PagedServeEngine(cfg, params, mesh=mesh, **kw)
+        case_cfg = (dataclasses.replace(cfg, activation_dtype=torch.float32)
+                    if rules == "serve" else cfg)
+        eng = PagedServeEngine(case_cfg, params, mesh=mesh, rules=rules,
+                               **kw)
         counter = (fused_crossbar_acam if numerics == "FUSED"
                    else paged_attention)
-        coll = {"_chunk": [0, 0], "step": [0, 0]}
+        kinds = ("all_gather", "all_reduce")
+        coll = {f: dict.fromkeys(("calls",) + kinds, 0)
+                for f in ("_chunk", "step")}
+        current = []                     # the engine call being tallied
+
+        def by_kind(kind):
+            fn = getattr(mesh, kind)
+
+            def call(*args, **kwargs):
+                if current:
+                    coll[current[-1]][kind] += len(mesh._flat(
+                        args[1] if kind == "all_reduce" else args[2]))
+                return fn(*args, **kwargs)
+            return call
 
         def tallied(name, fn):
             def call(*args, **kwargs):
-                before = mesh.collectives
-                out = fn(*args, **kwargs)
-                coll[name][0] += 1
-                coll[name][1] += mesh.collectives - before
-                return out
+                current.append(name)
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    current.pop()
+                    coll[name]["calls"] += 1
             return call
+        for kind in kinds:
+            setattr(mesh, kind, by_kind(kind))
         eng._chunk = tallied("_chunk", eng._chunk)
         eng.step = tallied("step", eng.step)
-        res = serve(torch, eng, make_trace(cfg, *trace), counter,
-                    f"serve mesh {shape} rank {mesh.rank} {label}")
+        reqs = make_trace(case_cfg, *trace)
+        try:
+            res = serve(torch, eng, reqs, counter,
+                        f"serve mesh {shape} rank {mesh.rank} {label}")
+        finally:
+            for kind in kinds:
+                delattr(mesh, kind)
         keep = {k: res[k] for k in MESH_KEEP}
         # per call, the warm-up request's calls included (every chunk, and
         # every tick of one kind, issues the same collectives)
-        keep["collectives_per_prefill_chunk"] = (
-            coll["_chunk"][1] / max(coll["_chunk"][0], 1))
-        keep["collectives_per_decode_tick"] = (
-            coll["step"][1] / max(coll["step"][0], 1))
+        for key, name in (("prefill_chunk", "_chunk"), ("decode_tick",
+                                                        "step")):
+            n = max(coll[name]["calls"], 1)
+            for kind in kinds:
+                keep[f"{kind}s_per_{key}"] = coll[name][kind] / n
+            keep[f"collectives_per_{key}"] = sum(
+                coll[name][kind] for kind in kinds) / n
         blk = eng.params["groups"]["b0"]
         keep.update(heads=blk["attn"]["wq"].shape[-2],
                     kv_heads=eng.cache["k"].shape[2],
                     gate_cols=blk["ffn"]["gate"].shape[-1],
+                    down_rows=blk["ffn"]["down"].shape[-2],
+                    vocab_rows=eng.params["embed"]["table"].shape[0],
                     slots=eng.cache["pos"].shape[0])
         if label == "OFF":
             keep["kernel_a_on_shard"] = kernel_a_on_shard(torch, eng)
+        if rules == "serve":
+            logits = []
+            with torch.no_grad(), sharding_ctx(mesh, eng.rules):
+                for r in reqs[:MESH_D_PROMPTS]:
+                    toks = torch.tensor([r.tokens], dtype=torch.int32,
+                                        device=mesh.device)
+                    logits.append(lm.forward(
+                        eng.params, toks, case_cfg, mode="prefill",
+                        nldpe=nldpe)[0, -1].float().cpu())
+            keep["d_logits"] = torch.stack(logits).numpy()   # picklable
         out[label] = keep
         del eng
         torch.cuda.empty_cache()
     # what one collective costs here: all-gathers of a decode step's
     # attention output (8 slots x 8 heads x 128, bf16) and of a chunk's
-    # FFN half (8 x 64 rows x 5504 columns, bf16), behind syncs
+    # FFN half (8 x 64 rows x 5504 columns, bf16), and all-reduces in
+    # float32 of a decode step's and a chunk's partial sums (8 x 1 and 8 x
+    # 64 rows of d 2048), behind syncs
     axis = "model" if shape[1] > 1 else "data"
-    for name, dims in (("decode", (8, 8, 1, 128)), ("chunk", (8, 64, 5504))):
-        x = torch.ones(dims, dtype=torch.bfloat16, device=mesh.device)
+    for kind, name, dims, dtype in (
+            ("all_gather", "decode", (8, 8, 1, 128), torch.bfloat16),
+            ("all_gather", "chunk", (8, 64, 5504), torch.bfloat16),
+            ("all_reduce", "decode", (8, 1, 2048), torch.float32),
+            ("all_reduce", "chunk", (8, 64, 2048), torch.float32)):
+        x = torch.ones(dims, dtype=dtype, device=mesh.device)
+        fn = ((lambda: mesh.all_gather(x, 1, axis)) if kind == "all_gather"
+              else (lambda: mesh.all_reduce(x, axis)))
         for _ in range(3):
-            mesh.all_gather(x, 1, axis)
+            fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):
-            mesh.all_gather(x, 1, axis)
+            fn()
         torch.cuda.synchronize()
-        out[f"all_gather_ms_{name}"] = (time.perf_counter() - t0) / 20 * 1e3
-        out[f"all_gather_bytes_{name}"] = x.numel() * 2
+        out[f"{kind}_ms_{name}"] = (time.perf_counter() - t0) / 20 * 1e3
+        out[f"{kind}_bytes_{name}"] = x.numel() * x.element_size()
+    return out
+
+
+# [train mesh]: full-width Qwen2.5-3B cut to TRAIN_MESH_LAYERS layers at
+# float32 activations (where the CPU tests' tolerances hold), two AdamW
+# steps at lr TRAIN_MESH_LR on a batch of TRAIN_MESH_BATCH (rows,
+# positions) under each (rule table, mesh shape) of TRAIN_MESH_CASES on
+# MESH_RANKS ranks sharing the card, held against the single-device step
+# on the card at tests/test_torch_mesh_train.py's tolerances: the loss and
+# grad norm within TRAIN_MESH_RTOL, the first step's gradients within
+# TRAIN_MESH_GRAD_TOL of each leaf's largest, the parameters within
+# TRAIN_MESH_PARAM_TOL x lr where every step's single-device gradient
+# reaches TRAIN_MESH_GRAD_FLOOR.  Adam divides a gradient by its own
+# magnitude: a gradient of ~1e-8 whose sign the summation order sets
+# (the readout gives one to the tied embedding's rows of tokens absent
+# from the batch, most of its 151936) moves its parameter by up to lr
+# either way, so the two runs' parameters part there, and the second
+# step's gradients part everywhere (4.1e-4 and 5.9e-4 of a leaf's largest
+# on an NVIDIA H100 80GB HBM3 at 700 W: above the CPU tests' 1e-4 for
+# later steps, on elements whose first gradient reaches the floor too).
+# So the second
+# step is held at the same point: its gradients within TRAIN_MESH_GRAD_TOL
+# and its loss within TRAIN_MESH_RTOL of one device's at the sharded
+# run's own first-step parameters.  The CPU tests' readings (every
+# element) are printed beside the gates
+TRAIN_MESH_LAYERS = 4
+TRAIN_MESH_BATCH = (4, 256)
+TRAIN_MESH_CASES = (("train", (1, 2)), ("train_fsdp", (2, 1)))
+TRAIN_MESH_LR = 1e-3
+TRAIN_MESH_RTOL = 1e-5
+TRAIN_MESH_GRAD_TOL = 1e-5
+TRAIN_MESH_PARAM_TOL = 0.1
+TRAIN_MESH_GRAD_FLOOR = 1e-6
+
+
+def train_mesh_rank(device) -> dict:
+    """One rank of ``[train mesh]``, in a process of its own on the shared
+    card.  Rank 0 first runs the single-device steps on the card (the
+    other rank waits in the mesh's setup) and keeps their losses, grad
+    norms, gradients and parameters; then both ranks run each case of
+    ``TRAIN_MESH_CASES`` from the same seeded masters, and rank 0 holds
+    the gathered gradients and parameters against the single-device ones.
+    Returns per case and step the loss, grad norm, seconds, wall,
+    collectives, bytes and peak memory, the port kernels' launches over
+    the steps, the ms of an all-reduce and a reduce-scatter at the step's
+    sizes, and on rank 0 the largest errors (the second step's gradients
+    also against one device's at this run's own first-step
+    parameters)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.drift import flatten
+    from repro_torch.core.naf import unflatten
+    from repro_torch.launch.mesh import serve_mesh
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.nn.module import gather_tree, shard_tree
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(cut_config("qwen2_5_3b", TRAIN_MESH_LAYERS),
+                              activation_dtype=torch.float32)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_MESH_LR)
+    b, s = TRAIN_MESH_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+
+    def masters():
+        return lm.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(SEED + 52), device="cuda")
+
+    ref = None
+    if dist.get_rank() == 0:
+        steps, grads, params = train_mesh_steps(
+            torch, build_train_step(cfg, opt_cfg), masters(), batch)
+        ref = (steps, [dict(flatten(g)) for g in grads], dict(flatten(
+            params)))
+        del grads, params
+    out = {"rank": dist.get_rank(), "cases": {}}
+    for rules, shape in TRAIN_MESH_CASES:
+        mesh = serve_mesh(*shape, device)
+        step = build_train_step(cfg, opt_cfg, mesh=mesh, rules=rules,
+                                timed=True)
+        params = shard_tree(masters(), step.specs, mesh)
+        # copies: a shard that is a view would keep the whole leaf alive
+        params = unflatten(params, [v.clone() for _, v in flatten(params)])
+        torch.cuda.empty_cache()
+        snap = []
+
+        def keep_first(p):          # gathers: every rank calls it
+            full = gather_tree(p, step.specs, mesh)
+            if ref is not None:
+                snap.append(unflatten(full, [v.clone() for _, v in
+                                             flatten(full)]))
+        zero_counts()
+        steps, grads, params = train_mesh_steps(torch, step, params, batch,
+                                                mesh, between=keep_first)
+        case = {"steps": steps,
+                "launches": {fn.__name__: fn.launches for fn in counters()},
+                "local": {k: tuple(params["groups"]["b0"]["ffn"][k].shape)
+                          for k in ("gate", "down")}
+                | {"embed": tuple(params["embed"]["table"].shape)}}
+        if ref is not None:
+            # one device's gradient and loss at this run's first-step
+            # parameters: one step from them (fresh moments)
+            at, at_grads, _ = train_mesh_steps(
+                torch, build_train_step(cfg, opt_cfg), snap.pop(), batch,
+                n=1)
+            case.update(train_mesh_errors(
+                torch, steps, grads, params, ref, step.specs, mesh,
+                (dict(flatten(at_grads[0])), at[0]["loss"])))
+            del at_grads
+        else:                       # the gathers are collectives
+            for g in grads:
+                gather_tree(g, step.specs, mesh)
+            gather_tree(params, step.specs, mesh)
+        del grads, params
+        torch.cuda.empty_cache()
+        # what one collective of the step's sizes costs here: an
+        # all-reduce of a layer's partial sums (this rank's rows x the
+        # positions x d, float32) and a reduce-scatter of the gate's
+        # gradient (d x d_ff, float32), behind syncs
+        axis = "model" if shape[1] > 1 else "data"
+        rows = b // (shape[0] if rules == "train" else shape[0] * shape[1])
+        for kind, dims in (("all_reduce", (rows, s, cfg.d_model)),
+                           ("reduce_scatter", (cfg.d_model, cfg.d_ff))):
+            x = torch.ones(dims, dtype=torch.float32, device=mesh.device)
+            fn = ((lambda: mesh.all_reduce(x, axis)) if kind == "all_reduce"
+                  else (lambda: mesh.reduce_scatter(x, 0, axis)))
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            case[f"{kind}_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+            case[f"{kind}_bytes"] = x.numel() * 4
+            del x
+        out["cases"][f"{rules} {shape}"] = case
+    return out
+
+
+def train_mesh_steps(torch, step, params, batch, mesh=None, n: int = 2,
+                     between=None) -> tuple:
+    """``n`` steps of ``step`` from ``params`` (and fresh moments): each
+    step's loss, grad norm, seconds, wall, collectives, bytes (on a
+    ``mesh``) and peak memory, each step's gradients (this rank's shards;
+    ``adamw.update`` wrapped to see them) and the parameters after;
+    ``between(params)`` runs after each step but the last."""
+    from repro_torch.optim import adamw
+    opt = adamw.init(params)
+    update, grads, steps = adamw.update, [], []
+
+    def keep(c, g, state, p, **kw):
+        grads.append(g)
+        return update(c, g, state, p, **kw)
+    adamw.update = keep
+    try:
+        for i in range(n):
+            if i and between is not None:
+                between(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            c0, b0 = ((mesh.collectives, mesh.bytes) if mesh is not None
+                      else (0, 0))
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            st = {"loss": m["loss"].item(),
+                  "grad_norm": m["grad_norm"].item(),
+                  "wall_s": time.perf_counter() - t0,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if mesh is not None:
+                st.update(seconds=m["seconds"],
+                          collectives=mesh.collectives - c0,
+                          bytes=mesh.bytes - b0)
+            steps.append(st)
+    finally:
+        adamw.update = update
+    del opt
+    return steps, grads, params
+
+
+def grad_err(got: dict, want: dict) -> float:
+    """The largest gradient error over its leaf's largest gradient."""
+    return max(((got[k] - w).abs().max() / w.abs().max().clamp(
+        min=1e-30)).item() for k, w in want.items())
+
+
+def train_mesh_errors(torch, steps, grads, params, ref, specs, mesh,
+                      at_same_params) -> dict:
+    """Rank 0's errors of a case against the single-device steps ``ref``
+    (steps, gradients, parameters): the losses' and grad norms' relative
+    errors, each step's largest gradient error over its leaf's largest
+    gradient, the second step's against one device's gradient and loss
+    at the sharded run's first-step parameters (``at_same_params``), and
+    the parameters' largest error in lr where every (the last)
+    single-device gradient reaches ``TRAIN_MESH_GRAD_FLOOR`` (with where
+    it was: leaf, gradients of both steps, both packages)."""
+    from repro_torch.core.drift import flatten
+    from repro_torch.nn.module import gather_tree
+    want_steps, want_grads, want = ref
+    out = {"single_device_steps": want_steps,
+           "loss_rel_err": [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                            for g, w in zip(steps, want_steps)],
+           "grad_norm_rel_err": [
+               abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+               for g, w in zip(steps, want_steps)],
+           "grad_err_of_leaf_max": []}
+    got_grads = []
+    for g, w in zip(grads, want_grads):
+        g = dict(flatten(gather_tree(g, specs, mesh)))
+        out["grad_err_of_leaf_max"].append(grad_err(g, w))
+        got_grads.append(g)
+    # the second step's gradients against one device's at the sharded
+    # run's own first-step parameters (the gate): the same function at the
+    # same point
+    want_at, loss_at = at_same_params
+    out["grad_err_at_same_params"] = grad_err(got_grads[1], want_at)
+    out["loss_rel_err_at_same_params"] = (abs(steps[1]["loss"] - loss_at)
+                                          / abs(loss_at))
+    # the parameters where every step's gradient reaches the floor (the
+    # gate), and where the last step's does (the CPU tests' rule, which a
+    # tiny first-step gradient escapes: Adam moves it by up to lr too)
+    worst = {"every_step": (0.0, None), "last_step": (0.0, None)}
+    for k, p in flatten(gather_tree(params, specs, mesh)):
+        diff = (p - want[k]).abs().reshape(-1)
+        last = want_grads[-1][k].abs().reshape(-1) >= TRAIN_MESH_GRAD_FLOOR
+        every = last.clone()
+        for w in want_grads[:-1]:
+            every &= w[k].abs().reshape(-1) >= TRAIN_MESH_GRAD_FLOOR
+        for rule, live in (("every_step", every), ("last_step", last)):
+            d = torch.where(live, diff, 0.0)
+            j = int(torch.argmax(d))
+            if d[j].item() > worst[rule][0]:
+                worst[rule] = (d[j].item(), {
+                    "leaf": "/".join(k),
+                    "grads_single_device": [w[k].reshape(-1)[j].item()
+                                            for w in want_grads],
+                    "grads": [g[k].reshape(-1)[j].item()
+                              for g in got_grads],
+                    "leaf_max_grad": want_grads[-1][k].abs().max().item()})
+    out["param_err_over_lr"] = worst["every_step"][0] / TRAIN_MESH_LR
+    out["param_err_over_lr_last_step_floor"] = (worst["last_step"][0]
+                                                / TRAIN_MESH_LR)
+    out["param_worst"] = {rule: w[1] for rule, w in worst.items()}
+    return out
+
+
+def train_mesh_phase(torch) -> dict:
+    """``[train mesh]``: training on meshes of ``MESH_RANKS`` ranks sharing
+    the one card under gloo with CUDA tensors (``train_mesh_rank``): two
+    AdamW steps under ``train`` at (1, 2) (heads, FFN columns and the
+    vocab split over "model", partial sums all-reduced), then under
+    ``train_fsdp`` at (2, 1) (the batch split, every weight gathered at
+    use, its gradient reduce-scattered back).  Every loss and grad norm,
+    the first step's gradients and the parameters must be the
+    single-device step's on the card within the tolerances the constants
+    above give, and no port kernel may launch (training is plain PyTorch
+    under autograd); the second step is held against one device's at the
+    sharded run's first-step parameters (the constants' comment).  Prints
+    a line per case, rank and step, then the summary."""
+    from repro_torch.launch.mesh import describe_backend, run_ranks
+    backend = describe_backend("gloo", torch.device("cuda"))
+    t0 = time.perf_counter()
+    every = run_ranks(train_mesh_rank, MESH_RANKS, (), device="cuda")
+    out = {"model": "qwen2_5_3b", "layers": TRAIN_MESH_LAYERS,
+           "batch": list(TRAIN_MESH_BATCH), "compute_dtype": "float32",
+           "backend": backend,
+           "spawn_wall_s": time.perf_counter() - t0, "cases": {}}
+    for rules, shape in TRAIN_MESH_CASES:
+        name = f"{rules} {shape}"
+        per = [r["cases"][name] for r in every]
+        for r, case in enumerate(per):
+            for i, st in enumerate(case["steps"]):
+                print(f"[train mesh step] " + json.dumps(
+                    {"case": name, "rank": r, "step": i, **st}))
+                check(np.isfinite(st["loss"])
+                      and np.isfinite(st["grad_norm"]),
+                      f"train mesh {name}: rank {r} step {i} loss or grad "
+                      f"norm is not finite")
+            launched = {k: v for k, v in case["launches"].items() if v}
+            check(not launched, f"train mesh {name}: rank {r} launched "
+                  f"port kernels {launched} (training is plain PyTorch)")
+        ref = per[0]
+        for what in ("loss_rel_err", "grad_norm_rel_err"):
+            check(max(ref[what]) <= TRAIN_MESH_RTOL, f"train mesh {name}: "
+                  f"{what} {ref[what]} above {TRAIN_MESH_RTOL}")
+        err = ref["grad_err_of_leaf_max"][0]
+        check(err <= TRAIN_MESH_GRAD_TOL, f"train mesh {name}: the first "
+              f"step's gradients are {err} of a leaf's largest from the "
+              f"single-device step's, above {TRAIN_MESH_GRAD_TOL}")
+        err = ref["grad_err_at_same_params"]
+        check(err <= TRAIN_MESH_GRAD_TOL, f"train mesh {name}: the second "
+              f"step's gradients are {err} of a leaf's largest from one "
+              f"device's at the same parameters, above "
+              f"{TRAIN_MESH_GRAD_TOL}")
+        check(ref["loss_rel_err_at_same_params"] <= TRAIN_MESH_RTOL,
+              f"train mesh {name}: the second step's loss is "
+              f"{ref['loss_rel_err_at_same_params']} from one device's at "
+              f"the same parameters, above {TRAIN_MESH_RTOL}")
+        check(ref["param_err_over_lr"] <= TRAIN_MESH_PARAM_TOL,
+              f"train mesh {name}: a parameter is "
+              f"{ref['param_err_over_lr']} lr from the single-device "
+              f"step's, above {TRAIN_MESH_PARAM_TOL}")
+        out["cases"][name] = {
+            "losses": [st["loss"] for st in ref["steps"]],
+            "single_device_losses": [st["loss"] for st in
+                                     ref["single_device_steps"]],
+            "loss_rel_err": ref["loss_rel_err"],
+            "grad_norm_rel_err": ref["grad_norm_rel_err"],
+            "grad_err_of_leaf_max": ref["grad_err_of_leaf_max"],
+            "grad_err_at_same_params": ref["grad_err_at_same_params"],
+            "loss_rel_err_at_same_params": ref[
+                "loss_rel_err_at_same_params"],
+            "param_err_over_lr": ref["param_err_over_lr"],
+            "param_err_over_lr_last_step_floor": ref[
+                "param_err_over_lr_last_step_floor"],
+            "param_worst": ref["param_worst"],
+            "wall_s_per_rank_step": [[st["wall_s"] for st in c["steps"]]
+                                     for c in per],
+            "collectives_per_rank_step": [
+                [st["collectives"] for st in c["steps"]] for c in per],
+            "bytes_per_rank_step": [[st["bytes"] for st in c["steps"]]
+                                    for c in per],
+            "peak_gb_per_rank": [max(st["peak_gb"] for st in c["steps"])
+                                 for c in per],
+            "port_kernel_launches": 0,
+            "local_shapes_rank0": ref["local"],
+            **{k: ref[k] for k in ("all_reduce_ms", "all_reduce_bytes",
+                                   "reduce_scatter_ms",
+                                   "reduce_scatter_bytes")}}
+    print("[train mesh] " + json.dumps(out))
     return out
 
 
@@ -1415,19 +1850,28 @@ def kernel_a_on_shard(torch, eng) -> int:
     return {"q_lens": cases, "unequal": unequal}
 
 
-def serve_mesh_phase(torch, refs: dict, gate) -> dict:
+def serve_mesh_phase(torch, cfg, params, refs: dict) -> dict:
     """``[serve mesh]``: the paged engine on meshes of 2 ranks sharing the
     one card, under gloo with CUDA tensors (NCCL refuses two ranks on one
-    device): (1, 2) paged OFF over f32 pools, FUSED (kernel B on each
-    rank's half of the gate columns) and spec 2, then (2, 1) OFF.  Every
-    rank's tokens must be the single-device phase's (``refs``) bit for
-    bit; each case reports kernel A's (or B's) launches per shard, per
-    prefill chunk and per decode tick, and its wall.  Kernel A per shard
-    on each OFF engine's own pools and table (``kernel_a_on_shard``, in
-    the ranks) and kernel B on each column half of ``gate`` at the
-    phase's M must equal the unsharded calls' slices bit for bit.  Each
-    process runs ``mesh_rank``."""
+    device): at (1, 2) paged OFF, FUSED (kernel B on each rank's half of
+    the gate columns) and spec 2 under ``serve_exact``, OFF and FUSED
+    under ``serve``, then (2, 1) OFF.  Under the exact table every rank's
+    tokens must be the single-device phases' (``refs``, by case label)
+    bit for bit.  Under ``serve`` (float32 activations) each case is held
+    against a float32 single-device engine run here: paged OFF's route
+    deviation D (``mesh_deviation``) within ``MESH_LOGIT_TOL``, and at
+    most ``MESH_MAX_TIES`` diverging requests per rank, each at a
+    single-device top-2 margin below ``MESH_TIE_MARGIN``.  Each case
+    reports kernel A's and
+    B's launches per shard, per prefill chunk and per decode tick, its
+    all-gathers and all-reduces per chunk and per tick, and its wall.
+    Kernel A per shard on each exact OFF engine's own pools and table
+    (``kernel_a_on_shard``, in the ranks) and kernel B on each column half
+    of the gate at the phase's M must equal the unsharded calls' slices
+    bit for bit.  Each process runs ``mesh_rank``."""
+    from repro_torch.core.engine import FUSED, OFF
     from repro_torch.kernels.dual_compute.ops import fused_linear_acam
+    from repro_torch.launch.engine import PagedServeEngine
     from repro_torch.launch.mesh import describe_backend, run_ranks
     backend = describe_backend("gloo", torch.device("cuda"))
     out = {"backend": backend, "cases": {}}
@@ -1436,38 +1880,80 @@ def serve_mesh_phase(torch, refs: dict, gate) -> dict:
     out["spawn_wall_s"] = time.perf_counter() - t0
     for shape, cases in MESH_CASES:
         ranks = [r[shape] for r in every]
-        for label, numerics, _, _ in cases:
+        for label, rules, numerics, spec_k, trace in cases:
             name = ("fused_crossbar_acam" if numerics == "FUSED"
                     else "paged_attention")
             per = [r[label] for r in ranks]
+            case = {"rules": rules, "spec_k": spec_k}
+            if rules == "serve":
+                nldpe = {"OFF": OFF, "FUSED": FUSED}[numerics]
+                cfg32 = dataclasses.replace(cfg,
+                                            activation_dtype=torch.float32)
+                one = PagedServeEngine(cfg32, params, max_slots=8,
+                                       max_len=1024, page_size=16,
+                                       prefill_chunk=64, decode_block=4,
+                                       nldpe=nldpe)
+                reqs = make_trace(cfg32, *trace)
+                want = reference_tokens(one, reqs)
+                dev, scale = mesh_deviation(torch, one, reqs, nldpe,
+                                            [p["d_logits"] for p in per])
+                if numerics == "OFF":
+                    limit, margin = MESH_LOGIT_TOL, MESH_TIE_MARGIN
+                else:
+                    limit, margin = MESH_FUSED_D_OF_SCALE * scale, 2 * dev
+                check(dev <= limit, f"serve mesh {shape} {label}: the "
+                      f"sharded forward's logits are {dev} from one "
+                      f"device's, above {limit}")
+                ties = [spec_tokens_agree(
+                    torch, one, reqs, p["tokens"], want, margin,
+                    f"serve mesh {shape} {label} rank {r}", nldpe)
+                    for r, p in enumerate(per)]
+                if numerics == "OFF":
+                    for r, t in enumerate(ties):
+                        check(len(t) <= MESH_MAX_TIES, f"serve mesh {shape} "
+                              f"{label}: {len(t)} requests of rank {r} "
+                              f"diverge from one device's, above "
+                              f"{MESH_MAX_TIES}")
+                case.update(compute_dtype="float32",
+                            route_logit_deviation=dev, logit_limit=limit,
+                            logit_std=scale, tie_margin=margin,
+                            near_ties=ties)
+                del one
+                torch.cuda.empty_cache()
+            else:
+                case["tokens_equal_single_device"] = True
             for r, res in enumerate(per):
-                check(res["tokens"] == refs[label],
-                      f"serve mesh {shape} {label}: rank {r}'s tokens "
-                      f"differ from the single-device engine's")
+                if rules != "serve":
+                    check(res["tokens"] == refs[label],
+                          f"serve mesh {shape} {label}: rank {r}'s tokens "
+                          f"differ from the single-device engine's")
                 check(res["launches"][name] > 0,
                       f"serve mesh {shape} {label}: {name} was never "
                       f"launched on rank {r}")
             out["cases"][f"{shape} {label}"] = {
-                "tokens_equal_single_device": True,
+                **case,
                 "kernel": name,
                 "launches_per_shard": [p["launches"][name] for p in per],
                 "launches_per_prefill_chunk_per_shard": [
                     p["launches_per_prefill_chunk"] for p in per],
                 "launches_per_decode_tick_per_shard": [
                     p["launches_per_decode_tick"] for p in per],
+                "port_launches_per_shard": [
+                    {k: v for k, v in p["launches"].items() if v}
+                    for p in per],
                 "paged_attention_by_shape_rank0":
                     per[0]["paged_attention_by_shape"],
                 "wall_s_per_shard": [p["wall_s"] for p in per],
                 "tokens_per_s_rank0": per[0]["tokens_per_s"],
                 "decode_ms_per_tick_rank0": per[0]["decode_ms_per_tick"],
-                "collectives_per_prefill_chunk_rank0":
-                    per[0]["collectives_per_prefill_chunk"],
-                "collectives_per_decode_tick_rank0":
-                    per[0]["collectives_per_decode_tick"],
-                "local": {k: per[0][k] for k in ("heads", "kv_heads",
-                                                 "gate_cols", "slots")},
+                **{f"{k}_rank0": per[0][k] for k in per[0]
+                   if k.startswith(("collectives_per", "all_gathers_per",
+                                    "all_reduces_per"))},
+                "local": {k: per[0][k] for k in (
+                    "heads", "kv_heads", "gate_cols", "down_rows",
+                    "vocab_rows", "slots")},
                 "backend": backend}
-            if label == "OFF":
+            if "kernel_a_on_shard" in per[0]:
                 for r, res in enumerate(per):
                     check(not res["kernel_a_on_shard"]["unequal"],
                           f"serve mesh {shape}: kernel A on rank {r}'s own "
@@ -1475,11 +1961,13 @@ def serve_mesh_phase(torch, refs: dict, gate) -> dict:
                           f"q_len {res['kernel_a_on_shard']['unequal']}")
                 out["cases"][f"{shape} {label}"]["kernel_a_on_shard"] = [
                     p["kernel_a_on_shard"]["q_lens"] for p in per]
-        out[f"all_gather {shape}"] = {
-            k: ranks[0][k] for k in ranks[0] if k.startswith("all_gather")}
+        out[f"collective_ms {shape}"] = {
+            k: ranks[0][k] for k in ranks[0]
+            if k.startswith(("all_gather_", "all_reduce_"))}
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     # kernel B on each half of the gate's columns, bitwise
+    gate = params["groups"]["b0"]["ffn"]["gate"][0]
     w_max = torch.amax(torch.abs(gate))
     n = gate.shape[1] // 2
     b_cases = 0
@@ -1502,6 +1990,28 @@ def serve_mesh_phase(torch, refs: dict, gate) -> dict:
     out["kernel_b_shards_bitwise"] = b_cases
     print("[serve mesh] " + json.dumps(out))
     return out
+
+
+def mesh_deviation(torch, sp, reqs, nldpe, sharded: list) -> float:
+    """The serve table's route deviation D: the largest |logit| difference
+    between each rank's sharded whole-prompt forward (``sharded``: the
+    last-position logits of the first ``MESH_D_PROMPTS`` prompts of
+    ``reqs``, ``mesh_cases``) and one device's on the serving weights
+    ``sp.params`` (``sp.cfg``), and the single-device logits' standard
+    deviation over the vocab (the mean over the prompts).  The output and
+    down projections' partial sums add in another order than one GEMM's
+    reduction."""
+    from repro_torch.models import lm
+    want = []
+    with torch.no_grad():
+        for r in reqs[:MESH_D_PROMPTS]:
+            toks = torch.tensor([r.tokens], dtype=torch.int32,
+                                device="cuda")
+            want.append(lm.forward(sp.params, toks, sp.cfg, mode="prefill",
+                                   nldpe=nldpe)[0, -1].float().cpu())
+    want = torch.stack(want).numpy()
+    return (max(float(np.max(np.abs(got - want))) for got in sharded),
+            float(np.mean(np.std(want, axis=-1))))
 
 
 def mesh_launches(res: dict, name: str) -> dict:
@@ -4216,10 +4726,14 @@ def main() -> None:
     del spec2
     torch.cuda.empty_cache()
     mesh_res = serve_mesh_phase(
-        torch, {"OFF": off_res["tokens"], "FUSED": fused_res["tokens"],
-                "spec2": spec2_tokens},
-        params["groups"]["b0"]["ffn"]["gate"][0])
+        torch, cfg, params, {"OFF": off_res["tokens"],
+                             "FUSED": fused_res["tokens"],
+                             "spec2": spec2_tokens})
     print(f"[serve mesh] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    train_mesh_phase(torch)
+    print(f"[train mesh] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     cut_cfg, cut_params = cut_depth(cfg, params, CUT_LAYERS)

@@ -24,6 +24,14 @@ the bfloat16 template leaf's, bit for bit; a 2-byte leaf of ``repro``'s
 the same way.  ``restore(template, step)`` gives each leaf the template
 leaf's dtype and device; integer leaves (AdamW's int32 ``step``) keep
 theirs.
+
+On a mesh (``save(..., specs=, mesh=)``) the tree holds this rank's
+shards at ``specs``: every rank gathers each leaf whole
+(``nn.module.gather_tree``), rank 0 writes, and all ranks wait for the
+write (a barrier), so the files hold whole arrays as ``repro``'s do.
+``restore(..., specs=, mesh=)`` slices each whole leaf to this rank's
+shard at ``specs`` — another mesh's or table's than the save's
+(``reshard.reshard_tree``).
 """
 from __future__ import annotations
 
@@ -80,8 +88,23 @@ class CheckpointManager:
                 f"async checkpoint write for step {step} failed") from err
 
     # -- save ----------------------------------------------------------------
-    def save(self, tree, step: int, blocking: bool = True):
+    def save(self, tree, step: int, blocking: bool = True, specs=None,
+             mesh=None):
+        """Write ``tree`` as step ``step`` (asynchronously where the
+        manager is and ``blocking`` is False; on a ``mesh``, a blocking
+        write by rank 0 of the gathered leaves)."""
         self._check_error()
+        if mesh is not None and mesh.size > 1:
+            from ..nn.module import gather_tree
+            import torch.distributed as dist
+            tree = gather_tree(tree, specs, mesh)
+            if mesh.rank == 0:
+                self._write_tree(tree, step, blocking=True)
+            dist.barrier(group=mesh.groups["world"])
+            return
+        self._write_tree(tree, step, blocking)
+
+    def _write_tree(self, tree, step: int, blocking: bool) -> None:
         host = [_host(x) for _, x in flatten(tree)]
 
         def _write():
@@ -158,18 +181,23 @@ class CheckpointManager:
         steps = self.available_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int):
+    def restore(self, template, step: int, specs=None, mesh=None):
         """Restore into the structure, dtypes and devices of
-        ``template``."""
+        ``template``; on a ``mesh``, each leaf sliced to this rank's
+        shard at ``specs``."""
         path = os.path.join(self.dir, f"step_{step}")
         leaves = [x for _, x in flatten(template)]
         with np.load(os.path.join(path, "arrays.npz")) as data:
             out = [_leaf(data[f"a{i}"], tmpl)
                    for i, tmpl in enumerate(leaves)]
-        return unflatten(template, out)
+        tree = unflatten(template, out)
+        if mesh is not None:
+            from .reshard import reshard_tree
+            tree = reshard_tree(tree, specs, mesh)
+        return tree
 
-    def restore_latest(self, template):
+    def restore_latest(self, template, specs=None, mesh=None):
         step = self.latest_step()
         if step is None:
             return None
-        return self.restore(template, step), step
+        return self.restore(template, step, specs, mesh), step

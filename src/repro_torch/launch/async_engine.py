@@ -114,7 +114,8 @@ class AsyncServeEngine:
             raise NotImplementedError(
                 "the async pipeline under a mesh: its scheduler and drain "
                 "threads would issue each rank's collectives out of step "
-                "(ROADMAP.md A.2)")
+                "(ROADMAP.md A.2 queue, item 4: the async pipeline and "
+                "drift injection under a mesh)")
         self.engine = engine
         self.drain_depth = drain_depth
         self._poll_s = poll_s

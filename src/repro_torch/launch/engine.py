@@ -82,10 +82,14 @@ publication).
   radix/COW/eviction, spec rollback stay global —, each samples its own
   slots, and the sampled tokens are all-gathered, so every rank's
   scheduler sees every token.  Under the exact tables sharded serving
-  equals single-device serving token for token.  Tables that shard a
-  contraction (partial sums), drift injection and the async pipeline
-  under a mesh are the next slice (``ROADMAP.md`` A.2) and raise
-  ``NotImplementedError``.
+  equals single-device serving token for token.  Under ``serve`` the
+  output and down projections sum partial products over "model" (an
+  all-reduce in float32) and the vocab is split (a vocab-parallel
+  lookup; the logits are gathered whole before sampling, exactly), so
+  tokens equal single-device tokens up to near-ties.  ``serve_dshard``,
+  ``long``, a cache whose positions the placement splits ("kv_seq"),
+  drift injection and the async pipeline under a mesh are ROADMAP.md
+  A.2's queue and raise ``NotImplementedError``.
 
 Where ``repro`` donates device buffers to its jitted steps, these engines
 update the cache and the decode state in place.
@@ -329,11 +333,10 @@ class ServeEngine:
         self._row_axes: tuple = ()
         if mesh is None:
             return
-        if not sharding.is_exact(self.rules):
+        if self.rules.name in sharding.NOT_SERVED:
             raise NotImplementedError(
-                f"rule table {self.rules.name!r} shards a contraction "
-                f"(partial sums); the engines run the exact tables "
-                f"(serve_exact, exact(...)) so far (ROADMAP.md A.2)")
+                f"rule table {self.rules.name!r}: "
+                f"{sharding.NOT_SERVED[self.rules.name]}")
         s = self.max_slots
         by = {n: sharding.resolve(self.rules, (n,), (s,), mesh).axes_of(0)
               for n in ("slots", "batch")}
@@ -382,6 +385,14 @@ class ServeEngine:
         specs = lm.cache_pspecs(self.cfg, self.max_slots, self.max_len,
                                 self.mesh, self.rules,
                                 **self._cache_layout())
+        for name, st in (("full", specs), ("ring", specs.get("ring", {}))):
+            if "k" in st and st["k"].axes_of(3):
+                raise NotImplementedError(
+                    f"rule table {self.rules.name!r} splits the {name} "
+                    f"stack's cache positions over {st['k'].axes_of(3)} "
+                    f"(\"kv_seq\": {self.cfg.n_kv_heads} kv heads do not "
+                    f"divide \"model\"): context-parallel paged decode is "
+                    f"ROADMAP.md A.2 queue, item 2")
         return shard_tree(cache, specs, self.mesh)
 
     def _full(self) -> dict:
@@ -429,10 +440,12 @@ class ServeEngine:
 
     def _chunk(self, tokens, base_pos, mask, limit) -> torch.Tensor:
         """One (max_slots, prefill_chunk) suffix-prefill chunk at per-slot
-        base positions (under a mesh, this rank's slots; the logits are
-        theirs).  Pre-clear: stale entries >= base on writing slots
-        become never-valid before the chunk attends; post-clip: entries
-        >= limit (= min(prompt length, chunk end)) trim the padded tail."""
+        base positions (under a mesh, this rank's slots and, where the
+        rules split the vocab, its vocab columns: the logits are theirs;
+        the caller gathers the positions it samples).  Pre-clear: stale
+        entries >= base on writing slots become never-valid before the
+        chunk attends; post-clip: entries >= limit (= min(prompt length,
+        chunk end)) trim the padded tail."""
         c = self.prefill_chunk
         tokens, base_pos, mask, limit = (self._local(t) for t in
                                          (tokens, base_pos, mask, limit))
@@ -446,7 +459,8 @@ class ServeEngine:
                                 moe_drops=self._moe_count("prefill"),
                                 moe_live=mask[:, None]
                                 & (positions < limit[:, None]),
-                                batch_groups=self.batch_groups)
+                                batch_groups=self.batch_groups,
+                                gather_vocab=False)
         clip_positions(self.cache, mask, limit)
         return logits
 
@@ -563,8 +577,7 @@ class ServeEngine:
             n_chunks = nb
         col_t = self._local(self._t(col.astype(np.int64)))
         rows = torch.arange(col_t.shape[0], device=self.device)
-        last = torch.zeros((col_t.shape[0], self.cfg.vocab_size),
-                           dtype=torch.float32, device=self.device)
+        last = None
         for i in range(n_chunks):
             mask = self._t(admit & (i * c < suffix))
             limit = np.minimum(plen, reuse + (i + 1) * c).astype(np.int32)
@@ -572,7 +585,11 @@ class ServeEngine:
             lg = self._chunk(self._t(tokens[:, i * c:(i + 1) * c]),
                              self._t(base), mask, self._t(limit))
             take = self._local(self._t(admit & (ci == i)))
-            last = torch.where(take[:, None], lg[rows, col_t], last)
+            at = lg[rows, col_t]
+            last = torch.where(take[:, None], at,
+                               torch.zeros_like(at) if last is None else last)
+        with self._sharded():
+            last = lm.vocab_gathered(last, self.cfg)
         return self._gather(last), n_chunks
 
     @staticmethod
@@ -951,7 +968,8 @@ class PagedServeEngine(ServeEngine):
         if drift is not None and kw.get("mesh") is not None:
             raise NotImplementedError(
                 "drift injection under a mesh: the drafter's programmed "
-                "cells are not sharded yet (ROADMAP.md A.2)")
+                "cells are not sharded yet (ROADMAP.md A.2 queue, item 4: "
+                "the async pipeline and drift injection under a mesh)")
         if page_size < 1:
             raise ValueError("page_size >= 1")
         if spec_k < 0:

@@ -12,9 +12,10 @@ process per mesh position and joins them with ``torch.distributed``:
   stages each collective through host memory).  It prints the backend it
   took.
 * ``make_mesh(shape, axes)`` builds this rank's view of a mesh over the
-  process group (its per-axis groups), ``serve_mesh(dp, tp)`` the serving
-  mesh over ("data", "model"), ``single_device_mesh()`` the (1, 1) mesh of
-  one process, ``make_production_mesh()`` the 16 x 16 (2 x 16 x 16
+  process group (its per-axis groups; any axis names: ("pod",) is the
+  pipeline's), ``serve_mesh(dp, tp)`` the serving and training mesh over
+  ("data", "model"), ``single_device_mesh()`` the (1, 1) mesh of one
+  process, ``make_production_mesh()`` the 16 x 16 (2 x 16 x 16
   multi-pod) one.  Each raises with the rank count it needs when the
   process group's world differs.
 * ``run_ranks(fn, world, args, device=)`` spawns ``world`` processes,
@@ -163,7 +164,7 @@ def make_mesh(shape: tuple, axes: tuple, device=None) -> Mesh:
 def serve_mesh(dp: int, tp: int, device=None) -> Mesh:
     """The serving mesh (dp, tp) over ("data", "model"): slots and
     position tracks split over "data", heads and KV pools over "model"
-    (DESIGN.md §9).  Needs dp * tp ranks."""
+    (DESIGN.md §9); the train step's mesh too.  Needs dp * tp ranks."""
     if dp * tp != _world():
         raise ValueError(
             f"serve mesh ({dp}, {tp}) needs {dp * tp} ranks, the process "

@@ -43,7 +43,10 @@ Draws land on the keys' device.
 ``exponential``) draws a chunk of a larger draw: element ``i`` of
 ``shape`` hashes counter ``offset + i``, so the chunks ``[o, o + n)`` of a
 leaf's flattened index, drawn one by one, equal the whole-shape draw bit
-for bit while holding only ``n`` counters at a time.
+for bit while holding only ``n`` counters at a time.  An int64 tensor
+``offset`` of ``shape`` names each element's counter itself: a shard of
+a leaf draws its elements' counters in the whole leaf (``launch.train``'s
+noise pass under a mesh).
 """
 from __future__ import annotations
 
@@ -116,8 +119,11 @@ def random_bits(keys: torch.Tensor, shape, *, offset: int = 0
     """(*B, 2) keys -> (*B, *shape) uint32 words in int64
     (``bits(key, shape)`` per key; counters from ``offset``)."""
     shape = _shape(shape)
-    i = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64,
-                     device=keys.device).reshape(shape)
+    if torch.is_tensor(offset):
+        i = offset.to(device=keys.device, dtype=torch.int64).reshape(shape)
+    else:
+        i = torch.arange(offset, offset + math.prod(shape),
+                         dtype=torch.int64, device=keys.device).reshape(shape)
     lead = keys.shape[:-1] + (1,) * len(shape)
     y0, y1 = threefry2x32(keys[..., 0].reshape(lead),
                           keys[..., 1].reshape(lead), i >> 32, i & M32)

@@ -38,7 +38,8 @@ take ``--async-serve`` (the dispatch/drain pipeline of
 (serve on a ("data", "model") mesh of DP * TP ranks under the
 ``--mesh-rules`` table, default ``serve_exact``: the CLI spawns its ranks
 unless it already runs under ``torchrun``, and rank 0 prints the same
-per-request tokens as the command without ``--mesh``; backends in
+per-request tokens as the command without ``--mesh``; under ``serve``,
+whose partial sums add in another order, up to near-ties; backends in
 ``launch/mesh.py``), ``--telemetry`` (latency percentiles and phase walls; the event
 trace as JSONL with ``--trace-out``, a ``torch.profiler`` trace of the
 first N ticks with ``--profile-ticks``) and ``--metrics`` (the registry
@@ -185,7 +186,7 @@ def _validate_args(p: argparse.ArgumentParser, args) -> None:
                       or args.fault_rate):
         p.error("--mesh serves the tick loop without drift injection; the "
                 "async pipeline and the drifting drafter under a mesh are "
-                "not ported yet (ROADMAP.md A.2)")
+                "not ported yet (ROADMAP.md A.2 queue, item 4)")
     if moved("profile_dir") and not args.profile_ticks:
         p.error("--profile-dir requires --profile-ticks N")
     if (args.drift is not None or args.fault_rate) and not args.spec:
@@ -275,7 +276,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sharding rule table for --mesh (default "
                         "serve_exact, heads and slots split; "
                         "serve_dshard_exact splits slots only; both "
-                        "bit-identical to unsharded)")
+                        "bit-identical to unsharded; serve also splits "
+                        "the output and down projections' rows and the "
+                        "vocab: partial sums, tokens equal up to "
+                        "near-ties)")
     p.add_argument("--telemetry", action="store_true",
                    help="per-request latency tracing + phase timers for "
                         "--continuous/--paged (DESIGN.md §12): TTFT/TPOT/"

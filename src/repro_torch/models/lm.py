@@ -81,7 +81,8 @@ from ..nn.moe import group_tokens, may_drop, moe_apply
 from ..nn.rglru import recurrent_block_apply, recurrent_state_init
 from ..nn.rwkv6 import (HEAD_SIZE, channelmix_apply, rwkv_state_init,
                         timemix_apply)
-from ..parallel.context import current
+from ..parallel.context import (act_axes, current, enter, gather_params,
+                                installed, reduce_partial)
 
 ATTN_TYPES = ("attn", "local", "global", "moe")
 BLOCK_TYPES = ("attn", "local", "global", "moe", "rec", "rwkv")
@@ -168,10 +169,12 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
     for the output projection, 0.1 for the RG-LRU conv, RWKV6's lerp
     ratios and bonus, 0.5 for the RG-LRU Lambda, 0.01 for RWKV6's decay
     LoRA, zero biases and decay base, unit norm scales.  Drawn from
-    ``generator`` on ``device`` (the card unless ``device="cpu"``)."""
+    ``generator`` on ``device`` (the card unless ``device="cpu"``);
+    ``device="meta"`` gives the tree's shapes and dtypes without values
+    (``param_shapes``)."""
     _check_cfg(cfg)
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
     d = cfg.d_model
@@ -263,6 +266,12 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
                         device=device, dtype=torch.float32) * d ** -0.5
         params["lm_head"] = {"w": w}
     return params
+
+
+def param_shapes(cfg) -> dict:
+    """``init_params(cfg)``'s tree on the meta device: every leaf's global
+    shape, no storage (what ``nn.module.spec_tree`` resolves)."""
+    return init_params(cfg, device="meta")
 
 
 # leaves the model reads in float32 whatever the activation dtype
@@ -483,7 +492,7 @@ def apply_block(p: dict, cfg, btype: str, x: torch.Tensor, *,
         f = moe_apply(p["ffn"], h2, cfg.moe, act=cfg.act, groups=groups,
                       nldpe=nldpe, drops=moe_drops, live=moe_live)
     else:
-        f = mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe)
+        f = mlp_apply(p["ffn"], h2, act=cfg.act, nldpe=nldpe, d_ff=cfg.d_ff)
     return x + f.to(x.dtype)
 
 
@@ -516,7 +525,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
             moe_drops: torch.Tensor | None = None,
             moe_live: torch.Tensor | None = None,
             patch_embeds: torch.Tensor | None = None,
-            batch_groups: int = 1) -> torch.Tensor:
+            batch_groups: int = 1, gather_vocab: bool = True
+            ) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) float32; ``cache`` updates in place.
 
     ``repro``'s modes: "train" (the whole sequence, differentiable, no
@@ -533,11 +543,20 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
 
     Under a sharding context (``parallel.context.sharding_ctx``) the
     tensors are this rank's shards: rows split over the rules' "batch"
-    axes when the context names the global batch, heads and FFN columns
-    over "model"; the attention and FFN layers gather at their
-    contraction boundaries (exact tables only) and the logits are this
-    rank's rows.  Recurrent and RWKV6 blocks take no context (their
-    contractions shard under every table; ROADMAP.md A.2)."""
+    axes when the context names the global batch, heads, FFN columns and
+    vocab rows over "model".  Each layer's leaves split over a batch axis
+    (FSDP: "embed" over "data") are gathered at use when the context
+    carries the parameters' ``specs`` (``parallel.context.
+    gather_params``).  The attention and FFN layers gather at their
+    contraction boundaries under the exact tables and all-reduce partial
+    sums under ``train`` and ``serve``; the embedding is a vocab-parallel
+    lookup.  The logits are this rank's rows: in "train" mode its vocab
+    columns (``lm_loss`` takes them as they are), in the serve modes
+    every column (gathered over the vocab axes: exact) unless
+    ``gather_vocab`` is false (a caller that reads a few positions
+    gathers those through ``vocab_gathered``).  Recurrent and
+    RWKV6 blocks take no context (their contractions shard under every
+    table; ROADMAP.md A.2 queue, item 3)."""
     if mode == "train":
         if nldpe.enabled and nldpe.fused_dual_compute:
             raise NotImplementedError(
@@ -553,10 +572,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
         raise NotImplementedError(
             f"{cfg.name}: recurrent and RWKV6 blocks do not run under a "
             f"mesh yet (their contractions shard under every rule table; "
-            f"ROADMAP.md A.2)")
+            f"ROADMAP.md A.2 queue, item 3: RG-LRU and RWKV6 under a mesh)")
+    specs = None if ctx is None else ctx.specs
     all_stacks = {} if cache is None else stacks(cache)
     attn_stacks = {} if cache is None else attention_stacks(cache)
-    x = embedding_apply(params["embed"], tokens, dtype=cfg.activation_dtype)
+    emb = _at_use(params, specs, "embed")
+    x = embedding_apply(emb, tokens, dtype=cfg.activation_dtype,
+                        vocab=cfg.vocab_size)
     if cfg.embed_scale:
         # repro rounds the scale to the activation dtype first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
@@ -604,12 +626,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
             c = (_index(all_stacks[st], j) if st in ("rec", "rwkv")
                  else layer_cache(attn_stacks[st], j))
         p = params[where][key]
-        return apply_block(p if g is None else _index(p, g), cfg, btype, x,
-                           positions=positions, mode=mode, cache=c,
-                           plan=plans.get(st), nldpe=nldpe,
-                           moe_drops=moe_drops, moe_live=moe_live,
-                           dense_rows=dense_rows, prefix_len=prefix_len,
-                           groups=batch_groups)
+        p = p if g is None else _index(p, g)
+        # the backward pass may recompute the layer on autograd's own
+        # thread, where the forward's (thread-local) context is not set
+        with installed(ctx):
+            if specs is not None:
+                p = gather_params(p, specs[where][key])
+            return apply_block(p, cfg, btype, x,
+                               positions=positions, mode=mode, cache=c,
+                               plan=plans.get(st), nldpe=nldpe,
+                               moe_drops=moe_drops, moe_live=moe_live,
+                               dense_rows=dense_rows, prefix_len=prefix_len,
+                               groups=batch_groups)
 
     remat = mode == "train" and cfg.scan_remat and torch.is_grad_enabled()
     for i in range(len(order)):
@@ -617,22 +645,64 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, mode: str = "chunk",
              else layer(x, i))
     x = rmsnorm_apply(params["final_norm"], x)
     if cfg.tie_embeddings:
-        logits = unembed_apply(params["embed"], x)
+        logits = unembed_apply(emb, x, vocab=cfg.vocab_size)
     else:
-        logits = (x.to(torch.float32)
-                  @ params["lm_head"]["w"].to(torch.float32))
+        w = _at_use(params, specs, "lm_head")["w"]
+        x = enter(x, "vocab", cfg.vocab_size, w.shape[-1])
+        logits = x.to(torch.float32) @ w.to(torch.float32)
     if cfg.logit_softcap:
         logits = torch.tanh(scalar_div(logits, cfg.logit_softcap)) \
             * cfg.logit_softcap
-    return logits
+    return (vocab_gathered(logits, cfg) if mode != "train" and gather_vocab
+            else logits)
+
+
+def vocab_gathered(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """Every vocab column of ``logits`` (..., V or this rank's vocab
+    shard), concatenated over the rules' vocab axes under the current
+    sharding context: exact."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return current().mesh.all_gather(logits, logits.dim() - 1,
+                                     act_axes("vocab", cfg.vocab_size))
+
+
+def _at_use(params: dict, specs, name: str) -> dict:
+    """``params[name]`` with its FSDP-split leaves gathered (no-op
+    without ``specs``)."""
+    return (params[name] if specs is None
+            else gather_params(params[name], specs[name]))
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
-            z_loss: float = 1e-4) -> torch.Tensor:
-    """Mean token cross-entropy (+ z-loss) in float32."""
+            z_loss: float = 1e-4, vocab: int | None = None) -> torch.Tensor:
+    """Mean token cross-entropy (+ z-loss) in float32.
+
+    Under a sharding context, logits holding fewer than ``vocab`` columns
+    are this rank's vocab shard: the log-sum-exp takes the max over the
+    whole vocab (an all-reduce max, no gradient), then the sum of
+    exponentials and the gold logit (read by the rank that holds it,
+    zero elsewhere) are summed over the vocab axes
+    (``parallel.context.reduce_partial``); the z-loss reads that global
+    log-sum-exp.  The mean is over this rank's rows."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    n = logits.shape[-1]
+    if current() is None or vocab is None or n == vocab:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        mesh = current().mesh
+        axes = act_axes("vocab", vocab)
+        m = mesh.all_reduce(torch.amax(logits.detach(), dim=-1), axes,
+                            op="max")
+        s = reduce_partial(torch.sum(torch.exp(logits - m[..., None]),
+                                     dim=-1), "vocab", vocab, n)
+        lse = torch.log(s) + m
+        t = labels.long() - mesh.position(axes) * n
+        mine = (t >= 0) & (t < n)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(t, 0, n - 1)[..., None])[..., 0]
+        gold = reduce_partial(gold * mine, "vocab", vocab, n)
     loss = torch.mean(lse - gold)
     if z_loss:
         loss = loss + z_loss * torch.mean(lse ** 2)

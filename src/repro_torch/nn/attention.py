@@ -88,7 +88,8 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import (paged_attention,
                                            paged_attention_sharded,
                                            shard_specs)
-from ..parallel.context import current, gather_rows, shard
+from ..parallel.context import (current, enter, gather_rows, reduce_partial,
+                                shard)
 from .basic import apply_rope, rmsnorm_apply
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -123,8 +124,12 @@ def _project_qkv(p: dict, s: AttnSpec, x: torch.Tensor,
         k = k + p["bk"].to(x.dtype)[None, :, None, :]
         v = v + p["bv"].to(x.dtype)[None, :, None, :]
     if "q_norm" in p:
-        q = rmsnorm_apply(p["q_norm"], q)
-        k = rmsnorm_apply(p["k_norm"], k)
+        # a replicated scale over split heads: each rank's gradient is its
+        # heads' part (``enter`` sums them in the backward pass)
+        q = rmsnorm_apply({"scale": enter(p["q_norm"]["scale"], "heads",
+                                          s.n_heads, q.shape[1])}, q)
+        k = rmsnorm_apply({"scale": enter(p["k_norm"]["scale"], "kv_heads",
+                                          s.n_kv_heads, k.shape[1])}, k)
     return (apply_rope(q, positions, s.rope_theta),
             apply_rope(k, positions, s.rope_theta), v)
 
@@ -658,15 +663,23 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
     ``dense_rows`` (int64 slot indices): their rows alone are recomputed
     on that route and replace kernel A's.
     """
-    q, k, v = _project_qkv(p, s, x, positions)
     ctx, heads = current(), (s.n_heads, s.n_kv_heads)
+    x = enter(x, "heads", s.n_heads, p["wq"].shape[1])
+    q, k, v = _project_qkv(p, s, x, positions)
     if ctx is not None:
         # this rank's heads on every route, at kernel A's placement: where
         # it replicates the heads (the kv heads do not divide "model")
         # but the query heads arrive split, every rank attends with all of
         # them (the GQA group stays whole)
-        if not shard_specs(x.shape[0], *heads, ctx.mesh,
-                           ctx.rules)["q"].axes_of(1):
+        if (q.shape[1] < s.n_heads and not shard_specs(
+                x.shape[0], *heads, ctx.mesh, ctx.rules)["q"].axes_of(1)):
+            if mode == "train":
+                raise NotImplementedError(
+                    f"training with {s.n_kv_heads} kv heads split over "
+                    f"fewer ranks than the {s.n_heads} query heads: the "
+                    f"query heads would gather, and the replicated K/V "
+                    f"take partial gradients (ROADMAP.md A.2 queue, item "
+                    f"5: training with replicated kv heads)")
             q = shard(q, "batch", None, None, None,
                       src=("batch", "heads", None, None),
                       full=(None, s.n_heads, None, None))
@@ -718,8 +731,10 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor, *,
         raise ValueError(f"unknown attention mode {mode!r}")
     # contraction boundary: under the exact tables "o_heads" replicates,
     # so the head shards all-gather (concatenation, bit-exact) before the
-    # output projection
+    # output projection; under train and serve each rank projects its own
+    # heads and the partial sums are all-reduced
     o = shard(o, "batch", "o_heads", None, None,
               src=("batch", "heads", None, None),
-              full=(None, p["wo"].shape[0], None, None))
-    return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(o.dtype))
+              full=(None, heads[0], None, None))
+    y = torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(o.dtype))
+    return reduce_partial(y, "o_heads", heads[0], p["wo"].shape[0])

@@ -11,7 +11,9 @@ layer-stack axis), the ``tail`` blocks none.  ``spec_tree(params, cfg,
 mesh, rules)`` resolves each leaf's axes against its shape
 (``parallel.sharding.resolve``) — leaf for leaf what ``repro``'s
 ``spec_tree(lm.init_params, ...)`` gives — and ``shard_tree`` keeps
-this rank's slice of every leaf.
+this rank's slice of every leaf; ``gather_tree`` is its inverse (every
+rank gets the whole tree back: saving, and tests).  ``lm.param_shapes``
+gives the global shapes a rank that holds only shards resolves against.
 """
 from __future__ import annotations
 
@@ -109,3 +111,16 @@ def shard_tree(tree: dict, specs: dict, mesh) -> dict:
     if all(a is None for a in specs):
         return tree
     return Spec(specs).local(tree, mesh).contiguous()
+
+
+def gather_tree(tree: dict, specs: dict, mesh) -> dict:
+    """The whole of every leaf of ``tree`` (this rank's shards at
+    ``specs``), all-gathered over the axes each dimension is split over:
+    every rank calls it, in the same order."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, specs[k], mesh) for k, v in tree.items()}
+    sp = Spec(specs)
+    for d in range(min(len(sp), tree.dim())):
+        if sp.axes_of(d):
+            tree = mesh.all_gather(tree, d, sp.axes_of(d))
+    return tree

@@ -39,7 +39,8 @@ import torch
 
 from ..core.engine import NLDPEConfig, OFF
 from ..core.noise import clip
-from ..parallel.context import current, gather_rows, shard
+from ..parallel.context import (current, enter, gather_rows, reduce_partial,
+                                shard)
 from ..parallel.sharding import Spec
 
 
@@ -132,18 +133,25 @@ def router_logits(p: dict, xt: torch.Tensor) -> torch.Tensor:
 
 
 def expert_ffn(p: dict, xb: torch.Tensor, act: str = "silu",
-               nldpe: NLDPEConfig = OFF) -> torch.Tensor:
+               nldpe: NLDPEConfig = OFF, ff: int | None = None
+               ) -> torch.Tensor:
     """The experts' gated FFN over their buffer slots: xb (E, slots, d) ->
     (E, slots, d), one batched matmul per projection (``repro``'s
     ``jnp.einsum``s), in xb's dtype.  Under a sharding context the gate
-    and up hold this rank's expert-FFN columns ("mlp"); the contraction
-    boundary gathers them before the down projection ("mlp_in")."""
+    and up hold this rank's columns of the ``ff`` (global; default the
+    down projection's rows) expert-FFN columns ("mlp"); at the
+    contraction boundary ("mlp_in") the exact tables gather them before
+    the down projection, ``train`` and ``serve`` all-reduce the partial
+    products of this rank's rows of ``down``."""
+    ff = ff or p["down"].shape[1]
+    xb = enter(xb, "mlp", ff, p["gate"].shape[-1])
     hg = torch.bmm(xb, p["gate"].to(xb.dtype))
     hu = torch.bmm(xb, p["up"].to(xb.dtype))
     h = nldpe.elementwise_mul(nldpe.activation(hg, act), hu).to(xb.dtype)
     h = shard(h, "experts", None, "mlp_in", src=("experts", None, "mlp"),
-              full=(None, None, p["down"].shape[1]))
-    return torch.bmm(h, p["down"].to(xb.dtype))
+              full=(None, None, ff))
+    y = torch.bmm(h, p["down"].to(xb.dtype))
+    return reduce_partial(y, "mlp_in", ff, p["down"].shape[1])
 
 
 def moe_apply(p: dict, x: torch.Tensor, s: MoESpec, act: str = "silu",
@@ -199,7 +207,7 @@ def _moe(p: dict, x: torch.Tensor, s: MoESpec, act: str, g: int,
         * r["slot_valid"][..., None].to(x.dtype)
 
     y = expert_ffn(p, buf.transpose(0, 1).reshape(n_e, g * cap, d), act,
-                   nldpe)
+                   nldpe, s.d_expert_ff)
     y = y.reshape(n_e, g, cap, d).transpose(0, 1).reshape(g, n_e * cap, d)
 
     # combine: each assignment gathers its slot; dropped ones give zero

@@ -42,16 +42,35 @@ def init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sums = []
-    for _, x in flatten(tree):
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+
+    On a ``mesh`` the leaves are this rank's shards at ``specs`` (the
+    tree's placements): each leaf's local sum counts once per shard — the
+    sums of the leaves split over the same mesh axes are added, then
+    all-reduced over those axes — and a replicated leaf's once, so every
+    rank gets the norm of the whole tree."""
+    sums: dict = {}
+    spec = dict(flatten(specs)) if specs is not None else {}
+    for path, x in flatten(tree):
         flat = x.reshape(-1)
         s = torch.zeros((), dtype=torch.float32, device=x.device)
         for o, m in _chunks(flat.numel()):
             s = s + torch.sum(torch.square(flat[o:o + m].to(torch.float32)))
-        sums.append(s)
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+        axes = () if mesh is None else _split_axes(spec.get(path), mesh)
+        sums.setdefault(axes, []).append(s)
+    parts = []
+    for axes, group in sums.items():
+        t = torch.sum(torch.stack(group))
+        parts.append(mesh.all_reduce(t, axes) if axes else t)
+    return torch.sqrt(torch.sum(torch.stack(parts)))
+
+
+def _split_axes(spec, mesh) -> tuple:
+    """The mesh axes (of size > 1) a leaf's spec splits it over, in mesh
+    order."""
+    used = {a for d in range(len(spec or ())) for a in spec.axes_of(d)}
+    return tuple(a for a in mesh.shape if a in used and mesh.shape[a] > 1)
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -61,14 +80,17 @@ def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
                                                       d))
 
 
-def update(cfg: AdamWConfig, grads, state: dict, params):
+def update(cfg: AdamWConfig, grads, state: dict, params, specs=None,
+           mesh=None):
     """One AdamW step: clip ``grads`` by their global norm, then update
     ``params`` and ``state`` in place.  Returns (params, state, metrics)
-    — the same ``params`` and ``state`` objects."""
+    — the same ``params`` and ``state`` objects.  On a ``mesh`` every
+    tree holds this rank's shards at ``specs`` (``global_norm``); the
+    update is elementwise, so each rank updates its own shards."""
     metrics = {}
     scale = None
     if cfg.grad_clip_norm:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs, mesh)
         scale = clip_scale(gnorm, cfg.grad_clip_norm)
         metrics["grad_norm"] = gnorm
     step = state["step"] + 1

@@ -202,22 +202,46 @@ def serve_dshard_exact_rules(multi_pod: bool = False) -> Rules:
     return exact(serve_dshard_rules(multi_pod))
 
 
-# The tables the serve engines run: the exact ones whose slots and batch
-# rows split alike.  The others shard a contraction (partial sums, ROADMAP
-# A.2's next slice)
+# The tables the serve engines run: the exact ones, and ``serve``, whose
+# contractions ("o_heads", "mlp_in", "vocab") are partial sums combined by
+# an all-reduce (``parallel.context.reduce_partial``)
 SERVE_TABLES = {"serve_exact": serve_exact_rules,
-                "serve_dshard_exact": serve_dshard_exact_rules}
+                "serve_dshard_exact": serve_dshard_exact_rules,
+                "serve": serve_rules}
+
+# The tables the train step runs (``launch.train.build_train_step``)
+TRAIN_TABLES = {"train": train_rules, "train_fsdp": train_fsdp_rules}
+
+# What the engines do not serve yet, each with its ROADMAP.md A.2 queue item
+NOT_SERVED = {
+    "serve_dshard": "every weight is split on d_model, so kernel B's "
+                    "contraction is split: the rank must gather the gate's "
+                    "rows first (ROADMAP.md A.2 queue, item 1: serve_dshard)",
+    "long": "pages over \"data\" need kernel A per page shard merged by "
+            "parallel/cp_decode.py (ROADMAP.md A.2 queue, item 2: long and "
+            "context-parallel paged decode)"}
 
 
 def serving_rules(name: str) -> Rules:
     """The serve table ``name``; a table the engines do not serve yet
-    raises ``NotImplementedError``."""
+    raises ``NotImplementedError`` naming its ROADMAP item."""
     if name in SERVE_TABLES:
         return SERVE_TABLES[name]()
     rules_for(name)
+    if name in NOT_SERVED:
+        raise NotImplementedError(f"rule table {name!r}: {NOT_SERVED[name]}")
     raise NotImplementedError(
-        f"rule table {name!r} shards a contraction (partial sums); the "
-        f"engines serve {sorted(SERVE_TABLES)} so far (ROADMAP.md A.2)")
+        f"rule table {name!r} is a training table; the engines serve "
+        f"{sorted(SERVE_TABLES)}")
+
+
+def training_rules(rules: str) -> Rules:
+    """The train table named ``rules`` (``TRAIN_TABLES``); another name
+    raises ``ValueError``."""
+    if rules not in TRAIN_TABLES:
+        raise ValueError(f"train rule table {rules!r}: one of "
+                         f"{sorted(TRAIN_TABLES)}")
+    return TRAIN_TABLES[rules]()
 
 
 def rules_for(mode: str, multi_pod: bool = False) -> Rules:

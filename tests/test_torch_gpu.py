@@ -2092,3 +2092,68 @@ def test_fused_crossbar_acam_per_column_shard(dev, m, tp):
         got = fused_linear_acam(x, w[:, cols].contiguous(), "silu",
                                 w_max=w_max)
         assert torch.equal(got, full[:, cols]), i
+
+
+def _mesh_train_rank(steps, device):
+    """One rank of the reduced ``qwen2_5_3b`` step under ``train`` at (1,
+    2), both ranks on the one card (gloo with CUDA tensors): ``steps``
+    AdamW steps from ``_train_setup``'s masters and batch; the losses,
+    grad norms and the gathered parameters, on the host."""
+    from repro_torch.core.drift import flatten
+    from repro_torch.core.naf import unflatten
+    from repro_torch.launch.mesh import serve_mesh
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.nn.module import gather_tree, shard_tree
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _, (p, batch) = _train_setup("cpu", device)
+    mesh = serve_mesh(1, 2, device)
+    step = build_train_step(cfg, adamw.AdamWConfig(lr=1e-3), mesh=mesh,
+                            rules="train")
+    p = shard_tree(p, step.specs, mesh)
+    p = unflatten(p, [v.clone() for _, v in flatten(p)])
+    opt = adamw.init(p)
+    out = []
+    for _ in range(steps):
+        p, opt, m = step(p, opt, batch)
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+    full = gather_tree(p, step.specs, mesh)
+    return out, {"/".join(k): v.cpu().numpy() for k, v in flatten(full)}
+
+
+def test_mesh_train_step_on_card_matches_single_device(dev, monkeypatch):
+    """The (1, 2) ``train`` step on 2 ranks sharing the card (heads, FFN
+    columns and vocab split over "model", partial sums all-reduced in
+    float32) against the single-device step on the card, two steps of
+    reduced ``qwen2_5_3b`` at float32: the losses and grad norms within
+    rel 1e-5, the parameters within 0.1 lr where the single-device
+    gradient reaches 1e-6 (tests/test_torch_mesh_train.py's tolerances),
+    every rank alike."""
+    from repro_torch.core.drift import flatten
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.optim import adamw
+    steps, lr = 2, 1e-3
+    cfg, _, (p, batch) = _train_setup("cpu", dev)
+    step = build_train_step(cfg, adamw.AdamWConfig(lr=lr))
+    update, seen = adamw.update, {}
+
+    def keep(c, grads, state, params, **kw):
+        seen["grads"] = grads
+        return update(c, grads, state, params, **kw)
+    monkeypatch.setattr(adamw, "update", keep)
+    opt, want = adamw.init(p), []
+    for _ in range(steps):
+        p, opt, m = step(p, opt, batch)
+        want.append((m["loss"].item(), m["grad_norm"].item()))
+    live = {"/".join(k): g.abs().cpu().numpy() >= 1e-6
+            for k, g in flatten(seen["grads"])}
+    want_p = {"/".join(k): v.cpu().numpy() for k, v in flatten(p)}
+    for got, params in run_ranks(_mesh_train_rank, 2, (steps,),
+                                 device="cuda"):
+        for (gl, gn), (wl, wn) in zip(got, want):
+            assert gl == pytest.approx(wl, rel=1e-5)
+            assert gn == pytest.approx(wn, rel=1e-5)
+        for k, w in want_p.items():
+            diff = np.abs(params[k] - w)[live[k]]
+            assert diff.size == 0 or diff.max() <= 0.1 * lr, k

@@ -507,20 +507,23 @@ def test_spec_engine_validates_and_refuses_unported_options():
     with pytest.raises(ValueError, match="spec_k"):
         PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                          spec_k=-1, device="cpu")
-    # meshes are ported: the exact tables serve, a table that shards a
-    # contraction and drift injection under a mesh are refused
+    # meshes are ported: the exact tables and serve serve; serve_dshard
+    # and drift injection under a mesh are refused (ROADMAP A.2's queue)
     from repro_torch.launch.fidelity import DriftInjection
     from repro_torch.launch.mesh import single_device_mesh
     one = single_device_mesh()
-    for opt, why in ((dict(mesh=one, rules="serve"), "partial sums"),
-                     (dict(mesh=one, drift=DriftInjection()), "drift")):
+    for opt, why in ((dict(mesh=one, rules="serve_dshard"),
+                      "item 1: serve_dshard"),
+                     (dict(mesh=one, drift=DriftInjection()),
+                      "item 4: the async pipeline and drift")):
         with pytest.raises(NotImplementedError, match=why):
             PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                              spec_k=2, device="cpu", **opt)
-    eng = PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
-                           spec_k=2, device="cpu", mesh=one,
-                           rules="serve_exact")
-    assert eng.rules.name == "serve_exact"
+    for rules in ("serve_exact", "serve"):
+        eng = PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
+                               spec_k=2, device="cpu", mesh=one,
+                               rules=rules)
+        assert eng.rules.name == rules
     # the spill tier and prefill buckets are ported: accepted
     eng = PagedServeEngine(CFG, _params(), max_slots=1, max_len=8,
                            spec_k=2, device="cpu", host_cache_pages=4,

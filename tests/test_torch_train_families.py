@@ -182,9 +182,9 @@ def test_train_step_frees_its_trees_without_the_cycle_collector(
     grads = []
     update = T.adamw.update
 
-    def spy(cfg, g, state, params):
+    def spy(cfg, g, state, params, **kw):
         grads.append(weakref.ref(flatten(g)[0][1]))
-        return update(cfg, g, state, params)
+        return update(cfg, g, state, params, **kw)
     monkeypatch.setattr(T.adamw, "update", spy)
     pt = from_jax(j_params("qwen3_moe_30b_a3b"), device="cpu")
     st = adamw.init(pt)
